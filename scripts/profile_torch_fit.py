@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Where a training step of the PyTorch/CUDA port spends its time, on one
+NVIDIA card.
+
+    PYTHONPATH=src python3 scripts/profile_torch_fit.py [--steps 200]
+
+Trains the 30x30x784 map of ``chip_smoke.py`` (B = 16, MNIST-shaped
+stand-in data) through ``TopoMap(backend="kernel")`` and reports, after a
+warm-up:
+
+1. the wall time of each stage (search / adapt / cascade), each stage
+   timed on the host between ``torch.cuda.synchronize()`` calls;
+2. a ``torch.profiler`` trace of the same number of steps, unsynchronised:
+   device busy time (sum of kernel times) against the wall time, so the
+   device's idle share, and the kernels and host calls that take most time.
+
+The synchronised timing adds one sync per stage and so slows the step; the
+profiled run is the one whose wall time matches an ordinary fit.
+"""
+import argparse
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def timed_stages(stages, totals):
+    """The same stages, each followed by a sync and its time added up."""
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            totals[name] += time.perf_counter() - t0
+            return out
+        return run
+    return stages._replace(**{f: wrap(f, getattr(stages, f))
+                              for f in stages._fields})
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=200)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    from repro_torch.api import TopoMap
+    from repro_torch.core import afm
+    from repro_torch.data import make_dataset
+    from repro_torch.draws import GeneratorDraws
+    device = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    xtr, _, _, _ = make_dataset("mnist", device=device)
+    cfg = afm.AFMConfig(side=30, dim=784, batch=16)
+    tm = TopoMap(cfg, backend="kernel", device=device).fit(xtr, num_steps=100)
+    state, backend = tm.state_, tm.backend
+
+    totals = defaultdict(float)
+    stages = timed_stages(backend.stages, totals)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, aux = afm.train(state, xtr, GeneratorDraws(1, device), cfg,
+                       num_steps=args.steps, stages=stages)
+    wall = time.perf_counter() - t0
+    waves = int(aux.waves.sum())
+    print(f"synchronised stages, {args.steps} steps, {waves} waves: "
+          f"{wall * 1e3 / args.steps:.3f} ms/step")
+    for name, sec in totals.items():
+        print(f"  {name:8s} {sec * 1e3 / args.steps:.3f} ms/step "
+              f"({100 * sec / wall:.1f} %)")
+    print(f"  cascade per wave {totals['cascade'] * 1e3 / max(waves, 1):.3f} ms")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _, aux = afm.train(state, xtr, GeneratorDraws(2, device), cfg,
+                           num_steps=args.steps, stages=backend.stages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0],
+            "self_device_time_total") else "self_cuda_time_total")
+    device_us = sum(getattr(e, attr) for e in events)
+    print(f"profiled, {args.steps} steps, {int(aux.waves.sum())} waves: wall "
+          f"{wall * 1e3 / args.steps:.3f} ms/step, device busy "
+          f"{device_us / 1e3 / args.steps:.3f} ms/step, idle share "
+          f"{100 * (1 - device_us / 1e6 / wall):.1f} %")
+    print(events.table(sort_by=attr, row_limit=12))
+    print(events.table(sort_by="self_cpu_time_total", row_limit=12))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

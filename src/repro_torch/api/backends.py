@@ -1,0 +1,193 @@
+"""Execution backends for the port's ``TopoMap``, port of
+``repro.api.backends``.
+
+A backend owns *how* the AFM step runs, while the dynamics stay the shared
+injectable stages of ``repro_torch.core.afm``. Backends register under a
+string key:
+
+=============  ==============================================================
+``reference``  Faithful per-sample dynamics (B = 1), plain PyTorch.
+``batched``    Bulk-asynchronous: B relay-race searches per step.
+``kernel``     The counterpart of the JAX ``pallas`` backend: exact search
+               through the CUDA BMU kernel and cascade counter waves through
+               the CUDA cascade-wave kernel; on CPU tensors both wrappers run
+               their plain versions.
+=============  ==============================================================
+
+Every backend implements the ``Backend`` protocol:
+
+- ``init(draws, samples)``            -> backend-native state
+- ``step(state, samples, draws)``     -> one training step (``partial_fit``)
+- ``run(state, data, draws, steps)``  -> training loop (``fit``)
+- ``to_dense(state)`` / ``from_dense(state)`` -> the dense ``AFMState``
+- ``bmu(w, samples)``                 -> the backend's exact-BMU path
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core import afm
+from repro_torch.core import search as search_lib
+from repro_torch.core.afm import AFMConfig, AFMState
+from repro_torch.device import resolve_device
+from repro_torch.kernels.bmu import ops as bmu_ops
+from repro_torch.kernels.cascade import ops as cascade_ops
+
+BACKENDS: dict[str, type] = {}
+
+
+def register_backend(name: str):
+    """Class decorator: ``@register_backend("batched")``."""
+    def deco(cls):
+        cls.name = name
+        BACKENDS[name] = cls
+        return cls
+    return deco
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(BACKENDS))
+
+
+def get_backend(name: str, cfg: AFMConfig, **options):
+    """Instantiate a registered backend for ``cfg``."""
+    try:
+        cls = BACKENDS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown backend {name!r}; available: {available_backends()}"
+        ) from None
+    return cls(cfg, **options)
+
+
+@runtime_checkable
+class Backend(Protocol):
+    name: str
+    cfg: AFMConfig
+    device: torch.device
+
+    def init(self, draws, samples: torch.Tensor | None = None) -> Any: ...
+    def step(self, state: Any, samples: torch.Tensor, draws): ...
+    def run(self, state: Any, data: torch.Tensor, draws,
+            num_steps: int | None = None): ...
+    def to_dense(self, state: Any) -> AFMState: ...
+    def from_dense(self, state: AFMState) -> Any: ...
+    def bmu(self, w: torch.Tensor, samples: torch.Tensor): ...
+
+
+def _stages_for(search: str, cascade_wave_fn=None) -> afm.Stages:
+    if search == "heuristic":
+        base = afm.DEFAULT_STAGES
+    elif search == "exact":
+        base = afm.EXACT_STAGES
+    else:
+        raise ValueError(f"search must be 'heuristic' or 'exact', got {search!r}")
+    if cascade_wave_fn is None:
+        return base
+    return base._replace(cascade=functools.partial(
+        afm.cascade_default, wave_fn=cascade_wave_fn))
+
+
+class _DenseBackend:
+    """Shared dense-state machinery: init / step loop / conversions."""
+
+    def __init__(self, cfg: AFMConfig, *, search: str = "heuristic",
+                 device: torch.device | str | None = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.stages = _stages_for(search)
+
+    def init(self, draws, samples=None) -> AFMState:
+        return afm.init(draws, self.cfg, samples)
+
+    def step(self, state, samples, draws):
+        return afm.train_step_batch(state, samples, draws, self.cfg,
+                                    stages=self.stages)
+
+    def run(self, state, data, draws, num_steps=None):
+        return afm.train(state, data, draws, self.cfg, num_steps=num_steps,
+                         stages=self.stages)
+
+    def to_dense(self, state: AFMState) -> AFMState:
+        return state
+
+    def from_dense(self, state: AFMState) -> AFMState:
+        return state
+
+    def bmu(self, w, samples):
+        return search_lib.exact_bmu(w, samples)
+
+
+@register_backend("batched")
+class BatchedBackend(_DenseBackend):
+    """Bulk-asynchronous training: ``cfg.batch`` samples in flight per step."""
+
+
+@register_backend("reference")
+class ReferenceBackend(_DenseBackend):
+    """Faithful B = 1 dynamics: one sample, one relay race, one cascade per
+    step, whatever ``cfg.batch`` says. Consumes the same total sample budget
+    as ``batched`` and is bit-identical to it when ``cfg.batch == 1``."""
+
+    def __init__(self, cfg: AFMConfig, *, search: str = "heuristic",
+                 device: torch.device | str | None = None):
+        super().__init__(dataclasses.replace(cfg, batch=1), search=search,
+                         device=device)
+
+    def step(self, state, samples, draws):
+        """Consume a (B, D) batch strictly sequentially (B per-sample steps);
+        aux comes back stacked per sample."""
+        auxes = []
+        for sample in samples:
+            state, aux = afm.train_step(state, sample, draws, self.cfg,
+                                        stages=self.stages)
+            auxes.append(aux)
+        return state, afm.stack_aux(auxes)
+
+
+@register_backend("kernel")
+class KernelBackend(_DenseBackend):
+    """Training through the CUDA kernels: exact-BMU search via
+    ``kernels.bmu.ops.bmu`` and cascade counter waves via
+    ``kernels.cascade.ops.cascade_wave``. ``search='heuristic'`` keeps the
+    paper's relay race and uses the kernel only for the cascade.
+
+    ``kernel`` picks the step's execution: ``'staged'`` (BMU kernel, plain
+    adapt, cascade kernel per wave) is the one ported so far.
+
+    ``precision`` picks the distance tier of the training search:
+    ``'exact'`` (f32) or ``'bf16'``. ``bmu()``, which serves inference,
+    always stays on the exact tier.
+    """
+
+    def __init__(self, cfg: AFMConfig, *, search: str = "exact",
+                 kernel: str = "staged", precision: str = "exact",
+                 device: torch.device | str | None = None):
+        if kernel == "fused":
+            raise ValueError("kernel='fused' (the whole-step megakernel) is "
+                             "not ported yet; use kernel='staged'")
+        if kernel != "staged":
+            raise ValueError(f"kernel must be 'staged', got {kernel!r}")
+        if precision not in bmu_ops.PRECISIONS:
+            raise ValueError(f"precision must be one of "
+                             f"{bmu_ops.PRECISIONS}, got {precision!r}")
+        super().__init__(cfg, search=search, device=device)
+        self.precision = precision
+        self.stages = _stages_for(search,
+                                  cascade_wave_fn=cascade_ops.cascade_wave)
+        if search == "exact":
+            self.stages = self.stages._replace(search=self._search_stage)
+
+    def _search_stage(self, state, samples, draws, cfg):
+        del draws, cfg
+        idx, q2 = bmu_ops.bmu(state.w, samples, precision=self.precision)
+        zeros = torch.zeros(samples.shape[:1], dtype=torch.int32,
+                            device=samples.device)
+        return search_lib.SearchResult(idx, q2, zeros, zeros)
+
+    def bmu(self, w, samples):
+        return bmu_ops.bmu(w, samples)

@@ -1,0 +1,6 @@
+"""Core AFM library of the port: the paper's dynamics as PyTorch functions."""
+from repro_torch.core.afm import (AFMConfig, AFMState, init, train,
+                                  train_step, train_step_batch)
+
+__all__ = ["AFMConfig", "AFMState", "init", "train", "train_step",
+           "train_step_batch"]

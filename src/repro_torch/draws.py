@@ -1,0 +1,90 @@
+"""Draw sources: where every random number of a training step comes from.
+
+The JAX package threads PRNG keys; the port threads one *draw source* in
+their place. A step asks it for its draws in a fixed order, the order in
+which the JAX step consumes its key chain:
+
+1. search (heuristic only): ``randint(0, N, (B,))`` start units, then
+   ``randint(0, phi + 1, (e, B))`` exploration hops;
+2. drive: ``uniform((8, side, side))``;
+3. each cascade wave: ``uniform((4, side, side))``.
+
+``afm.train`` draws ``randint(0, num_samples, (B,))`` sample indices before
+each step. ``GeneratorDraws`` is the production source (a ``torch.Generator``
+on the step's device); ``ReplayDraws`` hands out given arrays in order, so a
+test can feed the port exactly the numbers a JAX key chain produced.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Iterable, Protocol
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+class Draws(Protocol):
+    device: torch.device
+
+    def randint(self, low: int, high: int, shape: tuple[int, ...]
+                ) -> torch.Tensor: ...       # int64 in [low, high)
+    def uniform(self, shape: tuple[int, ...]) -> torch.Tensor: ...  # f32 [0,1)
+    def normal(self, shape: tuple[int, ...]) -> torch.Tensor: ...   # f32 N(0,1)
+
+
+class GeneratorDraws:
+    """Draws from a seeded ``torch.Generator`` on ``device``."""
+
+    def __init__(self, seed: int = 0, device: torch.device | str | None = None):
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def randint(self, low, high, shape):
+        return torch.randint(int(low), int(high), tuple(shape),
+                             generator=self.generator, device=self.device)
+
+    def uniform(self, shape):
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=self.device, dtype=torch.float32)
+
+    def normal(self, shape):
+        return torch.randn(tuple(shape), generator=self.generator,
+                           device=self.device, dtype=torch.float32)
+
+
+class ReplayDraws:
+    """Hands out pre-drawn arrays in order; each request must match the
+    next array's shape (and, for ``randint``, its range), else it raises."""
+
+    def __init__(self, arrays: Iterable, device: torch.device | str = "cpu"):
+        self.device = torch.device(device)
+        self._queue = collections.deque(np.asarray(a) for a in arrays)
+
+    def __len__(self) -> int:
+        return len(self._queue)
+
+    def _next(self, kind: str, shape) -> np.ndarray:
+        if not self._queue:
+            raise IndexError(f"replay exhausted: {kind}{tuple(shape)} requested")
+        arr = self._queue.popleft()
+        if arr.shape != tuple(shape):
+            raise ValueError(f"replay mismatch: {kind}{tuple(shape)} requested,"
+                             f" next array has shape {arr.shape}")
+        return arr
+
+    def randint(self, low, high, shape):
+        arr = self._next("randint", shape)
+        if arr.size and (arr.min() < low or arr.max() >= high):
+            raise ValueError(f"replayed randint outside [{low}, {high})")
+        return torch.as_tensor(arr.astype(np.int64), device=self.device)
+
+    def uniform(self, shape):
+        arr = self._next("uniform", shape)
+        return torch.as_tensor(arr.astype(np.float32), device=self.device)
+
+    def normal(self, shape):
+        arr = self._next("normal", shape)
+        return torch.as_tensor(arr.astype(np.float32), device=self.device)

@@ -1,0 +1,193 @@
+"""The port's kernel wrappers against the JAX package's kernels, on the CPU.
+
+On CPU tensors each wrapper runs its plain PyTorch version; the JAX side
+runs the real Pallas kernel body in interpret mode (as ``tests/test_kernels.py``
+does) for a few shapes and its jnp oracle for the rest. Tiers:
+
+- ``bmu``: ULP-bounded q2 (relative to |s|^2 + |w|^2) and equal indices
+  except within that bound of a tie; planted exact ties go to the lower
+  index on both sides. bf16 tier: the same, since both round the inputs to
+  bf16 and accumulate in f32.
+- ``cascade_wave``: bitwise (all integer).
+
+The CUDA kernels themselves run only on the card: ``tests/test_torch_gpu.py``
+skips here, and ``chip_smoke.py`` holds each kernel against its plain version.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # the port needs PyTorch
+
+from repro.kernels.bmu import ops as jbmu_ops
+from repro.kernels.cascade import ops as jcas_ops
+from repro_torch.kernels.bmu import ops as bmu_ops
+from repro_torch.kernels.cascade import ops as cas_ops
+from torch_parity import assert_bmu_tier, t
+
+# (n, b, d, interpret): ragged shapes; interpret runs the Pallas kernel body
+BMU_SHAPES = [(37, 5, 13, True), (64, 16, 36, False), (130, 33, 8, True),
+              (9, 1, 20, False), (200, 70, 31, False)]
+
+
+def _bmu_inputs(n, b, d, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((n, d)).astype(np.float32)
+    s = rng.standard_normal((b, d)).astype(np.float32)
+    return w, s
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16"])
+@pytest.mark.parametrize("n,b,d,interpret", BMU_SHAPES)
+def test_bmu_matches_jax(n, b, d, interpret, precision):
+    w, s = _bmu_inputs(n, b, d, seed=n * 31 + b)
+    if interpret:
+        ij, qj = jbmu_ops.bmu(jnp.asarray(w), jnp.asarray(s), use_pallas=True,
+                              interpret=True, precision=precision)
+    else:
+        ij, qj = jbmu_ops.bmu(jnp.asarray(w), jnp.asarray(s), use_pallas=False,
+                              precision=precision)
+    it, qt = bmu_ops.bmu(t(w), t(s), precision=precision)
+    assert it.dtype == torch.int32 and qt.dtype == torch.float32
+    assert it.shape == (b,) and qt.shape == (b,)
+    assert_bmu_tier(it, qt, ij, qj, w, s)
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16"])
+def test_bmu_planted_ties_take_lowest_index(precision):
+    """Duplicated unit rows give bitwise-equal distances; both packages must
+    return the lower of the two indices."""
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((37, 13)).astype(np.float32)
+    pairs = rng.choice(37, (6, 2), replace=False)
+    lo, hi = pairs.min(axis=1), pairs.max(axis=1)
+    w[hi] = w[lo]
+    s = w[hi] + np.float32(1e-3) * rng.standard_normal((6, 13)).astype(
+        np.float32)
+    ij, _ = jbmu_ops.bmu(jnp.asarray(w), jnp.asarray(s), use_pallas=False,
+                         precision=precision)
+    it, _ = bmu_ops.bmu(t(w), t(s), precision=precision)
+    np.testing.assert_array_equal(np.asarray(ij), lo)
+    np.testing.assert_array_equal(it.numpy(), lo)
+
+
+def test_bmu_bf16_tier_polishes_q2_exactly():
+    """The bf16 tier ranks with bf16 products, but its q2 is the exact-f32
+    distance to the unit it picked."""
+    w, s = _bmu_inputs(90, 40, 784, seed=3)
+    idx, q2 = bmu_ops.bmu(t(w), t(s), precision="bf16")
+    d = w[idx.numpy()] - s
+    np.testing.assert_allclose(q2.numpy(), (d * d).sum(-1), rtol=1e-5)
+    ie, _ = bmu_ops.bmu(t(w), t(s))
+    assert (idx == ie).float().mean() >= 0.95
+
+
+def test_bmu_wrapper_validates():
+    w, s = _bmu_inputs(8, 3, 4, seed=0)
+    with pytest.raises(ValueError, match="precision"):
+        bmu_ops.bmu(t(w), t(s), precision="fp8")
+    with pytest.raises(ValueError, match="float32"):
+        bmu_ops.bmu(t(w).double(), t(s))
+    with pytest.raises(ValueError, match=r"\(N, D\)"):
+        bmu_ops.bmu(t(w), t(s)[:, :3])
+    idx, q2 = bmu_ops.bmu(t(w), t(s)[:0])
+    assert idx.shape == (0,) and q2.shape == (0,)
+
+
+def _wave_inputs(side, theta, p, seed):
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, theta + 2, (side, side)).astype(np.int32)
+    fired = rng.random((side, side)) < 0.25
+    bern = rng.random((4, side, side)) < p
+    return c, fired, bern
+
+
+@pytest.mark.parametrize("side,theta,p,interpret", [
+    (7, 4, 0.7, True), (30, 4, 0.9, True), (5, 2, 1.0, False),
+    (12, 6, 0.3, False), (1, 4, 0.5, False)])
+def test_cascade_wave_matches_jax_bitwise(side, theta, p, interpret):
+    c, fired, bern = _wave_inputs(side, theta, p, seed=side + theta)
+    jout = jcas_ops.cascade_wave(jnp.asarray(c), jnp.asarray(fired),
+                                 jnp.asarray(bern), theta,
+                                 use_pallas=interpret, interpret=interpret)
+    tout = cas_ops.cascade_wave(t(c), t(fired), t(bern), theta)
+    assert [x.dtype for x in tout] == [torch.int32, torch.bool, torch.int32]
+    for a, b in zip(jout, tout):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_cascade_wave_wrapper_validates():
+    c, fired, bern = _wave_inputs(5, 4, 0.5, seed=0)
+    with pytest.raises(ValueError, match="int32"):
+        cas_ops.cascade_wave(t(c).long(), t(fired), t(bern), 4)
+    with pytest.raises(ValueError, match=r"\(4, n, n\)"):
+        cas_ops.cascade_wave(t(c), t(fired), t(bern)[:3], 4)
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so the wrappers take their
+    kernel route here, where no card exists."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda_like(x):
+    return t(x).as_subclass(_FakeCuda)
+
+
+def test_wrappers_raise_when_the_library_cannot_be_built(monkeypatch):
+    """On CUDA tensors a wrapper launches its kernel or raises; it never
+    falls back to the plain version."""
+    from repro_torch.kernels import _build
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    w, s = _bmu_inputs(8, 3, 4, seed=0)
+    before = (bmu_ops.launches, cas_ops.launches)
+    for precision in bmu_ops.PRECISIONS:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            bmu_ops.bmu(_cuda_like(w), _cuda_like(s), precision=precision)
+    c, fired, bern = _wave_inputs(5, 4, 0.5, seed=0)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cas_ops.cascade_wave(_cuda_like(c), _cuda_like(fired),
+                             _cuda_like(bern), 4)
+    assert (bmu_ops.launches, cas_ops.launches) == before
+
+
+def test_wrappers_reject_mixed_devices():
+    w, s = _bmu_inputs(8, 3, 4, seed=0)
+    with pytest.raises(ValueError, match="device"):
+        bmu_ops.bmu(t(w), _cuda_like(s))
+
+
+def test_find_nvcc_raises_a_clear_message(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.find_nvcc()
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "bin" / "nvcc").write_text("")
+    assert _build.find_nvcc() == str(tmp_path / "bin" / "nvcc")
+
+
+def test_library_name_follows_the_sources(tmp_path):
+    """An edit to a kernel source renames (and so rebuilds) the library."""
+    from repro_torch.kernels import _build
+    srcs = _build.sources()
+    assert {p.parent.name for p in srcs} >= {"bmu", "cascade"}
+    copies = []
+    for src in srcs:
+        dst = tmp_path / src.parent.name / src.name
+        dst.parent.mkdir()
+        dst.write_bytes(src.read_bytes())
+        copies.append(dst)
+    name = _build.library_path(copies).name
+    assert name == _build.library_path(srcs).name
+    copies[0].write_bytes(copies[0].read_bytes() + b"\n// edit\n")
+    assert _build.library_path(copies).name != name

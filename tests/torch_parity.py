@@ -1,0 +1,93 @@
+"""Helpers shared by the port's parity tests (``tests/test_torch_*.py``).
+
+The JAX package and the port run on the same numpy inputs in one process.
+The port takes its random numbers from a ``ReplayDraws`` fed with the draws
+that JAX's own key chain produces, built here from ``jax.random`` in the
+test process (never from ``tests/golden``), in the order the port asks.
+"""
+import jax
+import numpy as np
+import torch
+
+from repro_torch.draws import ReplayDraws
+from repro_torch.kernels.bmu import ref as bmu_ref
+
+F32_EPS = float(np.finfo(np.float32).eps)
+
+# the suite runs in parallel worker processes; one PyTorch thread each keeps
+# them from oversubscribing the cores (the inputs here are small)
+torch.set_num_threads(1)
+
+
+def cascade_draws(key, side: int, waves: int) -> list:
+    """``drive_and_cascade``'s draws: the 8-draw drive, then one
+    ``split`` + ``uniform((4, side, side))`` per wave."""
+    k0, key = jax.random.split(key)
+    out = [jax.random.uniform(k0, (8, side, side))]
+    for _ in range(waves):
+        key, sub = jax.random.split(key)
+        out.append(jax.random.uniform(sub, (4, side, side)))
+    return out
+
+
+def search_draws(key, n: int, phi: int, b: int, e: int) -> list:
+    """``exploration_phase``'s draws: start units, then all e hop choices."""
+    k0, k1 = jax.random.split(key)
+    return [jax.random.randint(k0, (b,), 0, n),
+            jax.vmap(lambda k: jax.random.randint(k, (b,), 0, phi + 1))(
+                jax.random.split(k1, e))]
+
+
+def step_draws(key, cfg, b: int, *, heuristic: bool, waves: int) -> list:
+    """The draws one JAX ``afm._step`` consumes, in the port's order."""
+    k_search, k_cascade = jax.random.split(key)
+    out = search_draws(k_search, cfg.n_units, cfg.phi, b, cfg.e) \
+        if heuristic else []
+    return out + cascade_draws(k_cascade, cfg.side, waves)
+
+
+def train_draws(key, cfg, n_data: int, num_steps: int, waves, *,
+                heuristic: bool) -> list:
+    """``afm.train``'s draws: per step the sample indices, then the step's."""
+    out = []
+    for t, k in enumerate(jax.random.split(key, num_steps)):
+        ks, kd = jax.random.split(k)
+        out.append(jax.random.randint(kd, (cfg.batch,), 0, n_data))
+        out += step_draws(ks, cfg, cfg.batch, heuristic=heuristic,
+                          waves=int(waves[t]))
+    return out
+
+
+def replay(arrays) -> ReplayDraws:
+    return ReplayDraws([np.asarray(a) for a in arrays], device="cpu")
+
+
+def t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def assert_bmu_tier(idx, q2, idx_ref, q2_ref, w, s):
+    """ULP tier of a BMU result against a reference on the same f32 inputs:
+    q2 within ``tie_bound`` (relative to |s|^2 + |w|^2, as the expanded form
+    cancels those terms), and the same index except where the exact top-two
+    gap lies within that bound."""
+    w, s = t(w), t(s)
+    bound = bmu_ref.tie_bound(w, s).numpy()
+    idx, idx_ref = np.asarray(idx), np.asarray(idx_ref)
+    q2, q2_ref = np.asarray(q2), np.asarray(q2_ref)
+    differ = idx != idx_ref
+    if differ.any():
+        gap = bmu_ref.top2_gap(w, s).numpy()
+        assert np.all(gap[differ] <= bound[differ]), (
+            np.flatnonzero(differ), gap[differ], bound[differ])
+    assert np.all(np.abs(q2 - q2_ref) <= bound), np.max(np.abs(q2 - q2_ref))
+
+
+def jax_cfg(**kw):
+    from repro.core.afm import AFMConfig
+    return AFMConfig(**kw)
+
+
+def torch_cfg(**kw):
+    from repro_torch.core.afm import AFMConfig
+    return AFMConfig(**kw)
