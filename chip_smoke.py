@@ -11,11 +11,17 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    main path's shapes and at ragged ones;
 4. checks that the adapt and cascade stages of a full-width step on the card
    agree with the same stages on the CPU (same inputs, same draws);
-5. trains a 30x30 map on 784-d MNIST-shaped data through
+5. holds the fused training-step kernel against its plain version on the
+   card (main-path and ragged shapes; GMUs given, exact and bf16 search; a
+   wave budget cut by ``max_waves``; a cascade that outlives the kernel's
+   wave block and finishes in the tail loop), and a fused step against a
+   staged step from one state on replayed draws;
+6. trains a 30x30 map on 784-d MNIST-shaped data through
    ``TopoMap(backend="kernel")`` and queries it with the 10,000 test
-   samples, counting the kernel launches of that run;
-6. times each kernel beside its bound, its plain version and a library call;
-7. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
+   samples, counting the kernel launches of that run; then trains it again
+   through ``backend_options={"kernel": "fused"}``;
+7. times each kernel beside its bound, its plain version and a library call;
+8. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -198,29 +204,273 @@ def check_step_stages(device, xtr):
           f"{bound:.3g}")
 
 
-def main_path(device, xtr, ytr, xte, yte, steps):
-    """Phase 5: train and query through the entry points a user calls.
-    Returns the quality, the rates and the launch counts of this run."""
+def _search_tier_ok(idx, q2, idx_r, q2_r, w, s, precision, what):
+    """A fused search result against its plain version: indices equal
+    except within ``tie_bound`` of a tie (for the bf16 tier a tie of the
+    bf16-rounded distances, which that tier ranks by); q2 within
+    ``tie_bound`` where the indices agree. Returns (max |dq2|, whether
+    every index agrees)."""
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    bound = bmu_ref.tie_bound(w, s)
+    differ = idx != idx_r
+    if bool(differ.any()):
+        rw, rs = (w, s) if precision == "exact" else (
+            w.bfloat16().float(), s.bfloat16().float())
+        gap = bmu_ref.top2_gap(rw, rs)
+        if not bool((gap[differ] <= bound[differ]).all()):
+            raise AssertionError(f"fused {what}: GMUs differ away from ties")
+    err = (q2 - q2_r).abs()[~differ]
+    if not bool((err <= bound[~differ]).all()):
+        raise AssertionError(f"fused {what}: q2 off by {float(err.max())}")
+    return (float(err.max()) if err.numel() else 0.0), not bool(differ.any())
+
+
+def _fused_same(out, ref, what):
+    """Integers bitwise; w within 8 (1 + waves) f32 ULP of max|w|, the bound
+    of the stage-parity phase. Returns max |dw| and the wave count."""
+    names = ("c", "fired", "stats", "recv")
+    for name, a, r in zip(names, out[1:5], ref[1:5]):
+        if not torch.equal(a, r):
+            raise AssertionError(f"fused {what}: {name} not bitwise equal")
+    waves = int(ref[3][1])
+    if not bool(torch.isfinite(out[0]).all() & torch.isfinite(ref[0]).all()):
+        raise AssertionError(f"fused {what}: non-finite weights")
+    dw = float((out[0] - ref[0]).abs().max())
+    bound = (8 * (1 + waves) * torch.finfo(torch.float32).eps
+             * float(ref[0].abs().max()))
+    if dw > bound:
+        raise AssertionError(f"fused {what}: |dw| {dw} > {bound}")
+    return dw, waves
+
+
+def fused_inputs(gen, side, d, b, w_cap, device, theta=4, p=0.9):
+    """Random fused-step inputs with counters just below ``theta``, so the
+    drive sets off cascades; drawn on the CPU (``gen``) and moved to
+    ``device``, so a CPU rehearsal sees the same numbers."""
+    n = side * side
+    out = (torch.rand(n, d, generator=gen),
+           torch.randint(max(theta - 2, 0), theta, (side, side), generator=gen,
+                         dtype=torch.int32),
+           torch.rand(b, d, generator=gen),
+           torch.rand(8, side, side, generator=gen) < p,
+           torch.rand(w_cap, 4, side, side, generator=gen) < p,
+           torch.randint(0, n, (b,), generator=gen, dtype=torch.int32))
+    return tuple(x.to(device) for x in out)
+
+
+def check_fused_kernel(device):
+    """Phase 5a: the fused kernel against its plain version, both on the
+    card, same inputs: GMUs given, exact and bf16 search, at the main
+    path's shape and a ragged one, with the budget cut below the wave block
+    (``max_waves < wave_cap``) and with the front still alive after it.
+    Integers bitwise, GMUs and q2 within the tie bound, w within the stage
+    bound. Where a search picks another unit inside the tie bound, the
+    plain version is run again with the kernel's GMUs."""
+    from repro_torch.kernels.fused import ops as fused_ops
+    from repro_torch.kernels.fused import ref as fused_ref
+    gen = torch.Generator().manual_seed(SEED + 5)
+    worst = {"dw": 0.0, "dq2": 0.0}
+    cases = []
+    for side, d, b in ((30, 784, 16), (7, 13, 5)):
+        for precision in ("given", "exact", "bf16"):
+            cases.append((side, d, b, precision, 16, 16, 4))
+    cases += [(30, 784, 16, "exact", 16, 5, 2),    # max_waves 5 < wave_cap
+              (7, 13, 5, "given", 3, 3, 2)]        # front outlives 3 waves
+    for side, d, b, precision, w_cap, budget, theta in cases:
+        w, c, s, drive, bern, gmu = fused_inputs(gen, side, d, b, w_cap,
+                                                 device, theta=theta)
+        given = gmu if precision == "given" else None
+        tier = "exact" if precision == "given" else precision
+        what = (f"side {side} D={d} B={b} {precision} cap {w_cap} budget "
+                f"{budget}")
+        kw = dict(theta=theta, budget=budget, precision=tier)
+        out = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, given,
+                                   **kw)
+        ref = fused_ref.fused_step_ref(w, c, s, 0.05, 0.3, drive, bern, given,
+                                       **kw)
+        torch.cuda.synchronize()
+        note = ""
+        if given is None:
+            dq2, agree = _search_tier_ok(out[5], out[6], ref[5], ref[6], w, s,
+                                         tier, what)
+            worst["dq2"] = max(worst["dq2"], dq2)
+            if not agree:
+                ref = fused_ref.fused_step_ref(w, c, s, 0.05, 0.3, drive,
+                                               bern, out[5], **kw)
+                note = " (a near-tie GMU differed; plain rerun on its GMUs)"
+        dw, waves = _fused_same(out, ref, what)
+        worst["dw"] = max(worst["dw"], dw)
+        alive = int(out[2].sum())
+        if budget < w_cap and waves != budget:
+            raise AssertionError(f"fused {what}: budget not reached")
+        if (side, w_cap) == (7, 3) and not alive:
+            raise AssertionError(f"fused {what}: the front did not outlive "
+                                 f"the block")
+        print(f"fused {what}: {int(out[3][0])} firings in {waves} waves, "
+              f"{alive} still firing; integers bitwise, max|dw| {dw:.3g}"
+              f"{note}")
+    return worst
+
+
+def check_fused_parts(device, xtr):
+    """Phase 5b: the step op with its tail, on the card (fused kernel, then
+    the cascade kernel per tail wave) against the plain versions on the CPU,
+    from one state and the same draws: a cascade that outlives a 4-wave
+    block, and one cut by ``max_waves`` 3 < ``wave_cap``. The schedule is
+    taken half-way through training (l_c = 0.5)."""
+    from repro_torch.core import afm
+    from repro_torch.core import search as search_lib
+    from repro_torch.kernels.fused import ops as fused_ops
+    for max_waves, wave_cap in ((None, 4), (3, 16)):
+        cfg = afm.AFMConfig(side=30, dim=784, batch=16, max_waves=max_waves)
+        theta = cfg.theta
+        state = afm.init(HostDraws(SEED, "cpu"), cfg, xtr[:4096].cpu())
+        gen = torch.Generator().manual_seed(SEED + wave_cap)
+        c = torch.randint(theta - 2, theta, (cfg.n_units,), generator=gen,
+                          dtype=torch.int32)
+        samples = xtr[:cfg.batch].cpu()
+        l_c, p_i = afm.schedule_values(cfg.total_samples // 2, cfg)
+        what = f"step, max_waves {max_waves}, wave_cap {wave_cap}"
+
+        def run(dev, search_result=None):
+            return fused_ops.fused_step_parts(
+                state.w.to(dev), c.to(dev), samples.to(dev),
+                HostDraws(SEED + 2, dev), cfg, l_c=l_c, p_i=p_i,
+                wave_cap=wave_cap, search_result=search_result)
+
+        gpu, cpu = run(device), run("cpu")
+        _search_tier_ok(gpu.gmu.cpu(), gpu.q2.cpu(), cpu.gmu, cpu.q2,
+                        state.w, samples, "exact", what)
+        if not torch.equal(cpu.gmu, gpu.gmu.cpu()):
+            # a near tie: the CPU run again on the card's GMUs
+            zeros = torch.zeros_like(cpu.gmu)
+            cpu = run("cpu", search_lib.SearchResult(gpu.gmu.cpu(), cpu.q2,
+                                                     zeros, zeros))
+        for name in ("c", "size", "waves", "recv"):
+            if not torch.equal(getattr(cpu, name),
+                               getattr(gpu, name).cpu()):
+                raise AssertionError(f"fused {what}: {name} differs")
+        waves = int(cpu.waves)
+        if not bool(torch.isfinite(cpu.w).all() & torch.isfinite(gpu.w).all()):
+            raise AssertionError(f"fused {what}: non-finite weights")
+        dw = float((cpu.w - gpu.w.cpu()).abs().max())
+        bound = (8 * (1 + waves) * torch.finfo(torch.float32).eps
+                 * float(cpu.w.abs().max()))
+        if dw > bound:
+            raise AssertionError(f"fused {what}: |dw| {dw} > {bound}")
+        limit = fused_ops.wave_budget(cfg)
+        if max_waves is None and waves <= wave_cap:
+            raise AssertionError(f"fused {what}: no tail ({waves} waves)")
+        if max_waves is not None and waves != limit:
+            raise AssertionError(f"fused {what}: {waves} waves, expected the "
+                                 f"cap {limit}")
+        print(f"fused {what}: {int(cpu.size)} firings in {waves} waves on "
+              f"both; integers bitwise, max|dw| {dw:.3g} <= {bound:.3g}")
+
+
+def check_fused_vs_staged(device, xtr):
+    """Phase 5c: one fused step against one staged step on the card, from
+    one state, replaying the same per-wave arrays: the staged path takes
+    them one at a time, the fused path the first ``wave_cap`` stacked and
+    the rest one per tail wave, half-way through the schedule. Integers
+    bitwise, w within the stage bound."""
+    import numpy as np
+    from repro_torch.api.backends import get_backend
+    from repro_torch.core import afm
+    from repro_torch.core import search as search_lib
+    from repro_torch.draws import ReplayDraws
+    from repro_torch.kernels.fused import ops as fused_ops
+    cfg = afm.AFMConfig(side=30, dim=784, batch=16)
+    side, cap = cfg.side, fused_ops.DEFAULT_WAVE_CAP
+    state = afm.init(HostDraws(SEED, device), cfg, xtr[:4096])
+    rng = np.random.default_rng(SEED)
+    c = rng.integers(cfg.theta - 2, cfg.theta, cfg.n_units)
+    state = state._replace(c=torch.as_tensor(c, dtype=torch.int32,
+                                             device=device),
+                           i=cfg.total_samples // 2)
+    samples = xtr[16:32].contiguous()
+    drive = rng.random((8, side, side), dtype=np.float32)
+    waves = list(rng.random((400, 4, side, side), dtype=np.float32))
+    staged = get_backend("kernel", cfg, device=device).stages
+    fused = get_backend("kernel", cfg, kernel="fused", device=device).stages
+    draws_f = ReplayDraws([drive, np.stack(waves[:cap])] + waves[cap:],
+                          device=device)
+    fnew, faux = afm._step(state, samples, draws_f, cfg, fused)
+    staged_search = staged.search(state, samples, None, cfg)
+    if not torch.equal(staged_search.gmu, faux.gmu):
+        # a near tie between the two searches: hand the fused GMUs to the
+        # staged step, so its integers can still be held bitwise
+        zeros = torch.zeros_like(faux.gmu)
+        staged = staged._replace(search=lambda *a: search_lib.SearchResult(
+            faux.gmu, faux.q2, zeros, zeros))
+    draws_s = ReplayDraws([drive] + waves, device=device)
+    snew, saux = afm._step(state, samples, draws_s, cfg, staged)
+    n_waves = int(saux.waves)
+    if (len(draws_s) != len(waves) - n_waves or n_waves >= len(waves)
+            or len(draws_f) != len(waves) - max(cap, n_waves)):
+        raise AssertionError("fused vs staged: the replays were not consumed "
+                             "as the draw order says")
+    for name in ("gmu", "cascade_size", "waves"):
+        if not torch.equal(getattr(saux, name).cpu(),
+                           getattr(faux, name).cpu()):
+            raise AssertionError(f"fused vs staged: {name} differs")
+    if not torch.equal(snew.c, fnew.c):
+        raise AssertionError("fused vs staged: counters differ")
+    if not bool(torch.isfinite(snew.w).all() & torch.isfinite(fnew.w).all()):
+        raise AssertionError("fused vs staged: non-finite weights")
+    dw = float((snew.w - fnew.w).abs().max())
+    bound = (8 * (1 + n_waves) * torch.finfo(torch.float32).eps
+             * float(snew.w.abs().max()))
+    if dw > bound:
+        raise AssertionError(f"fused vs staged: |dw| {dw} > {bound}")
+    print(f"fused vs staged step: {int(saux.cascade_size)} firings in "
+          f"{n_waves} waves (block {cap}) on both; integers bitwise, "
+          f"max|dw| {dw:.3g} <= {bound:.3g}")
+
+
+def _launch_counts():
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.cascade import ops as cas_ops
+    from repro_torch.kernels.fused import ops as fused_ops
+    return {"bmu": bmu_ops.launches, "cascade_wave": cas_ops.launches,
+            "fused_step": fused_ops.launches}
+
+
+def _reset_launch_counts():
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.cascade import ops as cas_ops
+    from repro_torch.kernels.fused import ops as fused_ops
+    bmu_ops.launches = cas_ops.launches = fused_ops.launches = 0
+
+
+def main_path(device, xtr, ytr, xte, yte, steps, kernel="staged",
+              required=("bmu", "cascade_wave")):
+    """Phase 6: train and query through the entry points a user
+    calls, with the ``kernel`` backend's ``kernel`` option. Returns the
+    trained map, the launch counts of its training and of the whole run,
+    and its fit samples/s. Fails unless every kernel in ``required`` was
+    launched in this run."""
     from repro_torch.api import TopoMap
     from repro_torch.core import afm
     from repro_torch.draws import GeneratorDraws
-    from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.bmu import ref as bmu_ref
-    from repro_torch.kernels.cascade import ops as cas_ops
     cfg = afm.AFMConfig(side=30, dim=784, batch=16)
+    opts = {"kernel": kernel}
     init_state = afm.init(GeneratorDraws(SEED, device), cfg, xtr)
     qe0 = TopoMap.from_state(init_state, cfg, backend="kernel",
                              device=device).quantization_error(xte)
-    TopoMap(cfg, backend="kernel", device=device).fit(xtr, num_steps=3)
+    TopoMap(cfg, backend="kernel", backend_options=opts,
+            device=device).fit(xtr, num_steps=3)
 
-    bmu_ops.launches = cas_ops.launches = 0
+    _reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tm = TopoMap(cfg, backend="kernel", device=device, seed=SEED)
+    tm = TopoMap(cfg, backend="kernel", backend_options=opts, device=device,
+                 seed=SEED)
     tm.fit(xtr, num_steps=steps)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    train_launches = {"bmu": bmu_ops.launches, "cascade_wave": cas_ops.launches}
+    train_launches = _launch_counts()
     tm.label(xtr, ytr)
     t0 = time.perf_counter()
     units = tm.transform(xte)
@@ -229,7 +479,7 @@ def main_path(device, xtr, ytr, xte, yte, steps):
     pred = tm.predict(xte)
     qe = tm.quantization_error(xte)
     torch.cuda.synchronize()
-    launches = {"bmu": bmu_ops.launches, "cascade_wave": cas_ops.launches}
+    launches = _launch_counts()
 
     n = cfg.n_units
     if not (units.shape == (len(xte),) and int(units.min()) >= 0
@@ -247,7 +497,8 @@ def main_path(device, xtr, ytr, xte, yte, steps):
     agree = float((best.indices == units).float().mean())
     acc = float((pred == yte).float().mean())
     aux = tm.fit_aux_
-    print(f"main path: {steps} steps x B=16 on {tuple(xtr.shape)} train, "
+    print(f"main path, kernel={kernel!r}: {steps} steps x B=16 on "
+          f"{tuple(xtr.shape)} train, "
           f"{tuple(xte.shape)} test; waves/step {float(aux.waves.float().mean()):.2f}, "
           f"cascade size/step {float(aux.cascade_size.float().mean()):.2f}")
     print(f"QE initial {qe0:.4f} -> trained {qe:.4f}; accuracy {acc:.4f}; "
@@ -258,9 +509,9 @@ def main_path(device, xtr, ytr, xte, yte, steps):
           f"({fit_s:.3f} s for {steps} steps, init included)")
     print(f"transform samples/s {len(xte) / transform_s:.1f} "
           f"({transform_s * 1e3:.3f} ms for {len(xte)} samples)")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched on the main path: "
-                             f"{launches}")
+    if not all(launches[k] for k in required):
+        raise AssertionError(f"a kernel of the {kernel} path was not "
+                             f"launched: {launches}, needs {required}")
     if not qe < qe0:
         raise AssertionError(f"QE did not fall: {qe0} -> {qe}")
     if acc < ACCURACY_FLOOR:
@@ -268,7 +519,7 @@ def main_path(device, xtr, ytr, xte, yte, steps):
     if not within:
         raise AssertionError(f"transform: a unit beyond the tie bound, "
                              f"{float(slack.max())} from the nearest")
-    return tm, train_launches, launches
+    return tm, train_launches, launches, steps * cfg.batch / fit_s
 
 
 #: chance is 0.1 on the ten classes; the first run on an H100 (500 steps,
@@ -278,7 +529,7 @@ ACCURACY_FLOOR = 0.9
 
 
 def kernel_table(device, tm, xtr, xte, train_launches, launches, worst):
-    """Phase 6: time each kernel at the main path's shapes beside its plain
+    """Phase 7: time each kernel at the main path's shapes beside its plain
     version, a library call and its bound."""
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.bmu import ref as bmu_ref
@@ -340,6 +591,51 @@ def kernel_table(device, tm, xtr, xte, train_launches, launches, worst):
     return rows
 
 
+def fused_row(device, tmf, xtr, launches, worst):
+    """Phase 7, the fused step: one call at the main path's shape from the
+    fused run's trained state (its counters, the schedule's p_i there), the
+    kernel beside its plain version, with the wave count of that call. No
+    single PyTorch call computes a training step: ``library_ms`` is null."""
+    from repro_torch.core import afm
+    from repro_torch.kernels.fused import ops as fused_ops
+    from repro_torch.kernels.fused import ref as fused_ref
+    name = torch.cuda.get_device_name(0)
+    f32_peak, bw = peaks_for(name)
+    cfg, state = tmf.cfg, tmf.state_
+    side, (n, d), b = cfg.side, state.w.shape, cfg.batch
+    cap = fused_ops.DEFAULT_WAVE_CAP
+    l_c, p_i = afm.schedule_values(state.i, cfg)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    drive = (torch.rand(8, side, side, generator=gen) < p_i).to(device)
+    bern = (torch.rand(cap, 4, side, side, generator=gen) < p_i).to(device)
+    w, c = state.w, state.c.reshape(side, side)
+    s = xtr[:b].contiguous()
+    args = (w, c, s, cfg.l_s, l_c, drive, bern)
+    kw = dict(theta=cfg.theta, budget=cap)
+    out = fused_ops.fused_step(*args, **kw)
+    waves = int(out[3][1])
+    t = time_in_turns({
+        "plain": lambda: fused_ref.fused_step_ref(*args, **kw),
+        "kernel": lambda: fused_ops.fused_step(*args, **kw),
+    }, 100)
+    nbytes = (2 * 4 * n * d + 4 * b * d
+              + n * (4 + 8 + 4 * cap + 4 + 1 + 4) + 8 + 8 * b)
+    flops = (2 * b * n * d + 2 * n * d + 2 * b * d + 3 * b * d
+             + waves * 6 * n * d)
+    bound = max(nbytes / bw, flops / f32_peak) * 1e3
+    print(f"fused_step timing call: {int(out[3][0])} firings in {waves} "
+          f"waves, state after {state.i} samples")
+    return {
+        "name": f"fused_step (B=16, N=900, D=784, {waves} waves)",
+        "route": "cuda", "source": "src/repro_torch/kernels/fused/fused.cu",
+        "replaces": "src/repro/kernels/fused/fused.py:75",
+        "launches": launches["fused_step"], "max_abs_err": worst["dw"],
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / bw > flops / f32_peak
+        else "operations",
+        "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -363,13 +659,23 @@ def main() -> int:
     print(f"card: {smi}")
 
     worst = check_kernels(device)
+    fused_worst = check_fused_kernel(device)
     t0 = time.perf_counter()
     xtr, ytr, xte, yte = make_dataset("mnist", seed=SEED, device=device)
     print(f"data: mnist stand-in {tuple(xtr.shape)} + {tuple(xte.shape)} in "
           f"{time.perf_counter() - t0:.2f} s")
     check_step_stages(device, xtr)
-    tm, train_launches, launches = main_path(device, xtr, ytr, xte, yte, STEPS)
+    check_fused_parts(device, xtr)
+    check_fused_vs_staged(device, xtr)
+    tm, train_launches, launches, staged_rate = main_path(
+        device, xtr, ytr, xte, yte, STEPS)
+    tmf, _, fused_launches, fused_rate = main_path(
+        device, xtr, ytr, xte, yte, STEPS, kernel="fused",
+        required=("fused_step", "bmu"))
+    print(f"fit samples/s at 30x30x784, B=16, {STEPS} steps: staged "
+          f"{staged_rate:.1f}, fused {fused_rate:.1f}")
     rows = kernel_table(device, tm, xtr, xte, train_launches, launches, worst)
+    rows.append(fused_row(device, tmf, xtr, fused_launches, fused_worst))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

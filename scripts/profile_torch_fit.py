@@ -2,17 +2,20 @@
 """Where a training step of the PyTorch/CUDA port spends its time, on one
 NVIDIA card.
 
-    PYTHONPATH=src python3 scripts/profile_torch_fit.py [--steps 200]
+    PYTHONPATH=src python3 scripts/profile_torch_fit.py [--steps 200] \
+        [--kernel staged|fused]
 
 Trains the 30x30x784 map of ``chip_smoke.py`` (B = 16, MNIST-shaped
-stand-in data) through ``TopoMap(backend="kernel")`` and reports, after a
-warm-up:
+stand-in data) through ``TopoMap(backend="kernel",
+backend_options={"kernel": KERNEL})`` and reports, after a warm-up:
 
-1. the wall time of each stage (search / adapt / cascade), each stage
-   timed on the host between ``torch.cuda.synchronize()`` calls;
+1. the wall time of each stage (staged: search / adapt / cascade; fused:
+   the one fused stage), each stage timed on the host between
+   ``torch.cuda.synchronize()`` calls;
 2. a ``torch.profiler`` trace of the same number of steps, unsynchronised:
    device busy time (sum of kernel times) against the wall time, so the
-   device's idle share, and the kernels and host calls that take most time.
+   device's idle share; kernel launches and host syncs per step; and the
+   kernels and host calls that take most time.
 
 The synchronised timing adds one sync per stage and so slows the step; the
 profiled run is the one whose wall time matches an ordinary fit.
@@ -41,12 +44,20 @@ def timed_stages(stages, totals):
             return out
         return run
     return stages._replace(**{f: wrap(f, getattr(stages, f))
-                              for f in stages._fields})
+                              for f in stages._fields
+                              if getattr(stages, f) is not None})
+
+
+#: host calls counted per step: kernel launches and host syncs
+HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+              "cudaStreamSynchronize", "cudaMemcpyAsync")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=200)
+    parser.add_argument("--kernel", choices=("staged", "fused"),
+                        default="staged")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -61,7 +72,10 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip())
     xtr, _, _, _ = make_dataset("mnist", device=device)
     cfg = afm.AFMConfig(side=30, dim=784, batch=16)
-    tm = TopoMap(cfg, backend="kernel", device=device).fit(xtr, num_steps=100)
+    tm = TopoMap(cfg, backend="kernel", device=device,
+                 backend_options={"kernel": args.kernel}
+                 ).fit(xtr, num_steps=100)
+    print(f"kernel={args.kernel}")
     state, backend = tm.state_, tm.backend
 
     totals = defaultdict(float)
@@ -77,7 +91,9 @@ def main() -> int:
     for name, sec in totals.items():
         print(f"  {name:8s} {sec * 1e3 / args.steps:.3f} ms/step "
               f"({100 * sec / wall:.1f} %)")
-    print(f"  cascade per wave {totals['cascade'] * 1e3 / max(waves, 1):.3f} ms")
+    if "cascade" in totals:
+        print(f"  cascade per wave "
+              f"{totals['cascade'] * 1e3 / max(waves, 1):.3f} ms")
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -96,6 +112,9 @@ def main() -> int:
           f"{wall * 1e3 / args.steps:.3f} ms/step, device busy "
           f"{device_us / 1e3 / args.steps:.3f} ms/step, idle share "
           f"{100 * (1 - device_us / 1e6 / wall):.1f} %")
+    counts = {e.key: e.count for e in events if e.key in HOST_CALLS}
+    print("per step: " + ", ".join(
+        f"{k} {counts.get(k, 0) / args.steps:.2f}" for k in HOST_CALLS))
     print(events.table(sort_by=attr, row_limit=12))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     return 0

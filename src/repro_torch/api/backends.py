@@ -10,8 +10,9 @@ string key:
 ``batched``    Bulk-asynchronous: B relay-race searches per step.
 ``kernel``     The counterpart of the JAX ``pallas`` backend: exact search
                through the CUDA BMU kernel and cascade counter waves through
-               the CUDA cascade-wave kernel; on CPU tensors both wrappers run
-               their plain versions.
+               the CUDA cascade-wave kernel (``kernel="staged"``), or the
+               whole step as one CUDA kernel (``kernel="fused"``); on CPU
+               tensors the wrappers run their plain versions.
 =============  ==============================================================
 
 Every backend implements the ``Backend`` protocol:
@@ -36,6 +37,7 @@ from repro_torch.core.afm import AFMConfig, AFMState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bmu import ops as bmu_ops
 from repro_torch.kernels.cascade import ops as cascade_ops
+from repro_torch.kernels.fused import ops as fused_ops
 
 BACKENDS: dict[str, type] = {}
 
@@ -151,32 +153,43 @@ class ReferenceBackend(_DenseBackend):
 
 @register_backend("kernel")
 class KernelBackend(_DenseBackend):
-    """Training through the CUDA kernels: exact-BMU search via
-    ``kernels.bmu.ops.bmu`` and cascade counter waves via
-    ``kernels.cascade.ops.cascade_wave``. ``search='heuristic'`` keeps the
-    paper's relay race and uses the kernel only for the cascade.
+    """Training through the CUDA kernels.
 
-    ``kernel`` picks the step's execution: ``'staged'`` (BMU kernel, plain
-    adapt, cascade kernel per wave) is the one ported so far.
+    ``kernel`` picks the step's execution:
 
-    ``precision`` picks the distance tier of the training search:
-    ``'exact'`` (f32) or ``'bf16'``. ``bmu()``, which serves inference,
-    always stays on the exact tier.
+    - ``'staged'`` (default): exact-BMU search via ``kernels.bmu.ops.bmu``,
+      the plain Eq. 3 merge, and cascade counter waves via
+      ``kernels.cascade.ops.cascade_wave``, one launch and one host sync per
+      wave.
+    - ``'fused'``: the whole step after sampling (search, merge, drive and
+      up to 16 waves) as one launch of ``kernels.fused``, plugged in through
+      ``afm.Stages.fused``; a longer cascade finishes in a tail loop.
+
+    ``search='heuristic'`` keeps the paper's relay race outside the kernels.
+    ``precision`` picks the distance tier of the training search: ``'exact'``
+    (f32) or ``'bf16'``. ``bmu()``, which serves inference, always stays on
+    the exact tier of the BMU kernel.
     """
+
+    KERNELS = ("staged", "fused")
 
     def __init__(self, cfg: AFMConfig, *, search: str = "exact",
                  kernel: str = "staged", precision: str = "exact",
                  device: torch.device | str | None = None):
-        if kernel == "fused":
-            raise ValueError("kernel='fused' (the whole-step megakernel) is "
-                             "not ported yet; use kernel='staged'")
-        if kernel != "staged":
-            raise ValueError(f"kernel must be 'staged', got {kernel!r}")
+        if kernel not in self.KERNELS:
+            raise ValueError(f"kernel must be one of {self.KERNELS}, got "
+                             f"{kernel!r}")
         if precision not in bmu_ops.PRECISIONS:
             raise ValueError(f"precision must be one of "
                              f"{bmu_ops.PRECISIONS}, got {precision!r}")
         super().__init__(cfg, search=search, device=device)
+        self.kernel = kernel
         self.precision = precision
+        if kernel == "fused":
+            self.stages = self.stages._replace(
+                fused=fused_ops.make_fused_stage(search=search,
+                                                 precision=precision))
+            return
         self.stages = _stages_for(search,
                                   cascade_wave_fn=cascade_ops.cascade_wave)
         if search == "exact":

@@ -14,7 +14,11 @@ injectable stages (``Stages``):
 
 - **search**  (state, samples, draws, cfg) -> SearchResult;
 - **adapt**   (state, samples, gmu, cfg) -> (w, counts), the Eq. (3) merge;
-- **cascade** (w, c, counts, l_c, p, draws, cfg) -> CascadeResult.
+- **cascade** (w, c, counts, l_c, p, draws, cfg) -> CascadeResult;
+
+or one optional **fused** stage (state, samples, draws, cfg) -> (state,
+aux) that takes the whole step, as the fused CUDA kernel does
+(``repro_torch.kernels.fused``).
 
 Randomness comes from a draw source (``repro_torch.draws``) in place of the
 JAX key chain, consumed in the key chain's order: search draws, then the
@@ -85,8 +89,9 @@ class AFMState(NamedTuple):
 class StepAux(NamedTuple):
     gmu: torch.Tensor           # (B,) int32
     q2: torch.Tensor            # (B,) float32
-    cascade_size: torch.Tensor  # () int32, a_i for the step (CPU: host count)
-    waves: torch.Tensor         # () int32 (CPU: host count)
+    cascade_size: torch.Tensor  # () int32, a_i for the step (staged: a CPU
+                                # tensor of the host count; fused: on device)
+    waves: torch.Tensor         # () int32 (as cascade_size)
     greedy_steps: torch.Tensor  # (B,) int32
 
 
@@ -114,10 +119,15 @@ def init(draws, cfg: AFMConfig,
 
 
 class Stages(NamedTuple):
-    """The three injectable phases of one AFM step."""
+    """The three injectable phases of one AFM step, plus an optional
+    whole-step seam: when ``fused`` is set, ``_step`` hands it the entire
+    step and bypasses the other three. A fused stage evaluates the
+    schedules (``schedule_values``) and takes its draws in the staged
+    step's order: search, drive, waves."""
     search: Callable    # (state, samples, draws, cfg) -> SearchResult
     adapt: Callable     # (state, samples, gmu, cfg) -> (w (N,D), counts (N,))
     cascade: Callable   # (w, c, counts, l_c, p, draws, cfg) -> CascadeResult
+    fused: Callable | None = None  # (state, samples, draws, cfg) -> (state, aux)
 
 
 def search_heuristic(state: AFMState, samples: torch.Tensor, draws,
@@ -185,16 +195,25 @@ DEFAULT_STAGES = Stages(search_heuristic, adapt_gmu, cascade_default)
 EXACT_STAGES = Stages(search_exact, adapt_gmu, cascade_default)
 
 
+def schedule_values(i: int, cfg: AFMConfig) -> tuple[float, float]:
+    """The step's cascade learning rate l_c(i) (Eq. 5) and probability p_i
+    (Eq. 6), as float32 values in host floats."""
+    l_c = float(schedules.cascade_learning_rate(i, cfg.total_samples,
+                                                cfg.c_o, cfg.c_s))
+    p_i = float(schedules.cascade_probability(i, cfg.total_samples,
+                                              cfg.n_units, cfg.c_m, cfg.c_d))
+    return l_c, p_i
+
+
 def _step(state: AFMState, samples: torch.Tensor, draws, cfg: AFMConfig,
           stages: Stages = DEFAULT_STAGES) -> tuple[AFMState, StepAux]:
     """Shared body for faithful (B=1) and batched (B>1) steps."""
+    if stages.fused is not None:
+        return stages.fused(state, samples, draws, cfg)
     n = cfg.n_units
     b = samples.shape[0]
     i = state.i
-    l_c = float(schedules.cascade_learning_rate(i, cfg.total_samples,
-                                                cfg.c_o, cfg.c_s))
-    p_i = float(schedules.cascade_probability(i, cfg.total_samples, n,
-                                              cfg.c_m, cfg.c_d))
+    l_c, p_i = schedule_values(i, cfg)
 
     res = stages.search(state, samples, draws, cfg)
     w, counts = stages.adapt(state, samples, res.gmu, cfg)

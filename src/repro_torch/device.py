@@ -1,5 +1,8 @@
-"""Device choice for every entry point of the port."""
+"""Device choice for every entry point of the port, and the switch that
+keeps its float32 products exact."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,9 +21,21 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     return device
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 matrix products inside the block run in full float32, not
+    TF32; the caller's setting of the switch is restored on the way out."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def exact_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in full float32. TF32 keeps ten mantissa bits, which would
-    reorder near-tied distances, so the switch is set off at each use rather
-    than trusted to its default."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return a @ b
+    reorder near-tied distances, so the switch is set off for this product
+    rather than trusted to its default."""
+    with no_tf32():
+        return a @ b

@@ -9,6 +9,19 @@ which the JAX step consumes its key chain:
 2. drive: ``uniform((8, side, side))``;
 3. each cascade wave: ``uniform((4, side, side))``.
 
+The fused step (``kernels.fused.ops``, ``TopoMap(backend="kernel",
+backend_options={"kernel": "fused"})``) takes its cascade draws as one block:
+after 1 and 2 it draws **one** ``uniform((wave_cap, 4, side, side))`` for
+the first ``wave_cap`` waves (all of them, however many run), then one
+``uniform((4, side, side))`` per wave of a cascade that outlives the block.
+In JAX each wave's draw depends only on its position in the key chain, so
+a replay stacks JAX's first ``wave_cap`` per-wave draws into that block and
+both step flavours see the same numbers. A ``GeneratorDraws`` stream,
+however, is consumed differently: the fused path draws ``wave_cap`` waves
+where the staged path draws as many as ran, so after the first step the
+two flavours train on different random numbers (the CPU and the CUDA fused
+paths consume them identically).
+
 ``afm.train`` draws ``randint(0, num_samples, (B,))`` sample indices before
 each step. ``GeneratorDraws`` is the production source (a ``torch.Generator``
 on the step's device); ``ReplayDraws`` hands out given arrays in order, so a

@@ -3,8 +3,9 @@
 At first use every ``kernels/*/*.cu`` is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` process per
 source, all started together, then linked into ``build/repro_torch/
-librepro_torch_<hash>.so``. The hash covers the sources and the flags, so an
-edit rebuilds. The library has a plain C interface (no PyTorch headers) and
+librepro_torch_<hash>.so``. The hash covers the sources, the headers they
+share (``kernels/*/*.cuh``) and the flags, so an edit to any of them
+rebuilds. The library has a plain C interface (no PyTorch headers) and
 is loaded with ``ctypes``: every pointer and the stream are ``c_void_p``,
 every size ``c_int``, and every entry point returns ``cudaGetLastError()``
 after its launch, which ``check`` turns into an exception.
@@ -28,13 +29,21 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points: name -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
     # w, s, n, b, d, bf16, idx_out, q2_out, stream
     "repro_bmu": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # c, fired, bern, side, theta, c_out, fired_out, recv_out, stream
     "repro_cascade_wave": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # n, d, b, plan_out (int32[5]: features per block, blocks, shared bytes,
+    # shared bytes a block may opt into, blocks that fit on the card at once)
+    "repro_fused_plan": [_I, _I, _I, _P],
+    # w, c, s, drive, bern, gmu_in (NULL: search in the kernel), side, d, b,
+    # theta, budget, bf16, l_s, l_c, w_out, c_out, fired_out, stats_out,
+    # recv_out, gmu_out, q2_out, scratch, stream
+    "repro_fused_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _library: ctypes.CDLL | None = None
@@ -65,11 +74,18 @@ def find_nvcc() -> str:
         "(looked in $CUDA_HOME/bin, /usr/local/cuda/bin and PATH)")
 
 
-def library_path(srcs: list[Path] | None = None) -> Path:
+def headers() -> list[Path]:
+    """The headers the sources share (``kernels/*/*.cuh``)."""
+    return sorted(KERNELS_DIR.glob("*/*.cuh"))
+
+
+def library_path(srcs: list[Path] | None = None,
+                 hdrs: list[Path] | None = None) -> Path:
     srcs = sources() if srcs is None else srcs
+    hdrs = headers() if hdrs is None else hdrs
     digest = hashlib.sha256(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
-    for src in srcs:
-        digest.update(src.name.encode())
+    for src in srcs + hdrs:
+        digest.update(f"{src.parent.name}/{src.name}".encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
 

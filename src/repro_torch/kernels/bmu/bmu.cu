@@ -26,7 +26,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "../runtime/search.cuh"
+
 namespace {
+
+using repro::operand;
+using repro::wins;
 
 constexpr int BS = 32;                 // samples per block
 constexpr int BN = 64;                 // units per tile
@@ -36,16 +41,6 @@ constexpr int TY = 16;                 // threads along samples
 constexpr int THREADS = TX * TY;
 constexpr int SPT = BS / TY;           // samples per thread
 constexpr int UPT = BN / TX;           // units per thread
-
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-  return BF16 ? __bfloat162float(__float2bfloat16(v)) : v;
-}
-
-// (v, i) beats (bv, bi) when smaller, or equal with a lower index
-__device__ __forceinline__ bool wins(float v, int i, float bv, int bi) {
-  return v < bv || (v == bv && i < bi);
-}
 
 template <bool BF16>
 __global__ void __launch_bounds__(THREADS)

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import no_tf32
+
 
 def bmu_ref(w: torch.Tensor, s: torch.Tensor):
     """w: (N, D) unit weights; s: (B, D) samples.
@@ -12,12 +14,12 @@ def bmu_ref(w: torch.Tensor, s: torch.Tensor):
     Returns (idx (B,) int32, q2 (B,) float32): argmin_j |w_j - s_i|^2 (lowest
     index on ties) and the squared distance, clamped at >= 0.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False   # exact f32, never TF32
     w = w.to(torch.float32)
     s = s.to(torch.float32)
     w2 = torch.sum(w * w, dim=-1)
     s2 = torch.sum(s * s, dim=-1)
-    q2 = s2[:, None] - 2.0 * (s @ w.T) + w2[None, :]
+    with no_tf32():                  # exact f32, never TF32
+        q2 = s2[:, None] - 2.0 * (s @ w.T) + w2[None, :]
     idx = torch.argmin(q2, dim=-1, keepdim=True)
     return idx[:, 0].to(torch.int32), torch.clamp(q2.gather(-1, idx)[:, 0],
                                                   min=0.0)
@@ -35,9 +37,9 @@ def bmu_bf16_ref(w: torch.Tensor, s: torch.Tensor):
     s2 = torch.sum(s * s, dim=-1)
     # bf16 products are exact in f32, so an f32 product of the rounded
     # values is the bf16-multiply, f32-accumulate cross term
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cross = s.to(torch.bfloat16).to(torch.float32) @ \
-        w.to(torch.bfloat16).to(torch.float32).T
+    with no_tf32():
+        cross = s.to(torch.bfloat16).to(torch.float32) @ \
+            w.to(torch.bfloat16).to(torch.float32).T
     idx = torch.argmin(s2[:, None] - 2.0 * cross + w2[None, :], dim=-1)
     return idx.to(torch.int32), polish(w, s, idx)
 

@@ -1,0 +1,245 @@
+"""Wrapper of the fused training-step kernel, port of
+``repro.kernels.fused.ops``.
+
+``fused_step`` runs one post-sample step: the plain version
+(``ref.fused_step_ref``) for CPU tensors, the CUDA kernel (``fused.cu``)
+for CUDA tensors, with no fallback between the two.
+
+``fused_step_parts`` is the step-sized op: it draws the drive
+(``uniform((8, side, side))``) and then **one** block of wave draws
+(``uniform((wave_cap, 4, side, side))``) from the draw source, runs
+``fused_step``, and finishes a cascade that outlives the block with a tail
+``wave_loop`` that draws ``uniform((4, side, side))`` per wave. Those are the
+JAX key chain's positions, so a replay of JAX's draws feeds both packages
+the same numbers. Deciding whether a tail is needed reads the front back
+once per step, and only when ``max_waves`` exceeds ``wave_cap``.
+``make_fused_stage`` adapts the op to the ``afm.Stages.fused`` seam.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import afm as afm_lib
+from repro_torch.kernels import _build
+from repro_torch.kernels.bmu.ops import PRECISIONS
+from repro_torch.kernels.cascade import ops as cascade_ops
+from repro_torch.kernels.fused import ref
+
+#: Default wave budget of one launch; deeper cascades continue in the tail
+#: loop on the same draws, so this is a speed knob, not a semantic one.
+DEFAULT_WAVE_CAP = 16
+
+#: kernel launches made by ``fused_step`` (CPU calls do not count)
+launches = 0
+
+
+class FusedStep(NamedTuple):
+    """One full training step's outputs (flat layout)."""
+    w: torch.Tensor       # (N, D) f32
+    c: torch.Tensor       # (N,) i32
+    gmu: torch.Tensor     # (B,) i32
+    q2: torch.Tensor      # (B,) f32
+    greedy: torch.Tensor  # (B,) i32 (zeros unless an external search ran)
+    size: torch.Tensor    # () i32
+    waves: torch.Tensor   # () i32
+    recv: torch.Tensor    # (N,) i32 per-unit broadcast receipts
+
+
+def wave_budget(cfg) -> int:
+    """The step's wave bound (``None`` -> 8·side²), as ``core.cascade``."""
+    return (8 * cfg.side * cfg.side if cfg.max_waves is None
+            else cfg.max_waves)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device_index: int, n: int, d: int, b: int) -> tuple[int, ...]:
+    """The kernel's launch plan for these shapes on this card: (features
+    per block, blocks, shared bytes, shared bytes allowed, blocks that fit
+    at once). Raises when the grid cannot be co-resident."""
+    lib = _build.load()
+    plan = (ctypes.c_int32 * 5)()
+    with torch.cuda.device(device_index):
+        err = lib.repro_fused_plan(n, d, b, ctypes.addressof(plan))
+    _build.check(lib, err, "fused kernel plan")
+    ds, grid, smem, smem_max, fits = tuple(plan)
+    if smem > smem_max:
+        raise ValueError(
+            f"fused kernel: N={n}, B={b} needs {smem} bytes of shared memory "
+            f"per block, more than the {smem_max} this card allows")
+    if grid > fits:
+        raise ValueError(
+            f"fused kernel: {grid} blocks of {ds} features (D={d}) cannot "
+            f"all be resident at once ({fits} fit), which its grid barrier "
+            f"needs")
+    return ds, grid, smem, smem_max, fits
+
+
+def fused_step(w, c2, s, l_s, l_c, drive, bern, gmu=None, *, theta: int,
+               budget: int, precision: str = "exact"):
+    """One fused post-sample step; see ``ref.fused_step_ref`` for the
+    contract. w (N, D) f32, c2 (side, side) int32, s (B, D) f32, drive
+    (8, side, side) bool, bern (w_cap, 4, side, side) bool, gmu (B,) int32
+    or None (search in the step, on the ``precision`` tier), 0 <= budget <=
+    w_cap. All on one device; on CUDA all contiguous. GMUs outside [0, N)
+    raise on the CPU; the kernel drops them, as JAX's scatter does.
+
+    Returns ``(w, c2, fired, stats, recv[, gmu, q2])``.
+    """
+    global launches
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    if w.dim() != 2 or s.dim() != 2 or c2.dim() != 2 or bern.dim() != 4:
+        raise ValueError(
+            f"fused_step needs w (N, D), s (B, D), c2 (side, side) and bern "
+            f"(w_cap, 4, side, side), got {tuple(w.shape)}, {tuple(s.shape)},"
+            f" {tuple(c2.shape)}, {tuple(bern.shape)}")
+    (n, d), b, side, w_cap = w.shape, s.shape[0], c2.shape[0], bern.shape[0]
+    if (n != side * side or n < 1 or c2.shape != (side, side)
+            or s.shape != (b, d) or b < 1
+            or drive.shape != (8, side, side)
+            or bern.shape != (w_cap, 4, side, side)
+            or (gmu is not None and gmu.shape != (b,))):
+        raise ValueError(
+            f"fused_step needs w (side², D), c2 (side, side), s (B>=1, D), "
+            f"drive (8, side, side), bern (w_cap, 4, side, side), gmu (B,); "
+            f"got {tuple(w.shape)}, {tuple(c2.shape)}, {tuple(s.shape)}, "
+            f"{tuple(drive.shape)}, {tuple(bern.shape)}, "
+            f"{None if gmu is None else tuple(gmu.shape)}")
+    if (w.dtype != torch.float32 or s.dtype != torch.float32
+            or c2.dtype != torch.int32 or drive.dtype != torch.bool
+            or bern.dtype != torch.bool
+            or (gmu is not None and gmu.dtype != torch.int32)):
+        raise ValueError("fused_step takes float32 w and s, int32 c2 and gmu, "
+                         "bool drive and bern")
+    if not 0 <= budget <= w_cap:
+        raise ValueError(f"budget must lie in [0, {w_cap}], got {budget}")
+    tensors = [w, c2, s, drive, bern] + ([] if gmu is None else [gmu])
+    devices = {x.device for x in tensors}
+    if devices == {torch.device("cpu")}:
+        if gmu is not None and not bool(((gmu >= 0) & (gmu < n)).all()):
+            raise ValueError(f"gmu must lie in [0, {n})")
+        return ref.fused_step_ref(w, c2, s, l_s, l_c, drive, bern, gmu,
+                                  theta=theta, budget=budget,
+                                  precision=precision)
+    if len(devices) != 1 or w.device.type != "cuda":
+        raise ValueError(f"fused_step runs on CPU or one CUDA device, got "
+                         f"{sorted(map(str, devices))}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("fused_step's kernel needs contiguous inputs")
+    dev = w.device
+    _, grid, _, _, _ = _plan(dev.index if dev.index is not None
+                             else torch.cuda.current_device(), n, d, b)
+    lib = _build.load()
+    w_out = torch.empty_like(w)
+    c_out = torch.empty_like(c2)
+    fired = torch.empty((side, side), dtype=torch.bool, device=dev)
+    stats = torch.empty(2, dtype=torch.int32, device=dev)
+    recv = torch.empty_like(c2)
+    searched = gmu is None
+    gmu_out = torch.empty(b, dtype=torch.int32, device=dev)
+    q2 = torch.empty(b, dtype=torch.float32, device=dev)
+    scratch = torch.empty(2 * grid * b if searched else 1, dtype=torch.int32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = lib.repro_fused_step(
+            w.data_ptr(), c2.data_ptr(), s.data_ptr(), drive.data_ptr(),
+            bern.data_ptr(), None if searched else gmu.data_ptr(), side, d, b,
+            int(theta), int(budget), int(precision == "bf16"), float(l_s),
+            float(l_c), w_out.data_ptr(), c_out.data_ptr(), fired.data_ptr(),
+            stats.data_ptr(), recv.data_ptr(), gmu_out.data_ptr(),
+            q2.data_ptr(), scratch.data_ptr(), _build.stream_of(w))
+    _build.check(lib, err, "fused kernel launch")
+    launches += 1
+    out = (w_out, c_out, fired, stats, recv)
+    return (out + (gmu_out, q2)) if searched else out
+
+
+def fused_step_parts(w, c, samples, draws, cfg, *, l_c: float, p_i: float,
+                     search_result=None, precision: str = "exact",
+                     wave_cap: int = DEFAULT_WAVE_CAP,
+                     recv0=None) -> FusedStep:
+    """The step body after sampling (and after the relay race, when one ran).
+
+    Args:
+      w / c:         flat (N, D) f32 weights and (N,) int32 counters.
+      samples:       (B, D) f32.
+      draws:         the draw source; this op takes the drive, one block of
+                     ``wave_cap`` waves and, when the cascade outlives it,
+                     one draw per tail wave.
+      l_c / p_i:     the step's schedule values.
+      search_result: a ``SearchResult`` when search ran outside (the relay
+                     race); ``None`` searches in the step.
+      precision:     'exact' or 'bf16' tier of that search.
+      wave_cap:      waves drawn in the block (the kernel's wave budget).
+      recv0:         optional (N,) int32 receive counts to add to.
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    if wave_cap < 1:
+        raise ValueError(f"wave_cap must be positive, got {wave_cap}")
+    side, d, theta = cfg.side, cfg.dim, cfg.theta
+    b = samples.shape[0]
+    max_waves = wave_budget(cfg)
+    drive = draws.uniform((8, side, side)) < p_i
+    bern = draws.uniform((wave_cap, 4, side, side)) < p_i
+    budget = min(wave_cap, max_waves)
+    gmu = None if search_result is None else \
+        search_result.gmu.to(torch.int32).contiguous()
+    out = fused_step(w, c.reshape(side, side), samples, cfg.l_s, l_c, drive,
+                     bern, gmu, theta=theta, budget=budget,
+                     precision=precision)
+    if search_result is None:
+        wk, ck, fired, stats, recv, gmu, q2 = out
+        greedy = torch.zeros(b, dtype=torch.int32, device=samples.device)
+    else:
+        wk, ck, fired, stats, recv = out
+        q2, greedy = search_result.q2, search_result.greedy_steps
+    if recv0 is not None:
+        recv = recv + recv0.reshape(side, side)
+    size, waves = stats[0], stats[1]
+    # a non-empty front after the kernel means it ran all ``budget`` waves
+    if budget < max_waves and bool(fired.any()):     # the step's host sync
+        w3, ck, size, waves, recv = ref.wave_loop(
+            wk.reshape(side, side, d), ck, fired, draws, l_c=l_c, p_i=p_i,
+            theta=theta, max_waves=max_waves, size0=size, waves0=budget,
+            recv0=recv, wave_fn=cascade_ops.cascade_wave)
+        wk = w3.reshape(-1, d)
+    return FusedStep(wk, ck.reshape(-1), gmu, q2, greedy, size, waves,
+                     recv.reshape(-1))
+
+
+def make_fused_stage(*, search: str = "exact", precision: str = "exact",
+                     wave_cap: int = DEFAULT_WAVE_CAP):
+    """An ``afm.Stages.fused`` callable: one fused training step with the
+    schedule evaluation and draw order of ``afm._step``. ``search=
+    'heuristic'`` runs the paper's relay race outside the kernel and fuses
+    merge, drive and cascade; ``'exact'`` searches in the kernel on the
+    ``precision`` tier."""
+    if search not in ("heuristic", "exact"):
+        raise ValueError(
+            f"search must be 'heuristic' or 'exact', got {search!r}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+
+    def fused(state, samples, draws, cfg):
+        l_c, p_i = afm_lib.schedule_values(state.i, cfg)
+        res = (afm_lib.search_heuristic(state, samples, draws, cfg)
+               if search == "heuristic" else None)
+        parts = fused_step_parts(state.w, state.c, samples, draws, cfg,
+                                 l_c=l_c, p_i=p_i, search_result=res,
+                                 precision=precision, wave_cap=wave_cap)
+        new_state = afm_lib.AFMState(w=parts.w, c=parts.c, far=state.far,
+                                     near=state.near,
+                                     i=state.i + samples.shape[0])
+        aux = afm_lib.StepAux(parts.gmu, parts.q2, parts.size, parts.waves,
+                              parts.greedy)
+        return new_state, aux
+
+    return fused

@@ -85,8 +85,9 @@ def test_kernel_backend_matches_exact_batched_bitwise():
 def test_kernel_backend_options():
     cfg = torch_cfg(**SMALL)
     assert set(available_backends()) >= {"reference", "batched", "kernel"}
-    with pytest.raises(ValueError, match="not ported yet"):
-        get_backend("kernel", cfg, kernel="fused", device="cpu")
+    fused = get_backend("kernel", cfg, kernel="fused", device="cpu")
+    assert fused.kernel == "fused" and fused.stages.fused is not None
+    assert get_backend("kernel", cfg, device="cpu").stages.fused is None
     with pytest.raises(ValueError, match="kernel"):
         get_backend("kernel", cfg, kernel="mega", device="cpu")
     with pytest.raises(ValueError, match="precision"):

@@ -19,6 +19,8 @@ from repro_torch.kernels.bmu import ops as bmu_ops
 from repro_torch.kernels.bmu import ref as bmu_ref
 from repro_torch.kernels.cascade import ops as cas_ops
 from repro_torch.kernels.cascade import ref as cas_ref
+from repro_torch.kernels.fused import ops as fused_ops
+from repro_torch.kernels.fused import ref as fused_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -65,5 +67,64 @@ def test_kernel_backend_fits_on_the_card(cuda):
     tm = TopoMap(AFMConfig(side=8, dim=24, batch=8, i_max=800),
                  backend="kernel", device=cuda).fit(x, num_steps=40)
     assert bmu_ops.launches > before[0] and cas_ops.launches > before[1]
+    assert tm.state_.w.is_cuda and bool(torch.isfinite(tm.state_.w).all())
+    assert tm.transform(x).shape == (500,)
+
+
+@pytest.mark.parametrize("search", ["given", "exact", "bf16"])
+@pytest.mark.parametrize("side,d,b,w_cap,budget", [
+    (30, 784, 16, 16, 16), (7, 13, 5, 3, 3), (30, 784, 16, 16, 5),
+    (1, 3, 1, 2, 2)])
+def test_fused_kernel_matches_plain(cuda, side, d, b, w_cap, budget, search):
+    """The fused kernel against its plain version on the card, same inputs:
+    GMUs and q2 within the tie bound (a GMU that differs inside it: the
+    plain version again on the kernel's GMUs), then the counters, front,
+    [size, waves] and receive counts bitwise and w within 8 (1 + waves) f32
+    ULP of max|w|."""
+    gen = torch.Generator().manual_seed(side * 1000 + d + b)
+    n = side * side
+    w = torch.rand(n, d, generator=gen).to(cuda)
+    s = torch.rand(b, d, generator=gen).to(cuda)
+    c = torch.randint(2, 4, (side, side), generator=gen,
+                      dtype=torch.int32).to(cuda)
+    drive = (torch.rand(8, side, side, generator=gen) < 0.9).to(cuda)
+    bern = (torch.rand(w_cap, 4, side, side, generator=gen) < 0.9).to(cuda)
+    gmu = torch.randint(0, n, (b,), generator=gen, dtype=torch.int32).to(cuda)
+    given = gmu if search == "given" else None
+    kw = dict(theta=4, budget=budget,
+              precision="bf16" if search == "bf16" else "exact")
+    before = fused_ops.launches
+    out = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, given, **kw)
+    assert fused_ops.launches == before + 1
+    ref = fused_ref.fused_step_ref(w, c, s, 0.05, 0.3, drive, bern, given,
+                                   **kw)
+    if given is None:
+        bound = bmu_ref.tie_bound(w, s)
+        differ = out[5] != ref[5]
+        rw, rs = (w, s) if search == "exact" else (w.bfloat16().float(),
+                                                   s.bfloat16().float())
+        assert bool((bmu_ref.top2_gap(rw, rs)[differ] <= bound[differ]).all())
+        assert bool(((out[6] - ref[6]).abs()[~differ] <= bound[~differ]).all())
+        if bool(differ.any()):
+            ref = fused_ref.fused_step_ref(w, c, s, 0.05, 0.3, drive, bern,
+                                           out[5], **kw)
+    for a, r in zip(out[1:5], ref[1:5]):
+        assert torch.equal(a, r)
+    waves = int(ref[3][1])
+    assert waves <= budget and (waves == budget or not bool(ref[2].any()))
+    eps = torch.finfo(torch.float32).eps
+    assert float((out[0] - ref[0]).abs().max()) <= \
+        8 * (1 + waves) * eps * float(ref[0].abs().max())
+
+
+def test_fused_backend_fits_on_the_card(cuda):
+    rng = np.random.default_rng(1)
+    x = rng.random((500, 24), dtype=np.float32)
+    before = fused_ops.launches
+    tm = TopoMap(AFMConfig(side=8, dim=24, batch=8, i_max=800),
+                 backend="kernel", backend_options={"kernel": "fused"},
+                 device=cuda).fit(x, num_steps=40)
+    assert fused_ops.launches == before + 40
+    assert tm.fit_aux_.waves.is_cuda
     assert tm.state_.w.is_cuda and bool(torch.isfinite(tm.state_.w).all())
     assert tm.transform(x).shape == (500,)

@@ -191,3 +191,41 @@ def test_library_name_follows_the_sources(tmp_path):
     assert name == _build.library_path(srcs).name
     copies[0].write_bytes(copies[0].read_bytes() + b"\n// edit\n")
     assert _build.library_path(copies).name != name
+
+
+def test_library_name_follows_the_shared_headers(tmp_path):
+    """An edit to a header the kernels share renames the library too."""
+    from repro_torch.kernels import _build
+    srcs = _build.sources()
+    headers = _build.headers()
+    assert any(h.name == "search.cuh" for h in headers)
+    copies = []
+    for src in srcs + headers:
+        dst = tmp_path / src.parent.name / src.name
+        dst.parent.mkdir(exist_ok=True)
+        dst.write_bytes(src.read_bytes())
+        copies.append(dst)
+    copied = ([c for c in copies if c.suffix == ".cu"],
+              [c for c in copies if c.suffix == ".cuh"])
+    name = _build.library_path(*copied).name
+    assert name == _build.library_path(srcs).name
+    header = next(c for c in copies if c.name == "search.cuh")
+    header.write_bytes(header.read_bytes() + b"\n// edit\n")
+    assert _build.library_path(*copied).name != name
+
+
+@pytest.mark.parametrize("before", [True, False])
+def test_exact_products_leave_the_tf32_switch_as_found(before):
+    """The exact-f32 products turn TF32 off only for themselves."""
+    from repro_torch.device import exact_f32_matmul
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    w, s = _bmu_inputs(9, 4, 5, seed=2)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = before
+        exact_f32_matmul(t(s), t(w).T)
+        bmu_ref.bmu_ref(t(w), t(s))
+        bmu_ref.bmu_bf16_ref(t(w), t(s))
+        assert torch.backends.cuda.matmul.allow_tf32 is before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -46,6 +46,21 @@ def step_draws(key, cfg, b: int, *, heuristic: bool, waves: int) -> list:
     return out + cascade_draws(k_cascade, cfg.side, waves)
 
 
+def fused_step_draws(key, cfg, b: int, *, heuristic: bool, wave_cap: int,
+                     waves: int) -> list:
+    """The draws one fused step consumes, in the port's order, from the
+    same chain positions as ``step_draws``: the search's (heuristic only),
+    the drive, the first ``wave_cap`` waves' draws stacked into one
+    ``(wave_cap, 4, side, side)`` block, then one per wave past the block
+    (``waves`` is the step's total wave count)."""
+    k_search, k_cascade = jax.random.split(key)
+    out = search_draws(k_search, cfg.n_units, cfg.phi, b, cfg.e) \
+        if heuristic else []
+    chain = cascade_draws(k_cascade, cfg.side, max(waves, wave_cap))
+    block = np.stack([np.asarray(x) for x in chain[1:1 + wave_cap]])
+    return out + [chain[0], block] + chain[1 + wave_cap:1 + waves]
+
+
 def train_draws(key, cfg, n_data: int, num_steps: int, waves, *,
                 heuristic: bool) -> list:
     """``afm.train``'s draws: per step the sample indices, then the step's."""
