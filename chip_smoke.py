@@ -21,12 +21,28 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    samples, counting the kernel launches of that run; then trains it again
    through ``backend_options={"kernel": "fused"}``;
 7. times each kernel beside its bound, its plain version and a library call;
-8. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+8. holds the sliding-window decode kernel (``kernels/swa``) against its plain
+   version on the card, f32 and bf16, at llama3.2-1b's long_500k and serve
+   decode shapes and at ragged ones;
+9. runs the LM decode path at ``configs.get_smoke("llama3.2-1b")`` width on
+   the card and on the CPU from the same weights (a linear cache, and a
+   window-16 ring the prompt has wrapped): greedy tokens equal except at
+   near ties, teacher-forced logits within the tolerance;
+10. serves llama3.2-1b at full width, bf16, through ``launch/serve.py``'s
+    ``run``: B 4, a 128-token prompt, 64 new tokens on a 192-slot linear
+    cache; then the long_500k path, B 1, an 8,704-token prompt (chunked
+    prefill) and 64 new tokens on the 8,192-slot ring, counting the kernel's
+    launches in each run and checking it on the layer-0 cache of the long
+    prefill;
+11. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line is
 missing. Without a CUDA card it exits with code 1 before doing anything.
 """
+import copy
+import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -69,12 +85,25 @@ class HostDraws:
         return torch.rand(tuple(shape), generator=self.gen).to(self.device)
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``."""
+#: cycles of the sleep kernel that holds the card while the host queues a
+#: timed loop (~50 ms at the H100's 1.98 GHz boost clock)
+QUEUE_AHEAD_CYCLES = 100_000_000
+
+
+def time_ms(fn, iters: int, queue_ahead: bool = False) -> float:
+    """Mean device time of one call, from CUDA events around ``iters``.
+
+    Without ``queue_ahead`` a call whose host work outlasts its device work
+    is timed at the host's rate. With it, a sleep kernel holds the card
+    while the host queues all ``iters`` calls behind it, so the events
+    time the card's work alone (as long as the queue stays shorter than the
+    sleep and the driver's launch queue)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -83,14 +112,15 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_in_turns(fns: dict, iters: int, rounds: int = 3) -> dict:
+def time_in_turns(fns: dict, iters: int, rounds: int = 3,
+                  queue_ahead: bool = False) -> dict:
     """Median per-call time of each function, measured in alternating turns
     (a, b, ..., then reversed) on one card."""
     times = {k: [] for k in fns}
     order = list(fns)
     for r in range(rounds):
         for k in (order if r % 2 == 0 else order[::-1]):
-            times[k].append(time_ms(fns[k], iters))
+            times[k].append(time_ms(fns[k], iters, queue_ahead))
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
@@ -432,15 +462,18 @@ def _launch_counts():
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.cascade import ops as cas_ops
     from repro_torch.kernels.fused import ops as fused_ops
+    from repro_torch.kernels.swa import ops as swa_ops
     return {"bmu": bmu_ops.launches, "cascade_wave": cas_ops.launches,
-            "fused_step": fused_ops.launches}
+            "fused_step": fused_ops.launches, "swa_decode": swa_ops.launches}
 
 
 def _reset_launch_counts():
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.cascade import ops as cas_ops
     from repro_torch.kernels.fused import ops as fused_ops
+    from repro_torch.kernels.swa import ops as swa_ops
     bmu_ops.launches = cas_ops.launches = fused_ops.launches = 0
+    swa_ops.launches = 0
 
 
 def main_path(device, xtr, ytr, xte, yte, steps, kernel="staged",
@@ -636,6 +669,288 @@ def fused_row(device, tmf, xtr, launches, worst):
         "library_ms": None}
 
 
+LM_ARCH = "llama3.2-1b"
+#: tolerances of the swa kernel against its plain version on the same card:
+#: f32 within 2e-4 relative and absolute (the sums run in another order);
+#: bf16 within one bf16 ulp of the output plus 1e-3 (both round an f32
+#: result to bf16 once)
+SWA_F32_TOL = 2e-4
+BF16_ULP = 2.0 ** -7
+#: card vs CPU logits of the f32 smoke model: within 2e-4 (1 + max|logit|)
+#: (matrix products sum in another order on the card)
+LOGIT_TOL = 2e-4
+#: (label, B, H, Hkv, hd, W, first pos; rows step by 21 positions):
+#: llama3.2-1b's long_500k decode shape at pos 0, 5, 8191 and 70,000, its
+#: serve shape (pos 128-191), the shapes of tests/test_kernels.py, and rep 3
+#: and rep 1 over ragged caches
+SWA_CASES = [("long_500k", 1, 32, 8, 64, 8192, p)
+             for p in (0, 5, 8191, 70_000)] + [
+    ("serve", 4, 32, 8, 64, 192, 128),
+    ("ragged", 2, 8, 2, 64, 512, 100), ("ragged", 1, 4, 1, 128, 1024, 70_000),
+    ("ragged", 3, 16, 8, 64, 256, 255), ("ragged", 2, 4, 4, 128, 128, 4),
+    ("ragged", 2, 6, 2, 128, 96, 60), ("ragged", 2, 3, 3, 64, 100, 120)]
+
+
+def swa_inputs(gen, b, h, hkv, hd, w, pos0, dtype, device):
+    """Random q, k, v (drawn on the CPU) and positions pos0 + 21 i."""
+    q, k, v = (torch.randn(shape, generator=gen).to(device, dtype)
+               for shape in ((b, h, hd), (b, w, hkv, hd), (b, w, hkv, hd)))
+    pos = (pos0 + 21 * torch.arange(b, dtype=torch.int32)).to(device)
+    return q, k, v, pos
+
+
+def swa_error(out, ref, what):
+    """Max |kernel - plain|; raises beyond the stated tolerance."""
+    f32 = out.dtype == torch.float32
+    out, ref = out.float(), ref.float()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"swa_decode {what}: non-finite output")
+    err = (out - ref).abs()
+    bound = (SWA_F32_TOL * (1 + ref.abs()) if f32
+             else BF16_ULP * ref.abs() + 1e-3)
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"swa_decode {what}: off by {float(err.max())}")
+    return float(err.max())
+
+
+def check_swa_kernel(device):
+    """Phase 8: the decode-attention kernel against its plain version on the
+    card, same inputs, f32 and bf16. Returns the worst bf16 error per
+    shape label."""
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa import ref as swa_ref
+    gen = torch.Generator().manual_seed(SEED + 13)
+    worst = {}
+    for label, b, h, hkv, hd, w, pos0 in SWA_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, pos = swa_inputs(gen, b, h, hkv, hd, w, pos0, dtype,
+                                      device)
+            out = swa_ops.swa_decode(q, k, v, pos)
+            ref = swa_ref.swa_decode_ref(q, k, v, pos, window=w)
+            torch.cuda.synchronize()
+            what = (f"{label} B={b} H={h} Hkv={hkv} hd={hd} W={w} "
+                    f"pos={pos.tolist()} {dtype}")
+            err = swa_error(out, ref, what)
+            if dtype == torch.bfloat16:
+                worst[label] = max(worst.get(label, 0.0), err)
+            print(f"swa_decode {what}: max|d| {err:.3g}")
+    return worst
+
+
+def teacher_forced_logits(model, cfg, prompt, tokens, cache_len):
+    """Logits of prefill and then decode steps fed ``tokens`` (another
+    run's choices), (B, new, V)."""
+    from repro_torch.models import transformer
+    b, s = prompt.shape
+    last, cache = transformer.prefill(model, {"tokens": prompt}, cfg,
+                                      cache_len=cache_len)
+    out = [last]
+    pos = torch.full((b,), s, dtype=torch.int32, device=prompt.device)
+    for i in range(tokens.shape[1] - 1):
+        logits, cache = transformer.decode_step(model, tokens[:, i:i + 1],
+                                                pos, cache, cfg)
+        out.append(logits)
+        pos = pos + 1
+    return torch.stack(out, dim=1)
+
+
+def check_decode_card_vs_cpu(device):
+    """Phase 9: greedy generation at the f32 smoke width on the card (decode
+    attention on the kernel) and on the CPU (plain version), same weights
+    and prompts: a linear cache, and a window-16 ring that the prompt has
+    wrapped. Teacher-forced logits within LOGIT_TOL; free-running tokens
+    equal, except where the CPU's top two logits lie within it."""
+    from repro_torch import configs
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import transformer
+    from repro_torch.serving import serve_step
+    base = configs.get_smoke(LM_ARCH)
+    cpu_model = transformer.init_params(base, seed=SEED, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    new = 16
+    for window, prompt_len, cache_len in ((0, 24, 40), (16, 40, 16)):
+        cfg = dataclasses.replace(base, window=window)
+        prompt = prompts_for(cfg, 2, prompt_len, SEED, "cpu")
+        toks_c, logits_c = serve_step.generate(cpu_model, cfg, prompt, new,
+                                               cache_len, return_logits=True)
+        before = swa_ops.launches
+        toks_g = serve_step.generate(gpu_model, cfg, prompt.to(device), new,
+                                     cache_len).cpu()
+        if swa_ops.launches - before != cfg.num_layers * (new - 1):
+            raise AssertionError("decode on the card: swa_decode launched "
+                                 f"{swa_ops.launches - before} times")
+        forced = teacher_forced_logits(gpu_model, cfg, prompt.to(device),
+                                       toks_c.to(device), cache_len).cpu()
+        tol = LOGIT_TOL * (1 + float(logits_c.abs().max()))
+        err = float((forced - logits_c).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"decode window {window}: card logits off "
+                                 f"by {err} > {tol}")
+        ties = 0
+        for row in range(toks_c.shape[0]):
+            differ = (toks_g[row] != toks_c[row]).nonzero()
+            if len(differ):
+                top2 = logits_c[row, int(differ[0])].topk(2).values
+                if float(top2[0] - top2[1]) > tol:
+                    raise AssertionError(f"decode window {window}: tokens "
+                                         f"differ away from a tie, row {row}")
+                ties += 1
+        print(f"decode card vs CPU, smoke width, window {window}, prompt "
+              f"{prompt_len}, cache {cache_len}, {new} tokens: teacher-forced"
+              f" logits max|d| {err:.3g} <= {tol:.3g}; free-running tokens "
+              f"equal{f' up to {ties} near ties' if ties else ''}")
+
+
+def _serve_run(serve, model, cfg, prompts, new, cache_len, what):
+    """One timed ``serve.run`` with the launch counts reset just before."""
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    out = serve.run(model, cfg, prompts, max_new=new, cache_len=cache_len,
+                    return_logits=True)
+    counts = _launch_counts()
+    expect = cfg.num_layers * (new - 1)
+    if counts["swa_decode"] != expect:
+        raise AssertionError(f"{what}: swa_decode launched "
+                             f"{counts['swa_decode']} times, not {expect}")
+    tokens, logits = out["tokens"], out["logits"]
+    if tokens.shape != (prompts.shape[0], new) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{what}: tokens out of shape or range")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    print(f"{what}: prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{out['decode_ms_per_step']:.4f} ms/step, decode "
+          f"{out['decode_tok_s']:.1f} tok/s, all new tokens "
+          f"{out['tok_s']:.1f} tok/s; launches {counts}")
+    return {**out, "launches": counts}
+
+
+def serve_full_width(device, worst):
+    """Phase 10: llama3.2-1b at full width, bf16, seeded weights, through
+    ``launch/serve.py``'s ``run``: B 4 x 128 + 64 tokens on a linear cache,
+    then B 1 at long_500k (8,704-token chunked prefill, 64 tokens on the
+    8,192-slot ring). Each run is warmed up first. The kernel is checked
+    against its plain version on the layer-0 cache of the long prefill,
+    whose K/V of every layer it returns for the timing of phase 11."""
+    from repro_torch import configs
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa import ref as swa_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = configs.get(LM_ARCH)
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name}: {n / 1e9:.4f} B parameters, {nbytes / 1e9:.3f} GB, "
+          f"seeded init on the card in {time.perf_counter() - t0:.2f} s")
+    runs = {}
+    prompts = serve.prompts_for(cfg, 4, 128, SEED, device)
+    serve.run(model, cfg, prompts, max_new=4, cache_len=192)      # warm-up
+    runs["serve"] = _serve_run(serve, model, cfg, prompts, 64, 192,
+                               "serve B=4 x 128 + 64, linear cache 192")
+
+    long_cfg = dataclasses.replace(configs.for_shape(cfg, "long_500k"),
+                                   attention_impl="chunked")
+    w = configs.cache_len_for(long_cfg, "long_500k")
+    prompt = serve.prompts_for(cfg, 1, w + 512, SEED + 1, device)
+    # warm-up: the prefill alone and one decode step; its layer-0 cache, in
+    # which the ring has wrapped, checks the kernel on real K/V
+    last, cache = transformer.prefill(model, {"tokens": prompt}, long_cfg,
+                                      cache_len=w)
+    k_all, v_all = cache["blocks"]["k"], cache["blocks"]["v"]
+    k0, v0 = k_all[0], v_all[0]
+    pos = torch.full((1,), w + 511, dtype=torch.int32, device=device)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    q = torch.randn(1, cfg.num_heads, cfg.hd, generator=gen).to(device,
+                                                                cfg.dtype)
+    err = swa_error(swa_ops.swa_decode(q, k0, v0, pos),
+                    swa_ref.swa_decode_ref(q, k0, v0, pos, window=w),
+                    f"layer-0 cache after the long prefill {cfg.dtype}")
+    worst["long_500k"] = max(worst.get("long_500k", 0.0), err)
+    print(f"swa_decode on the layer-0 cache after the {w + 512}-token "
+          f"prefill (ring of {w}, pos {w + 511}): max|d| {err:.3g}")
+    long_inputs = [(q, k_all[i].clone(), v_all[i].clone(), pos)
+                   for i in range(cfg.num_layers)]
+    transformer.decode_step(model, last.argmax(-1)[:, None], pos + 1, cache,
+                            long_cfg)
+    del cache, last, k_all, v_all, k0, v0
+    runs["long"] = _serve_run(serve, model, long_cfg, prompt, 64, w,
+                              f"long_500k B=1 x {w + 512} + 64, ring {w}")
+    del model
+    torch.cuda.empty_cache()
+    return runs, long_inputs
+
+
+def swa_rows(device, runs, worst, long_inputs):
+    """Phase 11: the kernel's time at both serve shapes beside its plain
+    version, ``scaled_dot_product_attention`` (boolean ring mask, GQA) and
+    its bound (bytes: the valid K/V rows, q and the output, once each).
+    Each is timed queued ahead of the card (device time, not the rate of
+    the Python wrapper). At the long_500k shape the calls cycle through the
+    16 layers' caches of the long prefill (269 MB), so K/V come from device
+    memory and not from L2, as in a decode step; the serve shape's caches
+    are random."""
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa import ref as swa_ref
+    f32_peak, bw = peaks_for(torch.cuda.get_device_name(0))
+    gen = torch.Generator().manual_seed(SEED + 19)
+    serve_inputs = [swa_inputs(gen, 4, 32, 8, 64, 192, 128, torch.bfloat16,
+                               device)]
+    rows = []
+    for shape, run, inputs in (("serve", runs["serve"], serve_inputs),
+                               ("long_500k", runs["long"], long_inputs)):
+        q, k, v, pos = inputs[0]
+        (b, h, hd), (w, hkv) = q.shape, k.shape[1:3]
+        label = (f"{shape} B={b}, H={h}, Hkv={hkv}, W={w}, pos "
+                 f"{int(pos.min())}-{int(pos.max())}")
+        posl = pos.long()[:, None]
+        j = torch.arange(w, device=device)[None, :]
+        valid = torch.remainder(posl - j, w) < torch.clamp(posl + 1, max=w)
+        mask = valid[:, None, None, :]
+
+        def library(q, k, v, pos):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+        def plain(q, k, v, pos):
+            return swa_ref.swa_decode_ref(q, k, v, pos, window=w)
+
+        def cycling(fn):
+            turn = itertools.cycle(inputs)
+            return lambda: fn(*next(turn))
+
+        lib_err = float((library(q, k, v, pos).float()
+                         - swa_ops.swa_decode(q, k, v, pos).float())
+                        .abs().max())
+        t = time_in_turns({"plain": cycling(plain),
+                           "kernel": cycling(swa_ops.swa_decode),
+                           "library": cycling(library)}, 32,
+                          queue_ahead=True)
+        n_valid = int(valid.sum())
+        nbytes = (2 * n_valid * hkv * hd + 2 * b * h * hd) * q.element_size()
+        flops = 4 * n_valid * h * hd
+        bound = max(nbytes / bw, flops / f32_peak) * 1e3
+        print(f"swa_decode {label}: kernel {t['kernel']:.5f} ms, plain "
+              f"{t['plain']:.5f} ms, sdpa {t['library']:.5f} ms (max|d| from "
+              f"the kernel {lib_err:.3g}), bound {bound:.5f} ms "
+              f"({nbytes / 1e6:.3f} MB), {len(inputs)} caches in turn")
+        rows.append({
+            "name": f"swa_decode ({label})", "route": "cuda",
+            "source": "src/repro_torch/kernels/swa/swa.cu",
+            "replaces": "src/repro/kernels/swa/swa.py:28",
+            "launches": run["launches"]["swa_decode"],
+            "max_abs_err": worst[shape],
+            "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / bw > flops / f32_peak
+            else "operations",
+            "library_ms": t["library"]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -676,6 +991,15 @@ def main() -> int:
           f"{staged_rate:.1f}, fused {fused_rate:.1f}")
     rows = kernel_table(device, tm, xtr, xte, train_launches, launches, worst)
     rows.append(fused_row(device, tmf, xtr, fused_launches, fused_worst))
+    del tm, tmf, xtr, ytr, xte, yte
+    swa_worst = check_swa_kernel(device)
+    check_decode_card_vs_cpu(device)
+    runs, long_inputs = serve_full_width(device, swa_worst)
+    rows += swa_rows(device, runs, swa_worst, long_inputs)
+    for key, run in runs.items():
+        print(f"{LM_ARCH} {key}: prefill {run['prefill_ms']:.3f} ms, decode "
+              f"{run['decode_ms_per_step']:.4f} ms/step, "
+              f"{run['decode_tok_s']:.1f} decode tok/s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from collections import defaultdict
 from pathlib import Path
 
 import torch
+from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
@@ -107,7 +108,11 @@ def main() -> int:
     events = prof.key_averages()
     attr = ("self_device_time_total" if hasattr(events[0],
             "self_device_time_total") else "self_cuda_time_total")
-    device_us = sum(getattr(e, attr) for e in events)
+    # the device's own events (kernels, copies) only: an operator's row
+    # repeats the time of the kernels it launched
+    device_us = sum(getattr(e, attr) for e in events
+                    if e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation)
     print(f"profiled, {args.steps} steps, {int(aux.waves.sum())} waves: wall "
           f"{wall * 1e3 / args.steps:.3f} ms/step, device busy "
           f"{device_us / 1e3 / args.steps:.3f} ms/step, idle share "

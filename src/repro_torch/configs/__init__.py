@@ -1,0 +1,85 @@
+"""Architecture registry of the port.
+
+A copy of ``repro.configs`` for the architectures the port runs: each is a
+module here exposing ``config()`` (the published geometry, source cited in
+its docstring) and ``smoke_config()`` (a reduced variant of the same family
+for CPU tests). ``ALIASES`` names every architecture of the JAX package;
+``get`` of one that is not in ``ARCHS`` raises.
+
+``for_shape(cfg, shape)`` specialises a config for one of the four input
+shapes (the sliding window of long-context serving) and
+``cache_len_for(cfg, shape)`` gives its KV-cache length.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+import torch
+
+#: the architectures the port runs (the dense family)
+ARCHS = ["smollm_360m", "llama3_2_1b", "deepseek_coder_33b", "yi_9b"]
+
+# canonical ids -> module names (every architecture of the JAX package)
+ALIASES = {
+    "smollm-360m": "smollm_360m",
+    "whisper-medium": "whisper_medium",
+    "llama3.2-1b": "llama3_2_1b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "yi-9b": "yi_9b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "mamba2-1.3b": "mamba2_1_3b",
+}
+
+SHAPES = {
+    "train_4k":    dict(seq=4096,    batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768,   batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq=32768,   batch=128, kind="decode"),
+    "long_500k":   dict(seq=524288,  batch=1,   kind="decode"),
+}
+
+LONG_WINDOW = 8192  # sliding window used by dense archs for long_500k
+
+
+def _module(name: str):
+    mod = ALIASES.get(name, name)
+    if mod not in ARCHS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet; the port runs "
+            f"{sorted(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get(name: str):
+    return _module(name).config()
+
+
+def get_smoke(name: str):
+    """Reduced same-family config in f32 (the CPU tests compare it with the
+    JAX package's f32 smoke config)."""
+    cfg = _module(name).smoke_config()
+    return dataclasses.replace(cfg, dtype=torch.float32,
+                               param_dtype=torch.float32)
+
+
+def for_shape(cfg, shape: str):
+    """Shape-specialised config (the sliding window of long-context decode)."""
+    spec = SHAPES[shape]
+    if shape == "long_500k" and cfg.arch_type not in ("ssm",):
+        if cfg.window == 0:
+            cfg = dataclasses.replace(cfg, window=LONG_WINDOW)
+    if cfg.learned_positions:
+        need = spec["seq"] + 1
+        if (cfg.max_positions or 8192) < need:
+            cfg = dataclasses.replace(cfg, max_positions=need)
+    return cfg
+
+
+def cache_len_for(cfg, shape: str) -> int:
+    seq = SHAPES[shape]["seq"]
+    if cfg.window:
+        return min(cfg.window, seq)
+    return seq

@@ -23,9 +23,12 @@ two flavours train on different random numbers (the CPU and the CUDA fused
 paths consume them identically).
 
 ``afm.train`` draws ``randint(0, num_samples, (B,))`` sample indices before
-each step. ``GeneratorDraws`` is the production source (a ``torch.Generator``
-on the step's device); ``ReplayDraws`` hands out given arrays in order, so a
-test can feed the port exactly the numbers a JAX key chain produced.
+each step. LM serving (``serving.serve_step``) draws one ``gumbel((B, V))``
+per decode step when it samples at a temperature, as
+``jax.random.categorical`` adds ``jax.random.gumbel`` noise to the logits.
+``GeneratorDraws`` is the production source (a ``torch.Generator`` on the
+step's device); ``ReplayDraws`` hands out given arrays in order, so a test
+can feed the port exactly the numbers a JAX key chain produced.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ class Draws(Protocol):
                 ) -> torch.Tensor: ...       # int64 in [low, high)
     def uniform(self, shape: tuple[int, ...]) -> torch.Tensor: ...  # f32 [0,1)
     def normal(self, shape: tuple[int, ...]) -> torch.Tensor: ...   # f32 N(0,1)
+    def gumbel(self, shape: tuple[int, ...]) -> torch.Tensor: ...   # f32 Gumbel
 
 
 class GeneratorDraws:
@@ -66,6 +70,11 @@ class GeneratorDraws:
     def normal(self, shape):
         return torch.randn(tuple(shape), generator=self.generator,
                            device=self.device, dtype=torch.float32)
+
+    def gumbel(self, shape):
+        """-log(-log(u)), u uniform in [tiny, 1), as ``jax.random.gumbel``."""
+        u = self.uniform(shape).clamp_(min=torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
 
 
 class ReplayDraws:
@@ -100,4 +109,8 @@ class ReplayDraws:
 
     def normal(self, shape):
         arr = self._next("normal", shape)
+        return torch.as_tensor(arr.astype(np.float32), device=self.device)
+
+    def gumbel(self, shape):
+        arr = self._next("gumbel", shape)
         return torch.as_tensor(arr.astype(np.float32), device=self.device)

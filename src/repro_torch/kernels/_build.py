@@ -44,6 +44,8 @@ SIGNATURES = {
     # recv_out, gmu_out, q2_out, scratch, stream
     "repro_fused_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # q, k, v, pos, b, hkv, w, rep, hd, bf16, out, stream
+    "repro_swa_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _library: ctypes.CDLL | None = None

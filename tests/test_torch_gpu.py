@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port needs PyTorch
 
+from repro_torch import configs
 from repro_torch.api import TopoMap
 from repro_torch.core.afm import AFMConfig
 from repro_torch.kernels.bmu import ops as bmu_ops
@@ -21,6 +22,10 @@ from repro_torch.kernels.cascade import ops as cas_ops
 from repro_torch.kernels.cascade import ref as cas_ref
 from repro_torch.kernels.fused import ops as fused_ops
 from repro_torch.kernels.fused import ref as fused_ref
+from repro_torch.kernels.swa import ops as swa_ops
+from repro_torch.kernels.swa import ref as swa_ref
+from repro_torch.models import transformer
+from repro_torch.serving import serve_step
 
 pytestmark = pytest.mark.gpu
 
@@ -128,3 +133,65 @@ def test_fused_backend_fits_on_the_card(cuda):
     assert tm.fit_aux_.waves.is_cuda
     assert tm.state_.w.is_cuda and bool(torch.isfinite(tm.state_.w).all())
     assert tm.transform(x).shape == (500,)
+
+
+#: (B, H, Hkv, hd, W, first pos): the long_500k decode shape of llama3.2-1b
+#: at pos 0, 5, 8191 and 70,000; its serve shape (pos 128-191 over the
+#: rows); the shapes of tests/test_kernels.py; rep 3 and rep 1 over ragged
+#: caches; rows on both sides of a full ring; a one-slot cache
+SWA_SHAPES = [(1, 32, 8, 64, 8192, p) for p in (0, 5, 8191, 70_000)] + [
+    (4, 32, 8, 64, 192, 128), (2, 8, 2, 64, 512, 100),
+    (1, 4, 1, 128, 1024, 70_000), (3, 16, 8, 64, 256, 255),
+    (2, 4, 4, 128, 128, 4), (2, 6, 2, 128, 96, 60), (2, 3, 3, 64, 100, 120),
+    (3, 8, 2, 64, 64, 40), (2, 4, 4, 64, 1, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,hd,w,pos", SWA_SHAPES)
+def test_swa_kernel_matches_plain(cuda, b, h, hkv, hd, w, pos, dtype):
+    """The kernel against its plain version on the card, same inputs: within
+    2e-4 relative and absolute in f32 (sums in another order), within one
+    bf16 ulp of the output plus 1e-3 in bf16."""
+    gen = torch.Generator().manual_seed(b * h + w + pos)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((b, h, hd), (b, w, hkv, hd), (b, w, hkv, hd)))
+    posv = (pos + 21 * torch.arange(b, dtype=torch.int32)).to(cuda)
+    before = swa_ops.launches
+    out = swa_ops.swa_decode(q, k, v, posv)
+    assert swa_ops.launches == before + 1
+    ref = swa_ref.swa_decode_ref(q, k, v, posv, window=w).float()
+    err = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        bound = 2e-4 + 2e-4 * ref.abs()
+    else:
+        bound = 2.0 ** -7 * ref.abs() + 1e-3
+    assert bool((err <= bound).all()), float(err.max())
+
+
+def test_generate_on_the_card_equals_the_cpu(cuda):
+    """A smoke-width greedy generation on CUDA (decode attention on the
+    kernel) against the same weights on the CPU (plain version): equal
+    tokens unless the CPU's top two logits lie within the tolerance, and
+    logits within 2e-4 (1 + max|logit|) while the tokens agree."""
+    import copy
+    cfg = configs.get_smoke("llama3.2-1b")
+    model = transformer.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24),
+                           generator=torch.Generator().manual_seed(0))
+    toks_c, logits_c = serve_step.generate(model, cfg, prompt, 12, 40,
+                                           return_logits=True)
+    before = swa_ops.launches
+    toks_g, logits_g = serve_step.generate(copy.deepcopy(model).to(cuda), cfg,
+                                           prompt.to(cuda), 12, 40,
+                                           return_logits=True)
+    assert swa_ops.launches == before + cfg.num_layers * 11
+    tol = 2e-4 * (1 + float(logits_c.abs().max()))
+    toks_g, logits_g = toks_g.cpu(), logits_g.cpu()
+    for row in range(2):
+        differ = (toks_g[row] != toks_c[row]).nonzero()
+        upto = int(differ[0]) if len(differ) else 12
+        if upto < 12:
+            top2 = logits_c[row, upto].topk(2).values
+            assert float(top2[0] - top2[1]) <= tol
+        err = (logits_g[row, :upto + 1] - logits_c[row, :upto + 1]).abs()
+        assert float(err.max()) <= tol
