@@ -20,7 +20,10 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    ``TopoMap(backend="kernel")`` and queries it with the 10,000 test
    samples, counting the kernel launches of that run; then trains it again
    through ``backend_options={"kernel": "fused"}``;
-7. times each kernel beside its bound, its plain version and a library call;
+7. times each kernel beside its bound, its plain version and a library call,
+   queued ahead of the card (the card's time), with the back-to-back time
+   (the host's rate where the wrapper is slower) printed beside it, and
+   prints each kernel's plan (grid, splits);
 8. holds the sliding-window decode kernel (``kernels/swa``) against its plain
    version on the card, f32 and bf16, at llama3.2-1b's long_500k and serve
    decode shapes and at ragged ones;
@@ -124,6 +127,17 @@ def time_in_turns(fns: dict, iters: int, rounds: int = 3,
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
+def time_both(fns: dict, iters: int, what: str) -> dict:
+    """``time_in_turns`` queued ahead of the card (returned) and back to
+    back (printed beside it)."""
+    queued = time_in_turns(fns, iters, queue_ahead=True)
+    b2b = time_in_turns(fns, iters)
+    print(f"{what}: " + ", ".join(
+        f"{k} {queued[k]:.5f} ms queued ahead ({b2b[k]:.5f} back to back)"
+        for k in fns))
+    return queued
+
+
 def check_bmu(w, s, precision, what):
     """Kernel vs plain version on the same card: q2 within the f32 bound of
     the expanded form, indices equal except within that bound of a tie."""
@@ -153,6 +167,7 @@ def check_bmu(w, s, precision, what):
 def check_kernels(device):
     """Phase 3: each kernel against its plain version, main-path and ragged
     shapes; returns the worst error per kernel."""
+    from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.cascade import ops as cas_ops
     from repro_torch.kernels.cascade import ref as cas_ref
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -164,6 +179,12 @@ def check_kernels(device):
             err, _ = check_bmu(w, s, precision, f"B={b} N={n} D={d}")
             if precision == "exact":
                 worst["bmu"] = max(worst["bmu"], err)
+            # the split merge has a fixed order: a second call is bitwise
+            first = bmu_ops.bmu(w, s, precision=precision)
+            again = bmu_ops.bmu(w, s, precision=precision)
+            if not all(torch.equal(a, r) for a, r in zip(first, again)):
+                raise AssertionError(f"bmu {precision} B={b}: two calls "
+                                     f"differ")
     # ragged shape with planted exact ties: the lower index must win
     w = torch.randn(37, 13, generator=gen, device=device)
     pairs = torch.randperm(37, generator=gen, device=device)[:10].view(5, 2)
@@ -566,6 +587,7 @@ def kernel_table(device, tm, xtr, xte, train_launches, launches, worst):
     version, a library call and its bound."""
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.bmu import ref as bmu_ref
+    from repro_torch.device import sm_count
     from repro_torch.kernels.cascade import ops as cas_ops
     from repro_torch.kernels.cascade import ref as cas_ref
     name = torch.cuda.get_device_name(0)
@@ -578,14 +600,20 @@ def kernel_table(device, tm, xtr, xte, train_launches, launches, worst):
             ("bmu (queries, B=10000)", xte.contiguous(), 20,
              launches["bmu"] - train_launches["bmu"])):
         (n, d), b = w.shape, s.shape[0]
-        t = time_in_turns({
+        plan = bmu_ops.plan(n, b, d, sm_count(w.device))
+        print(f"{label}: plan {plan.kernel}_kernel, grid {plan.grid} "
+              f"({plan.blocks} blocks, {plan.splits} splits of the units), "
+              f"then the merge")
+        t = time_both({
             "plain": lambda: bmu_ref.bmu_ref(w, s),
             "kernel": lambda: bmu_ops.bmu(w, s),
             "library": lambda: torch.cdist(s, w).min(dim=1),
-        }, iters)
+        }, iters, label)
         nbytes = 4 * (n * d + b * d) + 8 * b
         flops = 2 * b * n * d + 2 * (n + b) * d
         bound = max(nbytes / bw, flops / f32_peak) * 1e3
+        print(f"{label}: bound {bound:.6f} ms, kernel at "
+              f"{100 * bound / t['kernel']:.1f} % of it")
         rows.append({
             "name": label, "route": "cuda",
             "source": "src/repro_torch/kernels/bmu/bmu.cu",
@@ -601,10 +629,12 @@ def kernel_table(device, tm, xtr, xte, train_launches, launches, worst):
                       dtype=torch.int32)
     fired = torch.rand(side, side, generator=gen, device=device) < 0.25
     bern = torch.rand(4, side, side, generator=gen, device=device) < 0.8
-    t = time_in_turns({
+    print(f"cascade_wave (side {side}): plan one thread a site, "
+          f"{-(-side * side // 256)} block(s) of 256")
+    t = time_both({
         "plain": lambda: cas_ref.cascade_wave_ref(c, fired, bern, 4),
         "kernel": lambda: cas_ops.cascade_wave(c, fired, bern, 4),
-    }, 500)
+    }, 500, f"cascade_wave (side {side})")
     sites = side * side
     nbytes = sites * (4 + 1 + 4) + sites * (4 + 1 + 4)
     # ~16 integer operations a site, counted at half the f32 rate (an SM
@@ -647,10 +677,13 @@ def fused_row(device, tmf, xtr, launches, worst):
     kw = dict(theta=cfg.theta, budget=cap)
     out = fused_ops.fused_step(*args, **kw)
     waves = int(out[3][1])
-    t = time_in_turns({
+    fplan = fused_ops._plan(w.device.index or 0, n, d, b)
+    print(f"fused_step: plan {fplan[1]} cooperative blocks of "
+          f"{fplan[0]} features, {fplan[2]} bytes of shared memory each")
+    t = time_both({
         "plain": lambda: fused_ref.fused_step_ref(*args, **kw),
         "kernel": lambda: fused_ops.fused_step(*args, **kw),
-    }, 100)
+    }, 100, "fused_step")
     nbytes = (2 * 4 * n * d + 4 * b * d
               + n * (4 + 8 + 4 * cap + 4 + 1 + 4) + 8 + 8 * b)
     flops = (2 * b * n * d + 2 * n * d + 2 * b * d + 3 * b * d
@@ -727,6 +760,8 @@ def check_swa_kernel(device):
                                       device)
             out = swa_ops.swa_decode(q, k, v, pos)
             ref = swa_ref.swa_decode_ref(q, k, v, pos, window=w)
+            if not torch.equal(out, swa_ops.swa_decode(q, k, v, pos)):
+                raise AssertionError(f"swa_decode {label}: two calls differ")
             torch.cuda.synchronize()
             what = (f"{label} B={b} H={h} Hkv={hkv} hd={hd} W={w} "
                     f"pos={pos.tolist()} {dtype}")
@@ -893,6 +928,7 @@ def swa_rows(device, runs, worst, long_inputs):
     16 layers' caches of the long prefill (269 MB), so K/V come from device
     memory and not from L2, as in a decode step; the serve shape's caches
     are random."""
+    from repro_torch.device import sm_count
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.swa import ref as swa_ref
     f32_peak, bw = peaks_for(torch.cuda.get_device_name(0))
@@ -906,6 +942,11 @@ def swa_rows(device, runs, worst, long_inputs):
         (b, h, hd), (w, hkv) = q.shape, k.shape[1:3]
         label = (f"{shape} B={b}, H={h}, Hkv={hkv}, W={w}, pos "
                  f"{int(pos.min())}-{int(pos.max())}")
+        plan = swa_ops.plan(b, hkv, w, sm_count(q.device))
+        print(f"swa_decode {label}: plan grid ({plan.splits}, {hkv}, {b}), "
+              f"{plan.splits} split(s) of {plan.slots} slots"
+              f"{', combined by the last block of each' if plan.splits > 1 else ''}"
+              f"; {'tensor cores' if q.dtype == torch.bfloat16 else 'SIMT'}")
         posl = pos.long()[:, None]
         j = torch.arange(w, device=device)[None, :]
         valid = torch.remainder(posl - j, w) < torch.clamp(posl + 1, max=w)
@@ -926,10 +967,10 @@ def swa_rows(device, runs, worst, long_inputs):
         lib_err = float((library(q, k, v, pos).float()
                          - swa_ops.swa_decode(q, k, v, pos).float())
                         .abs().max())
-        t = time_in_turns({"plain": cycling(plain),
-                           "kernel": cycling(swa_ops.swa_decode),
-                           "library": cycling(library)}, 32,
-                          queue_ahead=True)
+        t = time_both({"plain": cycling(plain),
+                       "kernel": cycling(swa_ops.swa_decode),
+                       "library": cycling(library)}, 32,
+                      f"swa_decode {shape}")
         n_valid = int(valid.sum())
         nbytes = (2 * n_valid * hkv * hd + 2 * b * h * hd) * q.element_size()
         flops = 4 * n_valid * h * hd

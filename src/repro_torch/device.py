@@ -1,8 +1,10 @@
-"""Device choice for every entry point of the port, and the switch that
+"""Device choice for every entry point of the port, the card's SM count
+that the kernels' split plans size their grids to, and the switch that
 keeps its float32 products exact."""
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -19,6 +21,12 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
             "repro_torch runs on CUDA by default, but torch.cuda.is_available()"
             " is false; pass device='cpu' to run the plain PyTorch versions")
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @contextlib.contextmanager

@@ -32,8 +32,9 @@ DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points: name -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
-    # w, s, n, b, d, bf16, idx_out, q2_out, stream
-    "repro_bmu": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # w, s, n, b, d, bf16, sample_tile, splits, part_v, part_i (scratch of
+    # (splits, b) f32 / int32), idx_out, q2_out, stream
+    "repro_bmu": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # c, fired, bern, side, theta, c_out, fired_out, recv_out, stream
     "repro_cascade_wave": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     # n, d, b, plan_out (int32[5]: features per block, blocks, shared bytes,
@@ -44,8 +45,11 @@ SIGNATURES = {
     # recv_out, gmu_out, q2_out, scratch, stream
     "repro_fused_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # q, k, v, pos, b, hkv, w, rep, hd, bf16, out, stream
-    "repro_swa_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # q, k, v, pos, b, hkv, w, rep, hd, bf16, splits, slots, part_ml,
+    # part_acc (f32 scratch), tickets (int32, zero; all three NULL with one
+    # split), out, stream
+    "repro_swa_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _P, _P, _P, _P],
 }
 
 _library: ctypes.CDLL | None = None

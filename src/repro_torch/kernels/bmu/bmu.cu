@@ -5,26 +5,51 @@
 // argmin_j |w_j|^2 - 2 w_j . s_i with a running (min, argmin), ties to the
 // lowest index, then adds |s_i|^2 back and clamps at >= 0.
 //
-// Bound on an H100: at the query shape (B = 10000, N = 900, D = 784) the
-// cross term is 2*B*N*D = 14.1 GFLOP of exact f32, which is compute-bound
-// (~0.21 ms at 67 TFLOP/s of non-tensor f32). At the training shape
-// (B = 16) the 2.8 MB of W dominate (~0.84 us at 3.35 TB/s) and one launch
-// costs more than either.
+// What bounds it on an H100 (132 SMs):
+// - the training search (B = 16, N = 900, D = 784): bytes. The cross term
+//   is 22.6 MFLOP, the 2.8 MB of W take ~0.84 us at 3.35 TB/s, so the
+//   kernel must read W once, with every SM streaming a slice of it;
+// - the queries (B = 10000): f32 operations. 2*B*N*D = 14.1 GFLOP of
+//   exact f32 is ~0.21 ms at 67 TFLOP/s of non-tensor f32.
 //
-// Design: a block owns BS samples and loops over all units in tiles of BN,
-// staging BK-feature chunks of both through shared memory; the loop over
-// unit tiles takes the place of the TPU's sequential grid axis. Each thread
-// holds SPT x UPT f32 accumulators and does plain FMAs (no tensor cores, so
-// no TF32 anywhere). Ragged N, B and D are masked in the loads, so no
-// sentinel rows are needed. |w|^2 and |s|^2 are accumulated from the same
-// staged f32 tiles. The bf16 tier rounds s and w to bf16 (__float2bfloat16)
-// as they are read from shared memory and accumulates in f32; the norms stay
-// f32, and the wrapper polishes the winner's q2 in exact f32.
-// Simple first: no wgmma, TMA or split-N yet; at B = 16 a single block
-// walks all 900 units.
+// Design: the units are split across blocks, and each block reduces its
+// slice to a per-sample (min, argmin) partial; a second launch merges the
+// partials with `repro::wins` (a strict total order on (value, index), so
+// the merge is deterministic and the lowest index wins a tie even across
+// splits), adds |s|^2 and clamps. No atomics anywhere: two calls on the
+// same inputs give bitwise equal results. The split and tile plan comes
+// from the host (`ops.plan`), which sizes the grid to the SM count:
+// - `rows_kernel` (where 128-sample tiles would leave most SMs idle; 16
+//   samples a block, 132 splits of 6-7 units at B = 16): a warp takes one
+//   unit, its lanes read the unit's row with 16-byte loads straight from
+//   device memory (the next 512 features in flight while these are used),
+//   and the 16 samples are staged in shared memory in chunks of 512
+//   features;
+// - `tile_kernel` (where its tiles give at least a third of the SMs a
+//   block, as at B = 10000): an SGEMM-style register-blocked tile of 128
+//   samples x 128 units a block, 8 x 8 accumulators a thread (its samples
+//   and its units each two runs of 4), 16-feature chunks staged K-major
+//   (transposed as they land by 4-byte `cp.async` copies, so any D and any
+//   alignment) and double-buffered, read as float4s without bank
+//   conflicts, and an epilogue that adds |w|^2 and keeps the running
+//   (min, argmin) across the block's unit tiles; a split is a whole number
+//   of unit tiles (8 splits of one tile at N = 900, 632 blocks at B =
+//   10000). 157 registers a thread: one block of 8 warps an SM.
+// Every (unit, sample) distance is summed in the same order wherever the
+// unit sits, so equal rows give bitwise equal distances. Ragged N, B and D
+// are masked in the loads; rows_kernel's 16-byte loads need D % 4 == 0 and
+// aligned pointers, and scalar loads take over otherwise. An empty split
+// writes (+inf, n), which never wins.
+//
+// The exact tier uses f32 FMAs only: no tensor cores, so no TF32. The bf16
+// tier rounds s and w to bf16 (__float2bfloat16) as they are read from
+// shared memory and accumulates in f32; the norms stay f32, and the wrapper
+// polishes the winner's q2 in exact f32. 3xTF32 or `wgmma` tiers are
+// later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "../runtime/search.cuh"
 
@@ -33,93 +58,299 @@ namespace {
 using repro::operand;
 using repro::wins;
 
-constexpr int BS = 32;                 // samples per block
-constexpr int BN = 64;                 // units per tile
-constexpr int BK = 32;                 // features per staged chunk
-constexpr int TX = 16;                 // threads along units
-constexpr int TY = 16;                 // threads along samples
-constexpr int THREADS = TX * TY;
-constexpr int SPT = BS / TY;           // samples per thread
-constexpr int UPT = BN / TX;           // units per thread
+constexpr unsigned FULL = 0xffffffffu;
+
+// ---------------------------------------------------------------- rows
+
+constexpr int R_WARPS = 8;
+constexpr int R_THREADS = R_WARPS * 32;
+constexpr int R_SAMPLES = 16;          // samples a block
+constexpr int R_KC = 512;              // features a staged chunk
+constexpr int R_LOADS = R_KC / 128;    // float4 loads a lane takes a chunk
+
+// a lane's float4s of features k0..k0+R_KC of one row (zeros past d)
+__device__ __forceinline__ void load_row(float4 (&out)[R_LOADS],
+                                         const float* __restrict__ row,
+                                         bool has, int lane, int k0, int d) {
+#pragma unroll
+  for (int l = 0; l < R_LOADS; ++l) {
+    const int k = k0 + 4 * lane + 128 * l;
+    out[l] = (has && k < d) ? *reinterpret_cast<const float4*>(row + k)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
 
 template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
-bmu_kernel(const float* __restrict__ w, const float* __restrict__ s, int n,
-           int b, int d, int* __restrict__ idx_out,
-           float* __restrict__ q2_out) {
-  __shared__ float s_tile[BS][BK + 1];
-  __shared__ float w_tile[BN][BK + 1];
-  __shared__ float w2_tile[BN];
-  __shared__ float s2_tile[BS];
+__device__ __forceinline__ void fma4(float4 sv, float4 wv, float& acc) {
+  acc = fmaf(operand<BF16>(sv.x), operand<BF16>(wv.x), acc);
+  acc = fmaf(operand<BF16>(sv.y), operand<BF16>(wv.y), acc);
+  acc = fmaf(operand<BF16>(sv.z), operand<BF16>(wv.z), acc);
+  acc = fmaf(operand<BF16>(sv.w), operand<BF16>(wv.w), acc);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int b0 = blockIdx.x * BS;
+template <bool BF16, bool VEC>
+__global__ void __launch_bounds__(R_THREADS)
+rows_kernel(const float* __restrict__ w, const float* __restrict__ s, int n,
+            int b, int d, int splits, float* __restrict__ part_v,
+            int* __restrict__ part_i) {
+  __shared__ __align__(16) float s_tile[R_SAMPLES][R_KC];
+  __shared__ float s_q[R_WARPS][R_SAMPLES];
 
-  float best[SPT];
-  int best_i[SPT];
-#pragma unroll
-  for (int i = 0; i < SPT; ++i) {
-    best[i] = INFINITY;
-    best_i[i] = 0;
-  }
-  float s2_acc = 0.f;   // threads BN .. BN+BS-1: |s|^2 of one sample
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int split = blockIdx.x;
+  const int b0 = blockIdx.y * R_SAMPLES;
+  const int lo = static_cast<int>(static_cast<int64_t>(split) * n / splits);
+  const int hi = static_cast<int>(static_cast<int64_t>(split + 1) * n / splits);
 
-  for (int n0 = 0; n0 < n; n0 += BN) {
-    float acc[SPT][UPT];
-#pragma unroll
-    for (int i = 0; i < SPT; ++i)
-#pragma unroll
-      for (int j = 0; j < UPT; ++j) acc[i][j] = 0.f;
-    float w2_acc = 0.f;   // threads 0 .. BN-1: |w|^2 of one unit
+  float best = INFINITY;   // threads 0..R_SAMPLES-1: one sample each
+  int best_i = n;
 
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      for (int e = tid; e < BS * BK; e += THREADS) {
-        const int r = e / BK, k = e % BK;
-        const int gb = b0 + r, gk = k0 + k;
-        s_tile[r][k] = (gb < b && gk < d) ? s[(size_t)gb * d + gk] : 0.f;
-      }
-      for (int e = tid; e < BN * BK; e += THREADS) {
-        const int r = e / BK, k = e % BK;
-        const int gn = n0 + r, gk = k0 + k;
-        w_tile[r][k] = (gn < n && gk < d) ? w[(size_t)gn * d + gk] : 0.f;
-      }
-      __syncthreads();
-      if (tid < BN) {
-#pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk)
-          w2_acc = fmaf(w_tile[tid][kk], w_tile[tid][kk], w2_acc);
-      } else if (n0 == 0 && tid < BN + BS) {
-#pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk)
-          s2_acc = fmaf(s_tile[tid - BN][kk], s_tile[tid - BN][kk], s2_acc);
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float sv[SPT], wv[UPT];
+  for (int u0 = lo; u0 < hi; u0 += R_WARPS) {
+    const int u = u0 + warp;
+    const bool has = u < hi;
+    const float* wrow = w + static_cast<size_t>(has ? u : lo) * d;
+    float acc[R_SAMPLES];
 #pragma unroll
-        for (int i = 0; i < SPT; ++i) sv[i] = operand<BF16>(s_tile[ty * SPT + i][kk]);
-#pragma unroll
-        for (int j = 0; j < UPT; ++j) wv[j] = operand<BF16>(w_tile[tx + TX * j][kk]);
-#pragma unroll
-        for (int i = 0; i < SPT; ++i)
-#pragma unroll
-          for (int j = 0; j < UPT; ++j) acc[i][j] = fmaf(sv[i], wv[j], acc[i][j]);
+    for (int i = 0; i < R_SAMPLES; ++i) acc[i] = 0.f;
+    float w2 = 0.f;
+    float4 wv[R_LOADS];
+    if (VEC) load_row(wv, wrow, has, lane, 0, d);
+    for (int k0 = 0; k0 < d; k0 += R_KC) {
+      const int kc = min(R_KC, d - k0);
+      __syncthreads();   // the previous chunk and s_q are consumed
+      if (VEC) {         // kc % 4 == 0 here
+        const int kc4 = kc / 4;
+        for (int e = threadIdx.x; e < R_SAMPLES * kc4; e += R_THREADS) {
+          const int r = e / kc4, k = (e % kc4) * 4;
+          *reinterpret_cast<float4*>(&s_tile[r][k]) =
+              b0 + r < b ? *reinterpret_cast<const float4*>(
+                               s + static_cast<size_t>(b0 + r) * d + k0 + k)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        for (int e = threadIdx.x; e < R_SAMPLES * kc; e += R_THREADS) {
+          const int r = e / kc, k = e % kc;
+          s_tile[r][k] = b0 + r < b
+                             ? s[static_cast<size_t>(b0 + r) * d + k0 + k]
+                             : 0.f;
+        }
       }
       __syncthreads();
+      if (VEC) {
+        // the next chunk of the row is in flight while this one is used
+        float4 nxt[R_LOADS];
+        load_row(nxt, wrow, has, lane, k0 + R_KC, d);
+        if (has) {
+#pragma unroll
+          for (int l = 0; l < R_LOADS; ++l) {
+            const int k = 4 * lane + 128 * l;
+            if (k < kc) {
+              w2 = fmaf(wv[l].x, wv[l].x, w2);
+              w2 = fmaf(wv[l].y, wv[l].y, w2);
+              w2 = fmaf(wv[l].z, wv[l].z, w2);
+              w2 = fmaf(wv[l].w, wv[l].w, w2);
+#pragma unroll
+              for (int i = 0; i < R_SAMPLES; ++i) {
+                fma4<BF16>(*reinterpret_cast<const float4*>(&s_tile[i][k]),
+                           wv[l], acc[i]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int l = 0; l < R_LOADS; ++l) wv[l] = nxt[l];
+      } else if (has) {
+        for (int k = lane; k < kc; k += 32) {
+          const float x = wrow[k0 + k];
+          w2 = fmaf(x, x, w2);
+          const float xo = operand<BF16>(x);
+#pragma unroll
+          for (int i = 0; i < R_SAMPLES; ++i) {
+            acc[i] = fmaf(operand<BF16>(s_tile[i][k]), xo, acc[i]);
+          }
+        }
+      }
     }
-    if (tid < BN) w2_tile[tid] = w2_acc;
-    if (n0 == 0 && tid >= BN && tid < BN + BS) s2_tile[tid - BN] = s2_acc;
+    // every lane ends with the full sums (butterfly, one fixed order)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      w2 += __shfl_xor_sync(FULL, w2, off);
+#pragma unroll
+      for (int i = 0; i < R_SAMPLES; ++i) {
+        acc[i] += __shfl_xor_sync(FULL, acc[i], off);
+      }
+    }
+    float q = INFINITY;
+#pragma unroll
+    for (int i = 0; i < R_SAMPLES; ++i) {
+      if (lane == i) q = w2 - 2.f * acc[i];
+    }
+    if (lane < R_SAMPLES) s_q[warp][lane] = has ? q : INFINITY;
+    __syncthreads();
+    if (threadIdx.x < R_SAMPLES) {
+      // warps hold rising units, so a strict order keeps the lowest index
+#pragma unroll
+      for (int ww = 0; ww < R_WARPS; ++ww) {
+        if (u0 + ww < hi && wins(s_q[ww][threadIdx.x], u0 + ww, best, best_i)) {
+          best = s_q[ww][threadIdx.x];
+          best_i = u0 + ww;
+        }
+      }
+    }
+  }
+  const int gb = b0 + threadIdx.x;
+  if (threadIdx.x < R_SAMPLES && gb < b) {
+    part_v[static_cast<size_t>(split) * b + gb] = best;
+    part_i[static_cast<size_t>(split) * b + gb] = best_i;
+  }
+}
+
+// ---------------------------------------------------------------- tiles
+
+constexpr int T_B = 128;               // samples a block
+constexpr int T_N = 128;               // units a tile
+constexpr int T_K = 16;                // features a staged chunk
+constexpr int T_LD = T_B + 4;          // a K-major row of 128 samples or units
+constexpr int T_THREADS = 256;         // 16 x 16 threads, 8 x 8 outputs each
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows r0.. of a (rows x d) matrix, features k0..k0+T_K, transposed as they
+// land into dst[T_K][T_LD] (zeros past the ragged edges): 16 neighbouring
+// threads read one row's 16 features, each copy 4 bytes, asynchronous
+__device__ __forceinline__ void stage(float (*dst)[T_LD],
+                                      const float* __restrict__ src, int r0,
+                                      int rows, int d, int k0) {
+#pragma unroll
+  for (int h = 0; h < T_B * T_K / T_THREADS; ++h) {
+    const int e = threadIdx.x + T_THREADS * h;
+    const int r = e / T_K, k = e % T_K;
+    const int gr = r0 + r, gk = k0 + k;
+    const bool ok = gr < rows && gk < d;
+    cp_async4(&dst[k][r], ok ? src + static_cast<size_t>(gr) * d + gk : src,
+              ok ? 4 : 0);
+  }
+}
+
+// the 8 values a thread takes of one K-major row: x[4c .. 4c+3] and
+// x[64 + 4c .. 64 + 4c + 3], rounded to the tier's operands
+template <bool BF16>
+__device__ __forceinline__ void fragment(const float* row, int c,
+                                         float (&out)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(row + 4 * c);
+  const float4 hi = *reinterpret_cast<const float4*>(row + 64 + 4 * c);
+  out[0] = operand<BF16>(lo.x);
+  out[1] = operand<BF16>(lo.y);
+  out[2] = operand<BF16>(lo.z);
+  out[3] = operand<BF16>(lo.w);
+  out[4] = operand<BF16>(hi.x);
+  out[5] = operand<BF16>(hi.y);
+  out[6] = operand<BF16>(hi.z);
+  out[7] = operand<BF16>(hi.w);
+}
+
+// slot i of a thread's 8 samples (or units): 4c + i, then 64 + 4c + i - 4
+__device__ __forceinline__ int owned(int c, int i) {
+  return i < 4 ? 4 * c + i : 64 + 4 * c + i - 4;
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(T_THREADS)
+tile_kernel(const float* __restrict__ w, const float* __restrict__ s, int n,
+            int b, int d, int splits, float* __restrict__ part_v,
+            int* __restrict__ part_i) {
+  __shared__ __align__(16) float a_tile[2][T_K][T_LD];
+  __shared__ __align__(16) float w_tile[2][T_K][T_LD];
+  __shared__ float w2_tile[T_N];
+
+  const int tx = threadIdx.x % 16;       // units owned(tx, j)
+  const int ty = threadIdx.x / 16;       // samples owned(ty, i)
+  const int split = blockIdx.x;
+  const int b0 = blockIdx.y * T_B;
+  const int tiles = (n + T_N - 1) / T_N;
+  const int t_lo = static_cast<int>(static_cast<int64_t>(split) * tiles / splits);
+  const int t_hi = static_cast<int>(static_cast<int64_t>(split + 1) * tiles / splits);
+  const int chunks = (d + T_K - 1) / T_K;
+  // |w|^2: thread t sums half of unit t / 2's features of each chunk
+  const int w2_unit = threadIdx.x / 2;
+  const int w2_half = (threadIdx.x % 2) * (T_K / 2);
+
+  float best[8];
+  int best_i[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    best[i] = INFINITY;
+    best_i[i] = n;
+  }
+
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    const int n0 = tile * T_N;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    float w2 = 0.f;
+
+    stage(a_tile[0], s, b0, b, d, 0);
+    stage(w_tile[0], w, n0, n, d, 0);
+    cp_async_commit();
+    for (int c = 0; c < chunks; ++c) {
+      const int buf = c & 1;
+      if (c + 1 < chunks) {   // the next chunk is in flight while this one is used
+        stage(a_tile[buf ^ 1], s, b0, b, d, (c + 1) * T_K);
+        stage(w_tile[buf ^ 1], w, n0, n, d, (c + 1) * T_K);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < T_K / 2; ++kk) {
+        const float x = w_tile[buf][w2_half + kk][w2_unit];
+        w2 = fmaf(x, x, w2);
+      }
+#pragma unroll
+      for (int kk = 0; kk < T_K; ++kk) {
+        float a[8], x[8];
+        fragment<BF16>(a_tile[buf][kk], ty, a);
+        fragment<BF16>(w_tile[buf][kk], tx, x);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], x[j], acc[i][j]);
+      }
+      __syncthreads();   // this buffer is staged again two chunks on
+    }
+    // the two halves of a unit's |w|^2 sit in neighbouring lanes
+    w2 += __shfl_xor_sync(FULL, w2, 1);
+    if (threadIdx.x % 2 == 0) w2_tile[w2_unit] = w2;
     __syncthreads();
     // units of this thread rise with j, so a strict < keeps the lowest index
 #pragma unroll
-    for (int j = 0; j < UPT; ++j) {
-      const int u = n0 + tx + TX * j;
+    for (int j = 0; j < 8; ++j) {
+      const int u = n0 + owned(tx, j);
       if (u < n) {
+        const float wj = w2_tile[owned(tx, j)];
 #pragma unroll
-        for (int i = 0; i < SPT; ++i) {
-          const float q = w2_tile[tx + TX * j] - 2.f * acc[i][j];
+        for (int i = 0; i < 8; ++i) {
+          const float q = wj - 2.f * acc[i][j];
           if (q < best[i]) {
             best[i] = q;
             best_i[i] = u;
@@ -130,41 +361,114 @@ bmu_kernel(const float* __restrict__ w, const float* __restrict__ s, int n,
     __syncthreads();   // w2_tile is rewritten by the next tile
   }
 
-  // the TX threads of one sample row are 16 consecutive lanes of a warp
+  // the 16 threads of a sample row are 16 consecutive lanes of a warp
 #pragma unroll
-  for (int i = 0; i < SPT; ++i) {
+  for (int i = 0; i < 8; ++i) {
     float v = best[i];
     int bi = best_i[i];
 #pragma unroll
-    for (int off = TX / 2; off > 0; off /= 2) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off, TX);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off, TX);
+    for (int off = 8; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, v, off, 16);
+      const int oi = __shfl_xor_sync(FULL, bi, off, 16);
       if (wins(ov, oi, v, bi)) {
         v = ov;
         bi = oi;
       }
     }
-    const int gb = b0 + ty * SPT + i;
+    const int gb = b0 + owned(ty, i);
     if (tx == 0 && gb < b) {
-      idx_out[gb] = bi;
-      q2_out[gb] = fmaxf(v + s2_tile[ty * SPT + i], 0.f);
+      part_v[static_cast<size_t>(split) * b + gb] = v;
+      part_i[static_cast<size_t>(split) * b + gb] = bi;
     }
   }
 }
 
+// ---------------------------------------------------------------- merge
+
+constexpr int M_WARPS = 8;
+
+// one warp a sample: |s|^2, then the splits' partials under `wins` (a total
+// order, so the result does not depend on the order of the reduction)
+__global__ void __launch_bounds__(M_WARPS * 32)
+merge_kernel(const float* __restrict__ s, int n, int b, int d, int splits,
+             const float* __restrict__ part_v, const int* __restrict__ part_i,
+             int* __restrict__ idx_out, float* __restrict__ q2_out) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * M_WARPS + (threadIdx.x >> 5);
+  if (row >= b) return;
+  const float* srow = s + static_cast<size_t>(row) * d;
+  float s2 = 0.f;
+  for (int k = lane; k < d; k += 32) s2 = fmaf(srow[k], srow[k], s2);
+  float v = INFINITY;
+  int bi = n;
+  for (int sp = lane; sp < splits; sp += 32) {
+    const float ov = part_v[static_cast<size_t>(sp) * b + row];
+    const int oi = part_i[static_cast<size_t>(sp) * b + row];
+    if (wins(ov, oi, v, bi)) {
+      v = ov;
+      bi = oi;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s2 += __shfl_xor_sync(FULL, s2, off);
+    const float ov = __shfl_xor_sync(FULL, v, off);
+    const int oi = __shfl_xor_sync(FULL, bi, off);
+    if (wins(ov, oi, v, bi)) {
+      v = ov;
+      bi = oi;
+    }
+  }
+  if (lane == 0) {
+    idx_out[row] = bi < n ? bi : 0;   // every distance NaN: unit 0
+    q2_out[row] = fmaxf(v + s2, 0.f);
+  }
+}
+
+template <bool BF16, bool VEC>
+cudaError_t launch_search(const float* w, const float* s, int n, int b, int d,
+                   int sample_tile, int splits, float* pv, int* pi,
+                   cudaStream_t st) {
+  const dim3 grid(splits, (b + sample_tile - 1) / sample_tile);
+  if (sample_tile == R_SAMPLES) {
+    rows_kernel<BF16, VEC><<<grid, R_THREADS, 0, st>>>(w, s, n, b, d, splits,
+                                                       pv, pi);
+  } else {
+    tile_kernel<BF16><<<grid, T_THREADS, 0, st>>>(w, s, n, b, d, splits, pv,
+                                                  pi);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// w (n, d) and s (b, d) f32; sample_tile 16 (rows_kernel) or 128
+// (tile_kernel) and splits as `ops.plan` gives them; part_v / part_i
+// scratch of (splits, b) f32 / int32; idx_out (b,) int32, q2_out (b,) f32
 extern "C" int repro_bmu(const void* w, const void* s, int n, int b, int d,
-                         int bf16, void* idx_out, void* q2_out, void* stream) {
-  const dim3 grid((b + BS - 1) / BS);
+                         int bf16, int sample_tile, int splits, void* part_v,
+                         void* part_i, void* idx_out, void* q2_out,
+                         void* stream) {
+  if (n < 1 || b < 1 || d < 1 || splits < 1 || splits > 65535 ||
+      (sample_tile != R_SAMPLES && sample_tile != T_B) ||
+      (b + sample_tile - 1) / sample_tile > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wp = static_cast<const float*>(w);
   const float* sp = static_cast<const float*>(s);
-  int* ip = static_cast<int*>(idx_out);
-  float* qp = static_cast<float*>(q2_out);
-  if (bf16)
-    bmu_kernel<true><<<grid, THREADS, 0, st>>>(wp, sp, n, b, d, ip, qp);
-  else
-    bmu_kernel<false><<<grid, THREADS, 0, st>>>(wp, sp, n, b, d, ip, qp);
+  float* pv = static_cast<float*>(part_v);
+  int* pi = static_cast<int*>(part_i);
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  const cudaError_t err =
+      bf16 ? (vec ? launch_search<true, true>(wp, sp, n, b, d, sample_tile, splits, pv, pi, st)
+                  : launch_search<true, false>(wp, sp, n, b, d, sample_tile, splits, pv, pi, st))
+           : (vec ? launch_search<false, true>(wp, sp, n, b, d, sample_tile, splits, pv, pi, st)
+                  : launch_search<false, false>(wp, sp, n, b, d, sample_tile, splits, pv, pi, st));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_kernel<<<(b + M_WARPS - 1) / M_WARPS, M_WARPS * 32, 0, st>>>(
+      sp, n, b, d, splits, pv, pi, static_cast<int*>(idx_out),
+      static_cast<float*>(q2_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,6 +44,42 @@ def bmu_bf16_ref(w: torch.Tensor, s: torch.Tensor):
     return idx.to(torch.int32), polish(w, s, idx)
 
 
+def bmu_split_ref(w: torch.Tensor, s: torch.Tensor, plan, *,
+                  precision: str = "exact"):
+    """The kernel's split-and-merge arithmetic in plain PyTorch (for tests):
+    each split of ``plan`` (an ``ops.Plan``) reduces its units to a
+    per-sample (min of |w|^2 - 2 w.s, lowest argmin), an empty split gives
+    (+inf, n); the partials merge in split order, a tie to the lower index;
+    then |s|^2 is added and the sum clamped at >= 0. The bf16 tier ranks
+    with bf16-rounded operands and polishes the winner's q2 in exact f32.
+    """
+    w = w.to(torch.float32)
+    s = s.to(torch.float32)
+    n = w.shape[0]
+    w2 = torch.sum(w * w, dim=-1)
+    s2 = torch.sum(s * s, dim=-1)
+    ws, ss = (w, s) if precision == "exact" else (
+        w.to(torch.bfloat16).to(torch.float32),
+        s.to(torch.bfloat16).to(torch.float32))
+    with no_tf32():
+        q = w2[None, :] - 2.0 * (ss @ ws.T)
+    best = torch.full((s.shape[0],), float("inf"))
+    best_i = torch.full((s.shape[0],), n, dtype=torch.int64)
+    for split in range(plan.splits):
+        lo, hi = plan.unit_range(split)
+        if lo >= hi:
+            continue                  # (+inf, n) never wins
+        i = torch.argmin(q[:, lo:hi], dim=-1) + lo
+        v = q.gather(-1, i[:, None])[:, 0]
+        take = (v < best) | ((v == best) & (i < best_i))
+        best = torch.where(take, v, best)
+        best_i = torch.where(take, i, best_i)
+    idx = best_i.to(torch.int32)
+    if precision == "bf16":
+        return idx, polish(w, s, idx)
+    return idx, torch.clamp(best + s2, min=0.0)
+
+
 def polish(w: torch.Tensor, s: torch.Tensor, idx: torch.Tensor):
     """Exact-f32 squared distance of each sample to its chosen unit."""
     dw = w[idx.long()] - s

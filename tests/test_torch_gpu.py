@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")  # the port needs PyTorch
 from repro_torch import configs
 from repro_torch.api import TopoMap
 from repro_torch.core.afm import AFMConfig
+from repro_torch.device import sm_count
 from repro_torch.kernels.bmu import ops as bmu_ops
 from repro_torch.kernels.bmu import ref as bmu_ref
 from repro_torch.kernels.cascade import ops as cas_ops
@@ -37,9 +38,19 @@ def cuda():
     return torch.device("cuda")
 
 
+#: the main path's shapes (B 16 and 10,000); shapes that straddle the
+#: plan: fewer units than the 132 splits of rows_kernel (37, 100), one unit
+#: past a split or tile edge (133 over 132 splits; 129 and 1,025 past 128-
+#: unit tiles), B at and one past rows_kernel's 32, ragged D (the scalar
+#: loads)
+BMU_SHAPES = [(900, 16, 784), (900, 10000, 784), (900, 300, 784),
+              (37, 5, 13), (100, 16, 784), (133, 16, 784), (129, 65, 33),
+              (1025, 300, 784), (900, 32, 784), (900, 33, 783),
+              (900, 17, 785), (1, 3, 1)]
+
+
 @pytest.mark.parametrize("precision", ["exact", "bf16"])
-@pytest.mark.parametrize("n,b,d", [(900, 300, 784), (37, 5, 13),
-                                   (129, 65, 33), (1, 3, 1)])
+@pytest.mark.parametrize("n,b,d", BMU_SHAPES)
 def test_bmu_kernel_matches_plain(cuda, precision, n, b, d):
     gen = torch.Generator(device=cuda).manual_seed(n + b + d)
     w = torch.randn(n, d, generator=gen, device=cuda)
@@ -51,6 +62,56 @@ def test_bmu_kernel_matches_plain(cuda, precision, n, b, d):
     differ = idx != idx_r
     assert bool((bmu_ref.top2_gap(w, s)[differ] <= bound[differ]).all())
     assert bool(((q2 - q2_r).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16"])
+@pytest.mark.parametrize("b", [16, 300])
+def test_bmu_ties_across_splits_go_to_the_lowest_index(cuda, precision, b):
+    """Units duplicated into other splits (other 6-7-unit slices at B 16,
+    other 128-unit tiles at B 300) tie bitwise; the lower index wins."""
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    n, d = 900, 784
+    w = torch.randn(n, d, generator=gen, device=cuda)
+    lo = torch.tensor([3, 10, 130, 255, 500], device=cuda)
+    hi = torch.tensor([800, 450, 899, 640, 777], device=cuda)
+    w[hi] = w[lo]
+    pick = torch.arange(b, device=cuda) % len(lo)
+    s = w[hi[pick]] + 1e-3 * torch.randn(b, d, generator=gen, device=cuda)
+    p = bmu_ops.plan(n, b, d, sm_count(cuda))
+    assert all(_split_of(p, int(x)) != _split_of(p, int(y))
+               for x, y in zip(lo, hi))
+    idx, _ = bmu_ops.bmu(w, s, precision=precision)
+    assert torch.equal(idx.long(), lo[pick])
+
+
+def _split_of(p, unit):
+    return next(i for i in range(p.splits)
+                if p.unit_range(i)[0] <= unit < p.unit_range(i)[1])
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16"])
+@pytest.mark.parametrize("n,b,d", [(900, 16, 784), (900, 10000, 784),
+                                   (37, 5, 13), (1025, 300, 783)])
+def test_bmu_is_bitwise_repeatable_and_split_invariant(cuda, precision, n,
+                                                       b, d):
+    """Two calls give bitwise equal results (no atomics, fixed orders), and
+    so does any other split count of the same kernel, empty splits
+    included: a distance is summed in one order wherever its unit sits."""
+    gen = torch.Generator(device=cuda).manual_seed(n + b)
+    w = torch.rand(n, d, generator=gen, device=cuda)
+    s = torch.rand(b, d, generator=gen, device=cuda)
+    first = bmu_ops.bmu(w, s, precision=precision)
+    again = bmu_ops.bmu(w, s, precision=precision)
+    p = bmu_ops.plan(n, b, d, sm_count(cuda))
+    units = -(-n // p.unit_step)
+    for splits in (1, 3, units, units + 5):
+        other = bmu_ops.run_plan(
+            w, s, bmu_ops.Plan(p.kernel, n, b, p.sample_tile, splits),
+            precision=precision)
+        for a, r in zip(other, first):
+            assert torch.equal(a, r), splits
+    for a, r in zip(again, first):
+        assert torch.equal(a, r)
 
 
 @pytest.mark.parametrize("side", [1, 7, 30, 64])
@@ -138,8 +199,12 @@ def test_fused_backend_fits_on_the_card(cuda):
 #: (B, H, Hkv, hd, W, first pos): the long_500k decode shape of llama3.2-1b
 #: at pos 0, 5, 8191 and 70,000; its serve shape (pos 128-191 over the
 #: rows); the shapes of tests/test_kernels.py; rep 3 and rep 1 over ragged
-#: caches; rows on both sides of a full ring; a one-slot cache
-SWA_SHAPES = [(1, 32, 8, 64, 8192, p) for p in (0, 5, 8191, 70_000)] + [
+#: caches; rows on both sides of a full ring; a one-slot cache. At
+#: long_500k the kernel runs 32 splits of 256 slots: pos 0 leaves one
+#: valid slot and 31 empty splits, pos 255 and 511 end the valid slots on
+#: a split edge, pos 256 one past it, 70,000 is a full, wrapped ring
+SWA_SHAPES = [(1, 32, 8, 64, 8192, p)
+              for p in (0, 5, 255, 256, 511, 8191, 70_000)] + [
     (4, 32, 8, 64, 192, 128), (2, 8, 2, 64, 512, 100),
     (1, 4, 1, 128, 1024, 70_000), (3, 16, 8, 64, 256, 255),
     (2, 4, 4, 128, 128, 4), (2, 6, 2, 128, 96, 60), (2, 3, 3, 64, 100, 120),
@@ -166,6 +231,27 @@ def test_swa_kernel_matches_plain(cuda, b, h, hkv, hd, w, pos, dtype):
     else:
         bound = 2.0 ** -7 * ref.abs() + 1e-3
     assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,pos", [(1, 255), (1, 70_000), (4, 128)])
+def test_swa_kernel_is_bitwise_repeatable(cuda, b, pos, dtype):
+    """The split combine runs in a fixed order: two calls are bitwise
+    equal (long_500k's 32 splits; the serve shape's one), and the combine's
+    tickets are back at zero after a call."""
+    w = 8192 if b == 1 else 192
+    gen = torch.Generator().manual_seed(pos)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((b, 32, 64), (b, w, 8, 64), (b, w, 8, 64)))
+    posv = (pos + torch.arange(b, dtype=torch.int32)).to(cuda)
+    splits = swa_ops.plan(b, 8, w, sm_count(cuda)).splits
+    assert (splits > 1) == (b == 1)
+    assert torch.equal(swa_ops.swa_decode(q, k, v, posv),
+                       swa_ops.swa_decode(q, k, v, posv))
+    if splits > 1:          # the last block of each (row, kv head) reset it
+        tickets = swa_ops.tickets(q.device, torch.cuda.current_stream(
+            q.device).cuda_stream, b * 8)
+        assert not bool(tickets.any())
 
 
 def test_generate_on_the_card_equals_the_cpu(cuda):

@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")  # the port needs PyTorch
 from repro.kernels.bmu import ops as jbmu_ops
 from repro.kernels.cascade import ops as jcas_ops
 from repro_torch.kernels.bmu import ops as bmu_ops
+from repro_torch.kernels.bmu import ref as bmu_ref
 from repro_torch.kernels.cascade import ops as cas_ops
 from torch_parity import assert_bmu_tier, t
 
@@ -229,3 +230,82 @@ def test_exact_products_leave_the_tf32_switch_as_found(before):
         assert torch.backends.cuda.matmul.allow_tf32 is before
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+#: (n, b, d, sms): the main path's shapes on an H100 SXM (132 SMs) and a
+#: PCIe card (114); B past one sample tile of rows_kernel; B where the
+#: tiles reach a third of the SMs (6 x 8 x 3 >= 132)
+PLAN_SHAPES = [(900, 16, 784, 132), (900, 10000, 784, 132),
+               (900, 16, 784, 114), (900, 10000, 784, 114),
+               (900, 33, 784, 132), (900, 300, 784, 132),
+               (900, 700, 784, 132)]
+
+
+@pytest.mark.parametrize("n,b,d,sms", PLAN_SHAPES)
+def test_bmu_plan_gives_every_sm_a_block(n, b, d, sms):
+    p = bmu_ops.plan(n, b, d, sms)
+    assert p.blocks >= (sms if p.kernel == "rows" else -(-sms // 3))
+    assert p.kernel == ("tiles" if b in (700, 10000) else "rows")
+    if b == 16:                    # one sample tile, ~7 units a split
+        assert p.grid == (sms, 1)
+        sizes = [hi - lo for lo, hi in map(p.unit_range, range(p.splits))]
+        assert max(sizes) - min(sizes) <= 1 and max(sizes) <= 8
+
+
+@pytest.mark.parametrize("n,b", [(900, 16), (900, 10000), (37, 5), (1, 3),
+                                 (129, 65), (100_000, 10_000), (133, 16)])
+def test_bmu_plan_splits_cover_the_units_once_in_order(n, b):
+    p = bmu_ops.plan(n, b, 784, 132)
+    edges = [p.unit_range(i) for i in range(p.splits)]
+    assert edges[0][0] == 0 and edges[-1][1] == n
+    assert all(a[1] == c[0] for a, c in zip(edges, edges[1:]))
+    assert all(lo < hi for lo, hi in edges)      # the plan makes none empty
+    assert all(lo % p.unit_step == 0 for lo, _ in edges)
+
+
+def test_bmu_plan_rejects_empty_shapes():
+    with pytest.raises(ValueError, match="plan"):
+        bmu_ops.plan(0, 16, 784, 132)
+
+
+def _split_plans(n, b):
+    """The planner's plan at 132 SMs, and plans with empty splits."""
+    p = bmu_ops.plan(n, b, 8, 132)
+    steps = -(-n // p.unit_step)
+    return [p, bmu_ops.Plan(p.kernel, n, b, p.sample_tile, 1),
+            bmu_ops.Plan(p.kernel, n, b, p.sample_tile, steps + 3)]
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16"])
+@pytest.mark.parametrize("n,b,d", [(37, 5, 13), (130, 33, 8), (200, 70, 31)])
+def test_bmu_split_merge_matches_the_pallas_kernel(n, b, d, precision):
+    """The kernel's split-and-merge arithmetic (plain, ``ref.bmu_split_ref``)
+    under the planner's plan, one split, and more splits than units (empty
+    splits), against the Pallas kernel in interpret mode."""
+    w, s = _bmu_inputs(n, b, d, seed=n + 7 * b)
+    ij, qj = jbmu_ops.bmu(jnp.asarray(w), jnp.asarray(s), use_pallas=True,
+                          interpret=True, precision=precision)
+    for p in _split_plans(n, b):
+        it, qt = bmu_ref.bmu_split_ref(t(w), t(s), p, precision=precision)
+        assert it.dtype == torch.int32 and qt.shape == (b,)
+        assert_bmu_tier(it, qt, ij, qj, w, s)
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16"])
+@pytest.mark.parametrize("b", [16, 40])
+def test_bmu_split_merge_ties_across_splits_take_lowest_index(b, precision):
+    """Duplicated units in different splits (rows and tiles plans) tie
+    bitwise; the merge keeps the lower index, as JAX's oracle does."""
+    rng = np.random.default_rng(b)
+    w = rng.standard_normal((300, 20)).astype(np.float32)
+    lo, hi = np.array([2, 7, 100]), np.array([290, 150, 257])
+    w[hi] = w[lo]
+    s = w[hi] + np.float32(1e-3) * rng.standard_normal((3, 20)).astype(
+        np.float32)
+    s = np.resize(s, (b, 20))
+    for p in _split_plans(300, b):
+        it, _ = bmu_ref.bmu_split_ref(t(w), t(s), p, precision=precision)
+        np.testing.assert_array_equal(it.numpy(), np.resize(lo, b))
+    ij, _ = jbmu_ops.bmu(jnp.asarray(w), jnp.asarray(s), use_pallas=False,
+                         precision=precision)
+    np.testing.assert_array_equal(np.asarray(ij), np.resize(lo, b))

@@ -9,6 +9,8 @@ the logits and the PV product in other orders. bf16 outputs agree within one
 bf16 ulp of the output plus 1e-3 (both sides round an f32 result to bf16
 once, from sums taken in other orders).
 """
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,3 +162,71 @@ def test_swa_plain_version_is_the_oracle_in_torch():
     got = swa_ref.swa_decode_ref(t(q), t(k), t(v), t(posv), window=20)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_swa_plan_fills_the_card_at_long_500k_and_keeps_serve_whole(sms):
+    """long_500k (B 1, Hkv 8, W 8192): at least a block a SM, each split
+    at least MIN_SPLIT_SLOTS slots; the serve shape (B 4, W 192): one
+    split, the output written directly with no combine."""
+    p = swa_ops.plan(1, 8, 8192, sms)
+    assert 8 * p.splits >= sms and p.slots >= swa_ops.MIN_SPLIT_SLOTS
+    if sms == 132:                                  # an H100 SXM
+        assert p == swa_ops.Plan(32, 256)
+    assert swa_ops.plan(4, 8, 192, sms) == swa_ops.Plan(1, 192)
+
+
+@pytest.mark.parametrize("b,hkv,w", [(1, 8, 8192), (4, 8, 192), (1, 1, 1),
+                                     (2, 2, 1000), (1, 1, 65536),
+                                     (64, 8, 8192)])
+def test_swa_plan_covers_the_ring_and_never_sees_pos(b, hkv, w):
+    """The split plan is a function of (B, Hkv, W, SM count) alone: ``pos``
+    lives on the card and the decode loop never syncs to read it. Its
+    splits tile [0, W) with no empty tail and stay within the combine."""
+    assert list(inspect.signature(swa_ops.plan).parameters) == \
+        ["b", "hkv", "w", "sms"]
+    p = swa_ops.plan(b, hkv, w, 132)
+    assert p.splits * p.slots >= w > (p.splits - 1) * p.slots
+    assert 1 <= p.splits <= swa_ops.MAX_SPLITS
+
+
+def _split_plans(w, b, hkv):
+    """The planner's plan, one split, and splits of 16 or 37 slots."""
+    return [swa_ops.plan(b, hkv, w, 132), swa_ops.Plan(1, w),
+            swa_ops.Plan(-(-w // 16), 16), swa_ops.Plan(-(-w // 37), 37)]
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,w,pos", [
+    (1, 8, 2, 64, 512, 0),        # one valid slot: every other split empty
+    (1, 8, 2, 64, 512, 15),       # nv = 16 ends on a split edge
+    (1, 8, 2, 64, 512, 16),       # one past it
+    (2, 8, 2, 64, 512, 100),
+    (1, 4, 1, 128, 1024, 70_000),  # full, wrapped ring
+    (3, 8, 2, 64, 64, 40),        # rows on both sides of a full ring
+    (2, 6, 2, 128, 96, 60),
+])
+def test_swa_split_combine_matches_the_pallas_kernel(b, h, hkv, hd, w, pos):
+    """The kernel's split-and-combine arithmetic (plain, in base 2,
+    ``ref.swa_decode_split_ref``) under several plans, empty splits
+    included, against the Pallas kernel in interpret mode."""
+    q, k, v, posv = _inputs(b, h, hkv, hd, w, pos, seed=b * h + w + pos)
+    pallas = np.asarray(jswa_ops.swa_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(posv),
+        interpret=True))
+    for p in _split_plans(w, b, hkv):
+        out = swa_ref.swa_decode_split_ref(t(q), t(k), t(v), t(posv), p)
+        assert out.shape == (b, h, hd) and out.dtype == torch.float32
+        np.testing.assert_allclose(out.numpy(), pallas, rtol=TOL, atol=TOL)
+
+
+def test_swa_split_combine_bf16_matches_jax_oracle():
+    q, k, v, posv = _inputs(2, 8, 2, 64, 256, 300, seed=12)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jswa_ref.swa_decode_ref(jq, jk, jv, jnp.asarray(posv),
+                                              window=256), np.float32)
+    tq, tk, tv = (t(x).bfloat16() for x in (q, k, v))
+    for p in _split_plans(256, 2, 2):
+        out = swa_ref.swa_decode_split_ref(tq, tk, tv, t(posv), p)
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_array_less(np.abs(out.float().numpy() - want),
+                                     BF16_ULP * np.abs(want) + 1e-3)
