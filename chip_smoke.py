@@ -14,8 +14,9 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 5. holds the fused training-step kernel against its plain version on the
    card (main-path and ragged shapes; GMUs given, exact and bf16 search; a
    wave budget cut by ``max_waves``; a cascade that outlives the kernel's
-   wave block and finishes in the tail loop), and a fused step against a
-   staged step from one state on replayed draws;
+   wave block and finishes in the tail loop), its exact search against
+   ``bmu``'s bitwise, and a fused step against a staged step from one state
+   on replayed draws (GMUs and q2 bitwise);
 6. trains a 30x30 map on 784-d MNIST-shaped data through
    ``TopoMap(backend="kernel")`` and queries it with the 10,000 test
    samples, counting the kernel launches of that run; then trains it again
@@ -312,17 +313,20 @@ def fused_inputs(gen, side, d, b, w_cap, device, theta=4, p=0.9):
 def check_fused_kernel(device):
     """Phase 5a: the fused kernel against its plain version, both on the
     card, same inputs: GMUs given, exact and bf16 search, at the main
-    path's shape and a ragged one, with the budget cut below the wave block
-    (``max_waves < wave_cap``) and with the front still alive after it.
-    Integers bitwise, GMUs and q2 within the tie bound, w within the stage
-    bound. Where a search picks another unit inside the tie bound, the
-    plain version is run again with the kernel's GMUs."""
+    path's shape and ragged ones (D % 4 != 0, B past two search tiles),
+    with the budget cut below the wave block (``max_waves < wave_cap``) and
+    with the front still alive after it. Integers bitwise, GMUs and q2
+    within the tie bound, w within the stage bound; the exact search's GMUs
+    and q2 bitwise equal to ``bmu``'s. Where a search picks another unit
+    inside the tie bound, the plain version is run again with the kernel's
+    GMUs."""
+    from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.fused import ref as fused_ref
     gen = torch.Generator().manual_seed(SEED + 5)
     worst = {"dw": 0.0, "dq2": 0.0}
     cases = []
-    for side, d, b in ((30, 784, 16), (7, 13, 5)):
+    for side, d, b in ((30, 784, 16), (7, 13, 5), (30, 783, 40)):
         for precision in ("given", "exact", "bf16"):
             cases.append((side, d, b, precision, 16, 16, 4))
     cases += [(30, 784, 16, "exact", 16, 5, 2),    # max_waves 5 < wave_cap
@@ -349,6 +353,13 @@ def check_fused_kernel(device):
                 ref = fused_ref.fused_step_ref(w, c, s, 0.05, 0.3, drive,
                                                bern, out[5], **kw)
                 note = " (a near-tie GMU differed; plain rerun on its GMUs)"
+        if tier == "exact" and given is None:
+            # the fused search shares bmu's rows_kernel arithmetic
+            idx, q2 = bmu_ops.bmu(w, s)
+            if not (torch.equal(idx, out[5]) and torch.equal(q2, out[6])):
+                raise AssertionError(f"fused {what}: the search differs from "
+                                     f"bmu's")
+            note += "; GMUs and q2 bitwise equal to bmu's"
         dw, waves = _fused_same(out, ref, what)
         worst["dw"] = max(worst["dw"], dw)
         alive = int(out[2].sum())
@@ -423,12 +434,11 @@ def check_fused_vs_staged(device, xtr):
     """Phase 5c: one fused step against one staged step on the card, from
     one state, replaying the same per-wave arrays: the staged path takes
     them one at a time, the fused path the first ``wave_cap`` stacked and
-    the rest one per tail wave, half-way through the schedule. Integers
-    bitwise, w within the stage bound."""
+    the rest one per tail wave, half-way through the schedule. GMUs, q2
+    and integers bitwise, w within the stage bound."""
     import numpy as np
     from repro_torch.api.backends import get_backend
     from repro_torch.core import afm
-    from repro_torch.core import search as search_lib
     from repro_torch.draws import ReplayDraws
     from repro_torch.kernels.fused import ops as fused_ops
     cfg = afm.AFMConfig(side=30, dim=784, batch=16)
@@ -447,13 +457,6 @@ def check_fused_vs_staged(device, xtr):
     draws_f = ReplayDraws([drive, np.stack(waves[:cap])] + waves[cap:],
                           device=device)
     fnew, faux = afm._step(state, samples, draws_f, cfg, fused)
-    staged_search = staged.search(state, samples, None, cfg)
-    if not torch.equal(staged_search.gmu, faux.gmu):
-        # a near tie between the two searches: hand the fused GMUs to the
-        # staged step, so its integers can still be held bitwise
-        zeros = torch.zeros_like(faux.gmu)
-        staged = staged._replace(search=lambda *a: search_lib.SearchResult(
-            faux.gmu, faux.q2, zeros, zeros))
     draws_s = ReplayDraws([drive] + waves, device=device)
     snew, saux = afm._step(state, samples, draws_s, cfg, staged)
     n_waves = int(saux.waves)
@@ -461,7 +464,9 @@ def check_fused_vs_staged(device, xtr):
             or len(draws_f) != len(waves) - max(cap, n_waves)):
         raise AssertionError("fused vs staged: the replays were not consumed "
                              "as the draw order says")
-    for name in ("gmu", "cascade_size", "waves"):
+    # both searches run repro::rows_split and repro::merge_splits: the GMUs
+    # and q2 are the same bits, near ties included
+    for name in ("gmu", "q2", "cascade_size", "waves"):
         if not torch.equal(getattr(saux, name).cpu(),
                            getattr(faux, name).cpu()):
             raise AssertionError(f"fused vs staged: {name} differs")
@@ -475,8 +480,8 @@ def check_fused_vs_staged(device, xtr):
     if dw > bound:
         raise AssertionError(f"fused vs staged: |dw| {dw} > {bound}")
     print(f"fused vs staged step: {int(saux.cascade_size)} firings in "
-          f"{n_waves} waves (block {cap}) on both; integers bitwise, "
-          f"max|dw| {dw:.3g} <= {bound:.3g}")
+          f"{n_waves} waves (block {cap}) on both; GMUs, q2 and integers "
+          f"bitwise, max|dw| {dw:.3g} <= {bound:.3g}")
 
 
 def _launch_counts():
@@ -678,8 +683,12 @@ def fused_row(device, tmf, xtr, launches, worst):
     out = fused_ops.fused_step(*args, **kw)
     waves = int(out[3][1])
     fplan = fused_ops._plan(w.device.index or 0, n, d, b)
-    print(f"fused_step: plan {fplan[1]} cooperative blocks of "
-          f"{fplan[0]} features, {fplan[2]} bytes of shared memory each")
+    print(f"fused_step: plan {fplan.blocks} cooperative blocks of "
+          f"{fplan.threads} threads, {fplan.splits} search splits, "
+          f"{fplan.ds} features a block ({fplan.feature_blocks} blocks own "
+          f"features), {fplan.smem} bytes of shared memory each, the "
+          f"draws of {fplan.staged_waves} waves staged, "
+          f"{fplan.w_boxes} column(s) of TMA boxes for the W slice")
     t = time_both({
         "plain": lambda: fused_ref.fused_step_ref(*args, **kw),
         "kernel": lambda: fused_ops.fused_step(*args, **kw),

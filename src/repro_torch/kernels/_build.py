@@ -37,14 +37,14 @@ SIGNATURES = {
     "repro_bmu": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # c, fired, bern, side, theta, c_out, fired_out, recv_out, stream
     "repro_cascade_wave": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
-    # n, d, b, plan_out (int32[5]: features per block, blocks, shared bytes,
-    # shared bytes a block may opt into, blocks that fit on the card at once)
-    "repro_fused_plan": [_I, _I, _I, _P],
+    # n, d, b, plan (int32[8] from fused ops.Plan.c_array), out (int32[3]:
+    # SMs, shared bytes a block may opt into, blocks that fit at once)
+    "repro_fused_plan": [_I, _I, _I, _P, _P],
     # w, c, s, drive, bern, gmu_in (NULL: search in the kernel), side, d, b,
     # theta, budget, bf16, l_s, l_c, w_out, c_out, fired_out, stats_out,
-    # recv_out, gmu_out, q2_out, scratch, stream
+    # recv_out, gmu_out, q2_out, scratch, plan (int32[8]), stream
     "repro_fused_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                         _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # q, k, v, pos, b, hkv, w, rep, hd, bf16, splits, slots, part_ml,
     # part_acc (f32 scratch), tickets (int32, zero; all three NULL with one
     # split), out, stream

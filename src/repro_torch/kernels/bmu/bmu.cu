@@ -24,7 +24,9 @@
 //   unit, its lanes read the unit's row with 16-byte loads straight from
 //   device memory (the next 512 features in flight while these are used),
 //   and the 16 samples are staged in shared memory in chunks of 512
-//   features;
+//   features. The body is `repro::rows_split` (runtime/search.cuh), which
+//   the fused kernel's search calls too, and the merge's is
+//   `repro::merge_splits`, so both kernels pick the same units bitwise;
 // - `tile_kernel` (where its tiles give at least a third of the SMs a
 //   block, as at B = 10000): an SGEMM-style register-blocked tile of 128
 //   samples x 128 units a block, 8 x 8 accumulators a thread (its samples
@@ -64,141 +66,25 @@ constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int R_WARPS = 8;
 constexpr int R_THREADS = R_WARPS * 32;
-constexpr int R_SAMPLES = 16;          // samples a block
-constexpr int R_KC = 512;              // features a staged chunk
-constexpr int R_LOADS = R_KC / 128;    // float4 loads a lane takes a chunk
+constexpr int R_SAMPLES = repro::ROW_SAMPLES;   // samples a block
 
-// a lane's float4s of features k0..k0+R_KC of one row (zeros past d)
-__device__ __forceinline__ void load_row(float4 (&out)[R_LOADS],
-                                         const float* __restrict__ row,
-                                         bool has, int lane, int k0, int d) {
-#pragma unroll
-  for (int l = 0; l < R_LOADS; ++l) {
-    const int k = k0 + 4 * lane + 128 * l;
-    out[l] = (has && k < d) ? *reinterpret_cast<const float4*>(row + k)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-template <bool BF16>
-__device__ __forceinline__ void fma4(float4 sv, float4 wv, float& acc) {
-  acc = fmaf(operand<BF16>(sv.x), operand<BF16>(wv.x), acc);
-  acc = fmaf(operand<BF16>(sv.y), operand<BF16>(wv.y), acc);
-  acc = fmaf(operand<BF16>(sv.z), operand<BF16>(wv.z), acc);
-  acc = fmaf(operand<BF16>(sv.w), operand<BF16>(wv.w), acc);
-}
-
+// a block a (split, 16-sample tile): `repro::rows_split`, whose arithmetic
+// the fused kernel shares
 template <bool BF16, bool VEC>
 __global__ void __launch_bounds__(R_THREADS)
 rows_kernel(const float* __restrict__ w, const float* __restrict__ s, int n,
             int b, int d, int splits, float* __restrict__ part_v,
             int* __restrict__ part_i) {
-  __shared__ __align__(16) float s_tile[R_SAMPLES][R_KC];
+  __shared__ __align__(16) float s_tile[R_SAMPLES][repro::ROW_KC];
   __shared__ float s_q[R_WARPS][R_SAMPLES];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int split = blockIdx.x;
   const int b0 = blockIdx.y * R_SAMPLES;
-  const int lo = static_cast<int>(static_cast<int64_t>(split) * n / splits);
-  const int hi = static_cast<int>(static_cast<int64_t>(split + 1) * n / splits);
-
-  float best = INFINITY;   // threads 0..R_SAMPLES-1: one sample each
-  int best_i = n;
-
-  for (int u0 = lo; u0 < hi; u0 += R_WARPS) {
-    const int u = u0 + warp;
-    const bool has = u < hi;
-    const float* wrow = w + static_cast<size_t>(has ? u : lo) * d;
-    float acc[R_SAMPLES];
-#pragma unroll
-    for (int i = 0; i < R_SAMPLES; ++i) acc[i] = 0.f;
-    float w2 = 0.f;
-    float4 wv[R_LOADS];
-    if (VEC) load_row(wv, wrow, has, lane, 0, d);
-    for (int k0 = 0; k0 < d; k0 += R_KC) {
-      const int kc = min(R_KC, d - k0);
-      __syncthreads();   // the previous chunk and s_q are consumed
-      if (VEC) {         // kc % 4 == 0 here
-        const int kc4 = kc / 4;
-        for (int e = threadIdx.x; e < R_SAMPLES * kc4; e += R_THREADS) {
-          const int r = e / kc4, k = (e % kc4) * 4;
-          *reinterpret_cast<float4*>(&s_tile[r][k]) =
-              b0 + r < b ? *reinterpret_cast<const float4*>(
-                               s + static_cast<size_t>(b0 + r) * d + k0 + k)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      } else {
-        for (int e = threadIdx.x; e < R_SAMPLES * kc; e += R_THREADS) {
-          const int r = e / kc, k = e % kc;
-          s_tile[r][k] = b0 + r < b
-                             ? s[static_cast<size_t>(b0 + r) * d + k0 + k]
-                             : 0.f;
-        }
-      }
-      __syncthreads();
-      if (VEC) {
-        // the next chunk of the row is in flight while this one is used
-        float4 nxt[R_LOADS];
-        load_row(nxt, wrow, has, lane, k0 + R_KC, d);
-        if (has) {
-#pragma unroll
-          for (int l = 0; l < R_LOADS; ++l) {
-            const int k = 4 * lane + 128 * l;
-            if (k < kc) {
-              w2 = fmaf(wv[l].x, wv[l].x, w2);
-              w2 = fmaf(wv[l].y, wv[l].y, w2);
-              w2 = fmaf(wv[l].z, wv[l].z, w2);
-              w2 = fmaf(wv[l].w, wv[l].w, w2);
-#pragma unroll
-              for (int i = 0; i < R_SAMPLES; ++i) {
-                fma4<BF16>(*reinterpret_cast<const float4*>(&s_tile[i][k]),
-                           wv[l], acc[i]);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int l = 0; l < R_LOADS; ++l) wv[l] = nxt[l];
-      } else if (has) {
-        for (int k = lane; k < kc; k += 32) {
-          const float x = wrow[k0 + k];
-          w2 = fmaf(x, x, w2);
-          const float xo = operand<BF16>(x);
-#pragma unroll
-          for (int i = 0; i < R_SAMPLES; ++i) {
-            acc[i] = fmaf(operand<BF16>(s_tile[i][k]), xo, acc[i]);
-          }
-        }
-      }
-    }
-    // every lane ends with the full sums (butterfly, one fixed order)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      w2 += __shfl_xor_sync(FULL, w2, off);
-#pragma unroll
-      for (int i = 0; i < R_SAMPLES; ++i) {
-        acc[i] += __shfl_xor_sync(FULL, acc[i], off);
-      }
-    }
-    float q = INFINITY;
-#pragma unroll
-    for (int i = 0; i < R_SAMPLES; ++i) {
-      if (lane == i) q = w2 - 2.f * acc[i];
-    }
-    if (lane < R_SAMPLES) s_q[warp][lane] = has ? q : INFINITY;
-    __syncthreads();
-    if (threadIdx.x < R_SAMPLES) {
-      // warps hold rising units, so a strict order keeps the lowest index
-#pragma unroll
-      for (int ww = 0; ww < R_WARPS; ++ww) {
-        if (u0 + ww < hi && wins(s_q[ww][threadIdx.x], u0 + ww, best, best_i)) {
-          best = s_q[ww][threadIdx.x];
-          best_i = u0 + ww;
-        }
-      }
-    }
-  }
+  float best;
+  int best_i;
+  repro::rows_split<BF16, VEC, R_WARPS>(
+      w, s, n, b, d, repro::split_lo(split, n, splits),
+      repro::split_lo(split + 1, n, splits), b0, &s_tile[0][0],
+      repro::ROW_KC, nullptr, s_q, best, best_i);
   const int gb = b0 + threadIdx.x;
   if (threadIdx.x < R_SAMPLES && gb < b) {
     part_v[static_cast<size_t>(split) * b + gb] = best;
@@ -396,29 +282,10 @@ merge_kernel(const float* __restrict__ s, int n, int b, int d, int splits,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * M_WARPS + (threadIdx.x >> 5);
   if (row >= b) return;
-  const float* srow = s + static_cast<size_t>(row) * d;
-  float s2 = 0.f;
-  for (int k = lane; k < d; k += 32) s2 = fmaf(srow[k], srow[k], s2);
-  float v = INFINITY;
-  int bi = n;
-  for (int sp = lane; sp < splits; sp += 32) {
-    const float ov = part_v[static_cast<size_t>(sp) * b + row];
-    const int oi = part_i[static_cast<size_t>(sp) * b + row];
-    if (wins(ov, oi, v, bi)) {
-      v = ov;
-      bi = oi;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s2 += __shfl_xor_sync(FULL, s2, off);
-    const float ov = __shfl_xor_sync(FULL, v, off);
-    const int oi = __shfl_xor_sync(FULL, bi, off);
-    if (wins(ov, oi, v, bi)) {
-      v = ov;
-      bi = oi;
-    }
-  }
+  const float s2 = repro::row_norm(s + static_cast<size_t>(row) * d, d, lane);
+  float v;
+  int bi;
+  repro::merge_splits(part_v, part_i, splits, b, 1, row, lane, n, v, bi);
   if (lane == 0) {
     idx_out[row] = bi < n ? bi : 0;   // every distance NaN: unit 0
     q2_out[row] = fmaxf(v + s2, 0.f);

@@ -13,29 +13,71 @@
 // Bound on an H100: at 30x30x784, B = 16 the step reads W, s, c and the
 // draws once and writes W and the lattices once, ~5.8 MB (~1.7 us at
 // 3.35 TB/s); its arithmetic (search 2*B*N*D, merge, 6*N*D a wave) is tiny
-// beside that. So it is bound by bytes, and in practice by the latency of
-// its barriers, one launch in place of ~140.
+// beside that. So it is bound by bytes, and in practice by latency: the
+// launch, one grid barrier, the block barriers, and the chains of
+// dependent shared-memory accesses between them, with 16 warps an SM to
+// hide them.
 //
-// Design. The TPU kernel holds all of W (2.8 MB) in one core's VMEM; a CTA
-// has at most 227 KB of shared memory. But after the GMUs are known the
-// step splits over features: the counter dynamics read only c, the fired
-// front and the draws, and the weight update of feature k reads only
-// feature k. So each CTA owns a slice of `ds` features of all N units in
-// shared memory (two buffers: a wave reads one, writes the other) and runs
-// the N-site integer cascade itself, redundantly and bitwise the same as
-// every other CTA; all CTAs stop at the same wave and need no
-// synchronisation inside the loop. CTA 0 writes the lattice outputs.
-// The search is the only step that reduces over all of D: each CTA first
-// takes a tile of units over full D and writes a per-tile (min, argmin)
-// for every sample; one grid-wide barrier (cooperative launch, so the grid
-// must be co-resident: the wrapper checks `repro_fused_plan`); then every
-// CTA reduces the tiles with ties to the lowest index. W is written out of
-// place, so the bf16 polish can read the winners' input rows after the
-// barrier while other CTAs write their slices.
-// The merge and wave updates use _rn intrinsics in the plain version's op
-// order (no FMA contraction), so for the same GMUs the weights are those of
-// the plain PyTorch version. Simple first: no wgmma, TMA or cluster.
+// Design. A cooperative grid of one block of 512 threads an SM (the plan
+// comes from the host, `ops.plan`, and `repro_fused_plan` checks it against
+// the kernel as built). After the GMUs are known the step splits over
+// features: the counter dynamics read only c, the fired front and the
+// draws, and the weight update of feature k reads only feature k. So each
+// block owns a slice of `ds` features of all N units in shared memory and
+// runs the N-site integer cascade itself, redundantly and bitwise the same
+// as every other block; all blocks stop at the same wave and need no
+// synchronisation between blocks inside the loop. Blocks 0-2 write the
+// lattice outputs.
+// 0. Thread 0 starts the TMA (one instruction a copy, completing on an
+//    mbarrier) on what is needed before the grid barrier: a bulk copy of
+//    the samples (on the exact tier at B <= 16) and 2-D boxes of the W
+//    slice (8 features from a multiple of 4, 256 units, unit-major). Once
+//    the slice has landed, the first staging thread starts bulk copies of
+//    c, the drive draws and the first `staged` waves' draws, which land
+//    during the grid barrier instead of slowing the first two. Where
+//    16-byte alignment does not allow these, the staging warps copy with
+//    `cp.async`.
+// 1. Search and staging, side by side. Warps 0-7 search: the units split
+//    over all blocks, one split a block, run by `repro::rows_split`
+//    (runtime/search.cuh: a warp a unit, 16 samples at a time in shared
+//    memory, 16-byte row loads, a named barrier of their own), the
+//    arithmetic of bmu.cu's `rows_kernel`; per-split (min, argmin) partials
+//    go to scratch. Meanwhile warps 8-15 put the W slice feature-major
+//    (`f * n + u`: a wave's neighbours at unit strides, free of bank
+//    conflicts) into both weight buffers, from the boxes or by 4-byte
+//    `cp.async` copies transposed as they land (a slice of 6 features is
+//    24 bytes a row, not a 16-byte multiple), checking that every weight
+//    is "steady" (finite, not -0).
+// 2. One grid barrier; then every block merges the partials of each sample
+//    (`repro::merge_splits`: a warp a sample, lanes over the splits, a
+//    butterfly under `wins`; the partials are stored sample-major, so the
+//    132 blocks' reads of them are coalesced), so on the exact tier the
+//    GMUs and q2 = max(v + |s|^2, 0) are bitwise those of `bmu.cu` on the
+//    same inputs, and ties go to the lowest index for any split count.
+// 3. The Eq. 3 merge touches only the hit units, a thread a (first sample
+//    of a GMU, feature): it sums that GMU's samples in sample order, then
+//    w + l_s (mean - w). The drive adds its draws and lists the first
+//    front; the edge mask of each site is stored once, so the waves do no
+//    integer division.
+// 4. Waves, in work proportional to the front, two barriers each. Push: a
+//    thread a (fired site, direction) adds one receipt, and its draw, to
+//    the neighbour's packed count (shared-memory integer atomics: any order
+//    gives the same sums) and lists the sites that receive. Update: a
+//    thread a receiver sets its counter (in place: no site reads another's
+//    counter) and lists the next front; a thread a (site, feature) pair
+//    updates the weights. While every weight is steady, a site that
+//    receives nothing keeps its weights bit for bit (w + l_c (±0 - 0 w) is
+//    w), so only the receivers' pairs are updated, and last wave's
+//    receivers copied into the new buffer; a weight that is not steady
+//    sends every later wave back to updating every pair. Waves past the
+//    staged ones read their draws from device memory.
+// W is written out of place, so the bf16 polish reads the winners' input
+// rows after the barrier while other blocks write their slices. The merge
+// and wave updates use _rn intrinsics in the plain version's op order (no
+// FMA contraction), so for the same GMUs the weights are those of the plain
+// PyTorch version. No atomics on floats: two calls give the same bits.
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -46,20 +88,37 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using repro::operand;
-using repro::wins;
+using repro::ROW_KC;
+using repro::ROW_SAMPLES;
+using repro::smem_addr;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
+constexpr int SEARCH_WARPS = 8;   // warps 0-7 search, on named barrier 1
+constexpr int SEARCH_BAR = 1;
+constexpr int STAGE_THREADS = THREADS - SEARCH_WARPS * 32;
+constexpr unsigned FULL = 0xffffffffu;
+// the W slice by the TMA: boxes of W_BOX_COLS features x W_BOX_ROWS units,
+// starting at a multiple of 4 features (a box's row must start on a 16-byte
+// boundary)
+constexpr int W_BOX_COLS = 8;
+constexpr int W_BOX_ROWS = 256;
 
 struct Params {
+  CUtensorMap w_map;      // W as a 2-D tensor for the TMA, when tma_w
   const float* w;         // (n, d) input weights
   const int32_t* c;       // (n,) counters
   const float* s;         // (b, d) samples
   const uint8_t* drive;   // (8, n) drive draws (bool)
   const uint8_t* bern;    // (w_cap, 4, n) wave draws (bool)
   const int32_t* gmu_in;  // (b,) given GMUs, or NULL: search here
-  int n, side, d, b, theta, budget, bf16, ds;
+  int n, side, d, b, theta, budget, bf16, vec, ds;
+  int staged;             // waves of draws in shared memory
+  int bulk_s;             // the samples come in by one bulk copy
+  int bulk_in;            // c, the drive and the staged draws too
+  int w_boxes;            // room for this many columns of TMA boxes (0: none)
+  int tma_w;              // the W slice comes in by the TMA
+  int out2;               // and goes out two features a store
   float l_s, l_c;
   float* w_out;
   int32_t* c_out;
@@ -68,312 +127,691 @@ struct Params {
   int32_t* recv_out;
   int32_t* gmu_out;
   float* q2_out;
-  float* part_val;        // (grid, b) per-tile minimum
-  int32_t* part_idx;      // (grid, b) per-tile argmin
+  float* part_v;          // (b, blocks) per-split minimum
+  int32_t* part_i;        // (b, blocks) per-split argmin
 };
 
 struct Layout {
-  size_t wa, wb, ca, cb, recv, cnt, gmu, fa, fb, bytes;
+  size_t wbox, s_tile, wa, wb, s_q, c, recv, cnt, first, fgen, acc, drive,
+      draws, fronts, receivers, gmu, s_slice, nbr, flags, bars, bytes;
 };
 
-// shared memory of one CTA: two weight slices (n * ds floats), two counter
-// lattices, the receive counts, the GMU counts, the GMUs, two fired fronts
-__host__ __device__ inline Layout layout(int n, int b, int ds) {
+__host__ __device__ inline size_t up16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
+  const size_t here = at;
+  at += up16(bytes);
+  return here;
+}
+
+// rows of W a TMA box covers, whole boxes
+__host__ __device__ inline int w_rows(int n) {
+  return (n + W_BOX_ROWS - 1) / W_BOX_ROWS * W_BOX_ROWS;
+}
+
+// shared memory of one block, each region rounded up to 16 bytes (ops.plan
+// adds up the same regions): w_boxes columns of TMA boxes of the W slice
+// (first, 128-byte aligned), the search's samples (16 rows of max(512, d)
+// floats) and per-warp values, two weight slices (feature-major), the
+// counters, the receive counts, the GMU counts, each GMU's first sample,
+// the wave each site last fired in, two arrays of packed receipts, the
+// drive draws, `staged` waves of draws, two front lists, two receiver
+// lists, the GMUs, the samples' slice, the edge masks, the flags (`dirty`,
+// two front lengths, three receiver counts) and three mbarriers
+__host__ __device__ inline Layout layout(int n, int b, int d, int ds,
+                                         int staged, int w_boxes) {
   Layout l;
-  l.wa = 0;
-  l.wb = l.wa + sizeof(float) * n * ds;
-  l.ca = l.wb + sizeof(float) * n * ds;
-  l.cb = l.ca + sizeof(int32_t) * n;
-  l.recv = l.cb + sizeof(int32_t) * n;
-  l.cnt = l.recv + sizeof(int32_t) * n;
-  l.gmu = l.cnt + sizeof(int32_t) * n;
-  l.fa = l.gmu + sizeof(int32_t) * b;
-  l.fb = l.fa + n;
-  l.bytes = (l.fb + n + 15) / 16 * 16;
+  size_t at = 0;
+  l.wbox = take(at, sizeof(float) * W_BOX_COLS * w_rows(n) * w_boxes);
+  l.s_tile = take(at, sizeof(float) * ROW_SAMPLES * (d > ROW_KC ? d : ROW_KC));
+  l.wa = take(at, sizeof(float) * ds * n);
+  l.wb = take(at, sizeof(float) * ds * n);
+  l.s_q = take(at, sizeof(float) * SEARCH_WARPS * ROW_SAMPLES);
+  l.c = take(at, sizeof(int32_t) * n);
+  l.recv = take(at, sizeof(int32_t) * n);
+  l.cnt = take(at, sizeof(int32_t) * n);
+  l.first = take(at, sizeof(int32_t) * n);
+  l.fgen = take(at, sizeof(int32_t) * n);
+  l.acc = take(at, 2 * sizeof(int32_t) * n);
+  l.drive = take(at, static_cast<size_t>(8) * n);
+  l.draws = take(at, static_cast<size_t>(4) * n * staged);
+  l.fronts = take(at, 2 * sizeof(uint16_t) * n);
+  l.receivers = take(at, 2 * sizeof(uint16_t) * n);
+  l.gmu = take(at, sizeof(int32_t) * b);   // read 4 at a time
+  l.s_slice = take(at, sizeof(float) * b * ds);
+  l.nbr = take(at, n);
+  l.flags = take(at, 6 * sizeof(int32_t));
+  l.bars = take(at, 3 * sizeof(uint64_t));
+  l.bytes = at;
   return l;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// 16 bytes, of which the first `bytes` are read and the rest zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// `bytes` bytes from global memory into a 16-byte aligned shared region of
+// at least the next multiple of 16, by threads t (0 <= t < nth):
+// asynchronous 16-byte copies where the source is 16-byte aligned, 4-byte
+// ones where it and the size are 4-byte aligned, plain copies otherwise
+// (visible after the next barrier either way)
+__device__ __forceinline__ void stage_bytes(void* dst, const void* src,
+                                            int bytes, int t, int nth) {
+  unsigned char* d8 = static_cast<unsigned char*>(dst);
+  const unsigned char* s8 = static_cast<const unsigned char*>(src);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if ((at & 15) == 0) {
+    for (int i = 16 * t; i < bytes; i += 16 * nth)
+      cp_async16(d8 + i, s8 + i, min(16, bytes - i));
+  } else if ((at & 3) == 0 && (bytes & 3) == 0) {
+    for (int i = 4 * t; i < bytes; i += 4 * nth) cp_async4(d8 + i, s8 + i);
+  } else {
+    for (int i = t; i < bytes; i += nth) d8[i] = s8[i];
+  }
+}
+
+// one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned),
+// completing on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// one TMA box of the 2-D tensor `map` at (column x, row y), completing on
+// the mbarrier `bar`; rows and columns past the tensor are zeros
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// an mbarrier of one arrival (visible to the other threads after the next
+// barrier)
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the arrival at `bar`, which then expects `bytes` of bulk copies: its
+// first phase completes when they have all landed
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// a weight the sparse waves can leave as it is: finite, and not -0 (for
+// such a w, w + l_c * (±0 - 0 * w) is w bit for bit, with l_c finite, and
+// a non-finite l_c makes the first wave's weights non-finite; -0 turns
+// into +0)
+__device__ __forceinline__ bool steady(float w) {
+  return isfinite(w) && __float_as_uint(w) != 0x80000000u;
+}
+
+// The weight update of feature f of site u in wave k, in the plain
+// version's op order, from `wa` into `wb`: a neighbour broadcasts when it
+// fired in wave k (fgen == k); m is u's edge mask. Returns whether the new
+// value is steady.
+__device__ __forceinline__ bool update(const float* wa, float* wb,
+                                       const int32_t* fgen, int k, int n,
+                                       int side, int u, int f, int m,
+                                       float l_c) {
+  const int below = (m & 1) ? (fgen[u + side] == k) : 0;
+  const int above = (m & 2) ? (fgen[u - side] == k) : 0;
+  const int right = (m & 4) ? (fgen[u + 1] == k) : 0;
+  const int left = (m & 8) ? (fgen[u - 1] == k) : 0;
+  const int nr = below + above + right + left;
+  const float* col = wa + f * n;
+  const float up = (m & 1) ? __fmul_rn(col[u + side], below ? 1.f : 0.f) : 0.f;
+  const float dn = (m & 2) ? __fmul_rn(col[u - side], above ? 1.f : 0.f) : 0.f;
+  const float lf = (m & 4) ? __fmul_rn(col[u + 1], right ? 1.f : 0.f) : 0.f;
+  const float rt = (m & 8) ? __fmul_rn(col[u - 1], left ? 1.f : 0.f) : 0.f;
+  const float sum = __fadd_rn(__fadd_rn(__fadd_rn(up, dn), lf), rt);
+  const float wv = col[u];
+  const float out = __fadd_rn(
+      wv, __fmul_rn(l_c, __fsub_rn(sum, __fmul_rn((float)nr, wv))));
+  wb[f * n + u] = out;
+  return steady(out);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: every lane ends with the same bits
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(FULL, v, off);
   return v;
 }
 
-// Phase 1: this CTA's tile of units over full D; per sample the tile's
-// (min, argmin) of q = (|s|^2 - 2 s.w) + |w|^2, units in rising order.
-template <bool BF16>
-__device__ void search_tile(const Params& p, float* w2s) {
-  const int g = blockIdx.x, grid = gridDim.x;
-  const int tn = (p.n + grid - 1) / grid;
-  const int u0 = min(p.n, g * tn), u1 = min(p.n, u0 + tn);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int u = u0 + warp; u < u1; u += WARPS) {
-    const float* wu = p.w + (size_t)u * p.d;
-    float acc = 0.f;
-    for (int k = lane; k < p.d; k += 32) acc = fmaf(wu[k], wu[k], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) w2s[u - u0] = acc;
-  }
-  __syncthreads();
-  for (int bi = warp; bi < p.b; bi += WARPS) {
-    const float* sb = p.s + (size_t)bi * p.d;
-    float s2 = 0.f;
-    for (int k = lane; k < p.d; k += 32) s2 = fmaf(sb[k], sb[k], s2);
-    s2 = warp_sum(s2);
-    float best = INFINITY;
-    int best_i = p.n;
-    for (int u = u0; u < u1; ++u) {
-      const float* wu = p.w + (size_t)u * p.d;
-      float acc = 0.f;
-      for (int k = lane; k < p.d; k += 32)
-        acc = fmaf(operand<BF16>(sb[k]), operand<BF16>(wu[k]), acc);
-      acc = warp_sum(acc);
-      const float q = __fadd_rn(__fsub_rn(s2, 2.f * acc), w2s[u - u0]);
-      if (q < best) {   // rising u: a strict < keeps the lowest index
-        best = q;
-        best_i = u;
-      }
-    }
-    if (lane == 0) {
-      p.part_val[(size_t)g * p.b + bi] = best;
-      p.part_idx[(size_t)g * p.b + bi] = best_i;
+// this block's split of the units against every 16-sample tile, on the
+// chosen tier, into the partials (sample-major); by warps
+// 0 .. SEARCH_WARPS - 1. With PRESTAGED (B <= 16) the samples are the bulk
+// copy that completes `tile_ready`
+template <bool BF16, bool VEC, bool PRESTAGED>
+__device__ void search_split(const Params& p, float* s_tile,
+                             const uint64_t* tile_ready,
+                             float (*s_q)[ROW_SAMPLES]) {
+  const int g = blockIdx.x, splits = gridDim.x;
+  const int lo = repro::split_lo(g, p.n, splits);
+  const int hi = repro::split_lo(g + 1, p.n, splits);
+  for (int b0 = 0; b0 < p.b; b0 += ROW_SAMPLES) {
+    float best;
+    int best_i;
+    repro::rows_split<BF16, VEC, SEARCH_WARPS, SEARCH_BAR, PRESTAGED>(
+        p.w, p.s, p.n, p.b, p.d, lo, hi, b0, s_tile,
+        PRESTAGED ? p.d : ROW_KC, tile_ready, s_q, best, best_i);
+    const int bi = b0 + threadIdx.x;
+    if (threadIdx.x < ROW_SAMPLES && bi < p.b) {
+      p.part_v[static_cast<size_t>(bi) * splits + g] = best;
+      p.part_i[static_cast<size_t>(bi) * splits + g] = best_i;
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) fused_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay = layout(p.n, p.b, p.ds);
+// pairs (u, f) of a slice of nf features, f fastest (a warp reads or writes
+// a few 24-byte runs of rows), for thread t of nth, without a division a
+// pair
+#define FOR_PAIRS(n, nf, t, nth, BODY)                     \
+  {                                                        \
+    const int du_ = (nth) / (nf), df_ = (nth) - du_ * (nf); \
+    for (int u = (t) / (nf), f = (t) % (nf); u < (n);) {   \
+      BODY;                                                \
+      u += du_;                                            \
+      f += df_;                                            \
+      if (f >= (nf)) {                                     \
+        f -= (nf);                                         \
+        ++u;                                               \
+      }                                                    \
+    }                                                      \
+  }
+
+__global__ void __launch_bounds__(THREADS, 1)
+fused_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout lay = layout(p.n, p.b, p.d, p.ds, p.staged, p.w_boxes);
+  const float* wbox = reinterpret_cast<const float*>(smem + lay.wbox);
+  float* s_tile = reinterpret_cast<float*>(smem + lay.s_tile);
+  float (*s_q)[ROW_SAMPLES] =
+      reinterpret_cast<float (*)[ROW_SAMPLES]>(smem + lay.s_q);
   float* wa = reinterpret_cast<float*>(smem + lay.wa);
   float* wb = reinterpret_cast<float*>(smem + lay.wb);
-  int32_t* ca = reinterpret_cast<int32_t*>(smem + lay.ca);
-  int32_t* cb = reinterpret_cast<int32_t*>(smem + lay.cb);
+  int32_t* c = reinterpret_cast<int32_t*>(smem + lay.c);
   int32_t* recv = reinterpret_cast<int32_t*>(smem + lay.recv);
   int32_t* cnt = reinterpret_cast<int32_t*>(smem + lay.cnt);
+  int32_t* first = reinterpret_cast<int32_t*>(smem + lay.first);
+  int32_t* fgen = reinterpret_cast<int32_t*>(smem + lay.fgen);
+  int32_t* acc = reinterpret_cast<int32_t*>(smem + lay.acc);
+  const uint8_t* drive = smem + lay.drive;
+  const uint8_t* draws = smem + lay.draws;
+  uint16_t* fronts = reinterpret_cast<uint16_t*>(smem + lay.fronts);
+  uint16_t* receivers = reinterpret_cast<uint16_t*>(smem + lay.receivers);
   int32_t* gmu = reinterpret_cast<int32_t*>(smem + lay.gmu);
-  uint8_t* fa = smem + lay.fa;
-  uint8_t* fb = smem + lay.fb;
+  float* s_slice = reinterpret_cast<float*>(smem + lay.s_slice);
+  uint8_t* nbr = smem + lay.nbr;
+  int32_t* flags = reinterpret_cast<int32_t*>(smem + lay.flags);
+  int32_t* dirty = flags;
+  int32_t* n_front = flags + 1;   // the front of wave k: n_front[k % 2]
+  int32_t* n_recv = flags + 3;    // the receivers of wave k: n_recv[k % 3]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* tile_ready = bars;    // the samples landed
+  uint64_t* inputs_ready = bars + 1;   // c, the drive, the staged draws
+  uint64_t* w_ready = bars + 2;        // the boxes of the W slice
 
-  const int tid = threadIdx.x;
-  const int g = blockIdx.x;
-  const int n = p.n, side = p.side, d = p.d, b = p.b;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = blockIdx.x, last = gridDim.x - 1;
+  const int n = p.n, side = p.side, d = p.d, b = p.b, ds = p.ds;
+  const int f0 = min(d, g * ds);
+  const int nf = min(ds, d - f0);   // features of this block; 0 past d
+  const bool searched = p.gmu_in == nullptr;
+  const int staged = min(p.staged, p.budget);   // waves of draws staged
+  const int draw_bytes = 4 * n * staged;
+  const int box_x = f0 & ~3, shift = f0 - box_x;   // the boxes' first column
+  const int col_boxes = (shift + nf + W_BOX_COLS - 1) / W_BOX_COLS;
 
-  // ---- search (Eq. 1), or the given GMUs
-  if (p.gmu_in == nullptr) {
-    if (p.bf16)
-      search_tile<true>(p, wa);
+  // ---- 0. the TMA copies of what is needed before the grid barrier (the
+  // samples and the W slice), and the flags; the first staging thread
+  // starts the others once the W slice has landed
+  if (tid == 0) {
+    mbar_init(tile_ready);
+    mbar_init(inputs_ready);
+    mbar_init(w_ready);
+    if (p.bulk_s) {
+      mbar_expect(tile_ready, 4 * b * d);
+      bulk_copy(s_tile, p.s, 4 * b * d, tile_ready);
+    }
+    if (p.tma_w && nf > 0) {
+      const int rows = w_rows(n);
+      mbar_expect(w_ready, sizeof(float) * W_BOX_COLS * rows * col_boxes);
+      for (int cb = 0; cb < col_boxes; ++cb)
+        for (int r0 = 0; r0 < rows; r0 += W_BOX_ROWS)
+          tma_box(smem + lay.wbox + sizeof(float) * W_BOX_COLS *
+                                        (static_cast<size_t>(cb) * rows + r0),
+                  &p.w_map, box_x + W_BOX_COLS * cb, r0, w_ready);
+    }
+  }
+  if (tid < 6) flags[tid] = 0;   // dirty and the lengths
+  __syncthreads();
+
+  // ---- 1. search (Eq. 1) by warps 0-7 while the others copy this block's
+  // inputs in; with the GMUs given, every warp copies
+  const int t0 = searched ? SEARCH_WARPS * 32 : 0;
+  const int nth = searched ? STAGE_THREADS : THREADS;
+  bool clean = true;   // every weight of the slice steady
+  if (searched && warp < SEARCH_WARPS) {
+    if (p.bulk_s)
+      search_split<false, true, true>(p, s_tile, tile_ready, s_q);
+    else if (p.bf16)
+      p.vec ? search_split<true, true, false>(p, s_tile, nullptr, s_q)
+            : search_split<true, false, false>(p, s_tile, nullptr, s_q);
     else
-      search_tile<false>(p, wa);
+      p.vec ? search_split<false, true, false>(p, s_tile, nullptr, s_q)
+            : search_split<false, false, false>(p, s_tile, nullptr, s_q);
+  } else if (nf > 0) {
+    const int t = tid - t0;
+    if (!p.tma_w)
+      FOR_PAIRS(n, nf, t, nth, cp_async4(wa + f * n + u,
+                                         p.w + static_cast<size_t>(u) * d + f0 + f));
+    for (int e = t; e < b * nf; e += nth) {
+      const int bi = e / nf, f = e - bi * nf;
+      cp_async4(s_slice + bi * ds + f,
+                p.s + static_cast<size_t>(bi) * d + f0 + f);
+    }
+    if (!p.bulk_in) {
+      stage_bytes(c, p.c, 4 * n, t, nth);
+      stage_bytes(smem + lay.drive, p.drive, 8 * n, t, nth);
+      stage_bytes(smem + lay.draws, p.bern, draw_bytes, t, nth);
+    }
+    cp_async_commit();
+    // the sites' state, and their edge masks (1 a row below, 2 a row above,
+    // 4 a column right, 8 a column left)
+    for (int u = t; u < n; u += nth) {
+      cnt[u] = 0;
+      recv[u] = 0;
+      first[u] = b;   // above every sample index
+      fgen[u] = -1;   // fired in no wave
+      acc[u] = 0;
+      acc[n + u] = 0;
+      const int r = u / side, col = u - r * side;
+      nbr[u] = (r + 1 < side) | ((r > 0) << 1) | ((col + 1 < side) << 2) |
+               ((col > 0) << 3);
+    }
+    // the copies landed: this thread's pairs of the slice (from the TMA's
+    // unit-major boxes, or already in place) into both weight buffers, and
+    // checked
+    cp_async_wait_all();
+    if (p.tma_w) repro::mbar_wait(w_ready, 0);
+    if (p.bulk_in && t == 0) {
+      mbar_expect(inputs_ready, 12 * n + draw_bytes);
+      bulk_copy(c, p.c, 4 * n, inputs_ready);
+      bulk_copy(smem + lay.drive, p.drive, 8 * n, inputs_ready);
+      if (draw_bytes > 0)
+        bulk_copy(smem + lay.draws, p.bern, draw_bytes, inputs_ready);
+    }
+    if (p.tma_w) {
+      const int rows = w_rows(n);
+      FOR_PAIRS(n, nf, t, nth, {
+        const int x = shift + f;
+        const float v = wbox[(static_cast<size_t>(x / W_BOX_COLS) * rows + u) *
+                                 W_BOX_COLS + x % W_BOX_COLS];
+        wa[f * n + u] = v;
+        wb[f * n + u] = v;
+        clean &= steady(v);
+      });
+    } else {
+      FOR_PAIRS(n, nf, t, nth, {
+        const float v = wa[f * n + u];
+        wb[f * n + u] = v;
+        clean &= steady(v);
+      });
+    }
+  }
+
+  // ---- 2. the merge of the splits, or the given GMUs; then each GMU's
+  // count and first sample (integers: any order). GMUs outside [0, n) are
+  // dropped, as JAX's scatter drops them. The search's outputs come from
+  // the last block, which owns no features at the main shape, so they stay
+  // off the critical path
+  if (searched) {
     cg::this_grid().sync();
-    for (int bi = tid; bi < b; bi += THREADS) {
-      float bv = INFINITY;
-      int bidx = n;
-      for (int t = 0; t < (int)gridDim.x; ++t) {
-        const float v = __ldcg(p.part_val + (size_t)t * b + bi);
-        const int i = __ldcg(p.part_idx + (size_t)t * b + bi);
-        if (wins(v, i, bv, bidx)) {
-          bv = v;
-          bidx = i;
+    if (p.bulk_s) repro::mbar_wait(tile_ready, 0);   // landed before leaving
+    if (nf == 0 && g != last) return;   // nothing staged, nothing to do
+    for (int bi = warp; bi < b; bi += WARPS) {
+      float v;
+      int idx;
+      repro::merge_splits(p.part_v, p.part_i, gridDim.x, 1, gridDim.x, bi,
+                          lane, n, v, idx);
+      idx = idx < n ? idx : 0;   // every distance NaN: unit 0, as bmu.cu
+      if (g == last && !p.bf16) {
+        const float s2 =
+            repro::row_norm(p.s + static_cast<size_t>(bi) * d, d, lane);
+        if (lane == 0) p.q2_out[bi] = fmaxf(v + s2, 0.f);
+      }
+      if (lane == 0) {
+        gmu[bi] = idx;
+        if (g == last) p.gmu_out[bi] = idx;
+        if (nf > 0) {
+          atomicAdd(&cnt[idx], 1);
+          atomicMin(&first[idx], bi);
         }
       }
-      gmu[bi] = bidx;
-      if (g == 0) {
-        p.gmu_out[bi] = bidx;
-        if (!p.bf16) p.q2_out[bi] = fmaxf(bv, 0.f);
-      }
     }
-    __syncthreads();
-    if (g == 0 && p.bf16) {   // exact-f32 polish of each winner's distance
-      const int warp = tid / 32, lane = tid % 32;
+    if (g == last && p.bf16) {   // exact-f32 polish of each winner
+      __syncwarp();
       for (int bi = warp; bi < b; bi += WARPS) {
-        const float* wu = p.w + (size_t)gmu[bi] * d;
-        const float* sb = p.s + (size_t)bi * d;
-        float acc = 0.f;
+        const float* wu = p.w + static_cast<size_t>(gmu[bi]) * d;
+        const float* sb = p.s + static_cast<size_t>(bi) * d;
+        float acc2 = 0.f;
         for (int k = lane; k < d; k += 32) {
           const float dv = __fsub_rn(wu[k], sb[k]);
-          acc = fmaf(dv, dv, acc);
+          acc2 = fmaf(dv, dv, acc2);
         }
-        acc = warp_sum(acc);
-        if (lane == 0) p.q2_out[bi] = fmaxf(acc, 0.f);
+        acc2 = warp_sum(acc2);
+        if (lane == 0) p.q2_out[bi] = fmaxf(acc2, 0.f);
       }
     }
+    if (nf == 0) return;
   } else {
-    for (int bi = tid; bi < b; bi += THREADS) gmu[bi] = p.gmu_in[bi];
-  }
-
-  // ---- per-unit GMU counts (integers: any order); GMUs outside [0, n)
-  // are dropped, as JAX's scatter drops them
-  for (int u = tid; u < n; u += THREADS) {
-    cnt[u] = 0;
-    recv[u] = 0;
-  }
-  __syncthreads();
-  for (int bi = tid; bi < b; bi += THREADS) {
-    const int u = gmu[bi];
-    if (u >= 0 && u < n) atomicAdd(&cnt[u], 1);
-  }
-  __syncthreads();
-
-  // ---- this CTA's feature slice, with the Eq. 3 merge: the target sum in
-  // sample order, then w + l_s * (mean - w) for hit units
-  const int ds = p.ds;
-  const int f0 = g * ds;
-  const int nf = min(ds, d - f0);
-  for (int e = tid; e < n * nf; e += THREADS) {
-    const int u = e / nf, f = e % nf;
-    float wv = p.w[(size_t)u * d + f0 + f];
-    const int k = cnt[u];
-    if (k > 0) {
-      float tsum = 0.f;
-      for (int bi = 0; bi < b; ++bi)
-        if (gmu[bi] == u) tsum = __fadd_rn(tsum, p.s[(size_t)bi * d + f0 + f]);
-      const float mean = __fdiv_rn(tsum, (float)k);
-      wv = __fadd_rn(wv, __fmul_rn(p.l_s, __fsub_rn(mean, wv)));
+    if (nf == 0) return;
+    __syncthreads();   // the counts are zeroed
+    for (int bi = tid; bi < b; bi += THREADS) {
+      const int u = p.gmu_in[bi];
+      gmu[bi] = u;
+      if (u >= 0 && u < n) {
+        atomicAdd(&cnt[u], 1);
+        atomicMin(&first[u], bi);
+      }
     }
-    wa[u * ds + f] = wv;
   }
+  if (p.bulk_in) repro::mbar_wait(inputs_ready, 0);
+  __syncthreads();
 
-  // ---- counter drive: each of a unit's adaptations (at most 8) adds its
-  // draw; the units at threshold form the first front
-  for (int u = tid; u < n; u += THREADS) {
+  // ---- 3. the Eq. 3 merge of the hit units, a thread a (sample, feature):
+  // the first sample of each GMU sums that GMU's samples in sample order,
+  // then w + l_s * (mean - w). And a thread a site: the counter drive (each
+  // of a unit's adaptations, at most 8, adds its draw; the units at
+  // threshold form the first front)
+  for (int e = tid; e < b * nf; e += THREADS) {
+    const int bi = e / nf, f = e - bi * nf;
+    const int u = gmu[bi];
+    if (u < 0 || u >= n || first[u] != bi) continue;
+    // GMU u's samples, 32 at a time as a bit mask (their GMUs read 4 at a
+    // time; none before bi has u), summed in sample order, and counted
+    float tsum = 0.f;
+    int k = 0;
+    for (int c0 = bi & ~3; c0 < b; c0 += 32) {
+      unsigned mask = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (c0 + 4 * q < b) {
+          const int4 g4 = *reinterpret_cast<const int4*>(gmu + c0 + 4 * q);
+          mask |= ((g4.x == u) | (g4.y == u) << 1 | (g4.z == u) << 2 |
+                   (g4.w == u) << 3) << (4 * q);
+        }
+      }
+      if (b - c0 < 32) mask &= (1u << (b - c0)) - 1;   // the padding
+      k += __popc(mask);
+      for (; mask != 0; mask &= mask - 1)
+        tsum = __fadd_rn(tsum, s_slice[(c0 + __ffs(mask) - 1) * ds + f]);
+    }
+    const float mean = __fdiv_rn(tsum, static_cast<float>(k));
+    const float wv = wa[f * n + u];
+    const float out = __fadd_rn(wv, __fmul_rn(p.l_s, __fsub_rn(mean, wv)));
+    wa[f * n + u] = out;
+    wb[f * n + u] = out;
+    clean &= steady(out);
+  }
+  for (int u = THREADS - 1 - tid; u < n; u += THREADS) {   // from the top
     const int k = min(cnt[u], 8);
     int inc = 0;
-    for (int j = 0; j < k; ++j) inc += p.drive[(size_t)j * n + u] != 0;
-    const int cv = p.c[u] + inc;
-    ca[u] = cv;
-    fa[u] = cv >= p.theta;
+    for (int j = 0; j < k; ++j) inc += drive[j * n + u] != 0;
+    const int cv = c[u] + inc;
+    c[u] = cv;
+    if (cv >= p.theta) fronts[atomicAdd(&n_front[0], 1)] = u;
   }
+  if (!clean) *dirty = 1;
   __syncthreads();
 
-  // ---- waves, until the front is empty or the budget is spent
+  // ---- 4. waves, until the front is empty or the budget is spent
   int size = 0, waves = 0;
-  while (waves < p.budget) {
-    int fired = 0;
-    for (int base = 0; base < n; base += THREADS) {
-      const int u = base + tid;
-      fired += __syncthreads_count(u < n && fa[u]);
+  while (n_front[waves & 1] > 0 && waves < p.budget) {
+    const int k = waves;
+    const int nfront = n_front[k & 1];
+    const uint16_t* front = fronts + (k & 1) * n;
+    uint16_t* next_front = fronts + ((k + 1) & 1) * n;
+    uint16_t* cur = receivers + (k & 1) * n;        // receivers of wave k
+    const uint16_t* prev = receivers + ((k + 1) & 1) * n;   // of wave k - 1
+    int32_t* acc_k = acc + (k & 1) * n;
+    const uint8_t* bw =
+        (k < staged ? draws : p.bern) + static_cast<size_t>(k) * 4 * n;
+    // the flag is read before the barrier after which it may change
+    const bool full = *dirty != 0;
+    size += nfront;
+    // push: a fired site v sends to the site above it (for which v is
+    // below: slot 0), below it (slot 1), left of it (slot 2), right of it
+    // (slot 3); a receipt adds 1 to the packed count, a draw 256
+    for (int e = tid; e < 4 * nfront; e += THREADS) {
+      const int v = front[e >> 2], dir = e & 3;
+      const int m = nbr[v];
+      if (dir == 0) fgen[v] = k;
+      if (!(m & (dir == 0 ? 2 : dir == 1 ? 1 : dir == 2 ? 8 : 4))) continue;
+      const int u = dir == 0 ? v - side : dir == 1 ? v + side
+                  : dir == 2 ? v - 1 : v + 1;
+      const int add = 1 + (bw[dir * n + u] != 0 ? 256 : 0);
+      if (atomicAdd(&acc_k[u], add) == 0)
+        cur[atomicAdd(&n_recv[k % 3], 1)] = u;
     }
-    if (fired == 0) break;
-    size += fired;
-    const uint8_t* bw = p.bern + (size_t)waves * 4 * n;
-    // counters: the stencil of cascade.cu (slots below, above, right, left)
-    for (int u = tid; u < n; u += THREADS) {
-      const int r = u / side, col = u % side;
-      const int below = (r + 1 < side) ? (fa[u + side] != 0) : 0;
-      const int above = (r > 0) ? (fa[u - side] != 0) : 0;
-      const int right = (col + 1 < side) ? (fa[u + 1] != 0) : 0;
-      const int left = (col > 0) ? (fa[u - 1] != 0) : 0;
-      const int nr = below + above + right + left;
-      const int inc = (bw[u] != 0) * below + (bw[n + u] != 0) * above +
-                      (bw[2 * n + u] != 0) * right +
-                      (bw[3 * n + u] != 0) * left;
-      const int cv = (fa[u] ? 0 : ca[u]) + inc;
-      cb[u] = cv;
-      fb[u] = (cv >= p.theta) && (nr > 0);
-      recv[u] += nr;
-    }
-    // weights: every site of the slice, from the old buffer into the new
-    for (int e = tid; e < n * nf; e += THREADS) {
-      const int u = e / nf, f = e % nf;
-      const int r = u / side, col = u % side;
-      const int i = u * ds + f;
-      float up = 0.f, dn = 0.f, lf = 0.f, rt = 0.f;
-      int nr = 0;
-      if (r + 1 < side) {
-        up = __fmul_rn(wa[i + side * ds], fa[u + side] ? 1.f : 0.f);
-        nr += fa[u + side] != 0;
-      }
-      if (r > 0) {
-        dn = __fmul_rn(wa[i - side * ds], fa[u - side] ? 1.f : 0.f);
-        nr += fa[u - side] != 0;
-      }
-      if (col + 1 < side) {
-        lf = __fmul_rn(wa[i + ds], fa[u + 1] ? 1.f : 0.f);
-        nr += fa[u + 1] != 0;
-      }
-      if (col > 0) {
-        rt = __fmul_rn(wa[i - ds], fa[u - 1] ? 1.f : 0.f);
-        nr += fa[u - 1] != 0;
-      }
-      const float sum = __fadd_rn(__fadd_rn(__fadd_rn(up, dn), lf), rt);
-      const float wv = wa[i];
-      wb[i] = __fadd_rn(
-          wv, __fmul_rn(p.l_c, __fsub_rn(sum, __fmul_rn((float)nr, wv))));
+    // last wave's receipts are read: clear them for wave k + 1 (threads
+    // from the top, so the few pushes and these run side by side)
+    for (int i = THREADS - 1 - tid; i < n_recv[(k + 2) % 3]; i += THREADS)
+      acc[((k + 1) & 1) * n + prev[i]] = 0;
+    if (tid == 0) {
+      n_front[(k + 1) & 1] = 0;
+      n_recv[(k + 1) % 3] = 0;
     }
     __syncthreads();
+    // update: counters of the receivers (in place) and of the fired sites
+    // that receive nothing (reset), the next front, and the weights; the
+    // three lists start at different threads
+    const int nrc = n_recv[k % 3];
+    for (int i = tid; i < nrc; i += THREADS) {
+      const int u = cur[i];
+      const int a = acc_k[u], nr = a & 255;
+      const int cv = (fgen[u] == k ? 0 : c[u]) + (a >> 8);
+      c[u] = cv;
+      recv[u] += nr;
+      if (cv >= p.theta) next_front[atomicAdd(&n_front[(k + 1) & 1], 1)] = u;
+    }
+    for (int i = THREADS - 1 - tid; i < nfront; i += THREADS) {
+      const int v = front[i];
+      if (acc_k[v] == 0) c[v] = 0;
+    }
+    bool fresh = true;
+    if (full) {
+      FOR_PAIRS(n, nf, tid, THREADS,
+                fresh &= update(wa, wb, fgen, k, n, side, u, f, nbr[u],
+                                p.l_c));
+    } else {
+      const int npr = n_recv[(k + 2) % 3];
+      for (int e = (tid + THREADS / 2) % THREADS; e < (nrc + npr) * nf;
+           e += THREADS) {
+        const int i = e / nf, f = e - i * nf;
+        if (i < nrc) {
+          const int u = cur[i];
+          fresh &= update(wa, wb, fgen, k, n, side, u, f, nbr[u], p.l_c);
+        } else {
+          const int u = prev[i - nrc];
+          if (acc_k[u] == 0) wb[f * n + u] = wa[f * n + u];
+        }
+      }
+    }
+    if (!fresh) *dirty = 1;
     float* tw = wa; wa = wb; wb = tw;
-    int32_t* tc = ca; ca = cb; cb = tc;
-    uint8_t* tf = fa; fa = fb; fb = tf;
     ++waves;
+    __syncthreads();
   }
 
-  // ---- outputs: the slice, and the lattices from CTA 0
-  for (int e = tid; e < n * nf; e += THREADS) {
-    const int u = e / nf, f = e % nf;
-    p.w_out[(size_t)u * d + f0 + f] = wa[u * ds + f];
+  // ---- outputs: the slice, and the lattices, each from another of the
+  // blocks that own features (each holds the whole cascade's state)
+  if (p.out2) {   // two features a store
+    FOR_PAIRS(n, nf / 2, tid, THREADS,
+              *reinterpret_cast<float2*>(p.w_out + static_cast<size_t>(u) * d +
+                                         f0 + 2 * f) =
+                  make_float2(wa[2 * f * n + u], wa[(2 * f + 1) * n + u]));
+  } else {
+    FOR_PAIRS(n, nf, tid, THREADS,
+              p.w_out[static_cast<size_t>(u) * d + f0 + f] = wa[f * n + u]);
   }
+  const int owners = (d + ds - 1) / ds;
   if (g == 0) {
-    for (int u = tid; u < n; u += THREADS) {
-      p.c_out[u] = ca[u];
-      p.fired_out[u] = fa[u];
-      p.recv_out[u] = recv[u];
-    }
-    if (tid == 0) {
+    const uint16_t* front = fronts + (waves & 1) * n;
+    for (int i = tid; i < n_front[waves & 1]; i += THREADS)
+      fgen[front[i]] = waves;   // the front left after the last wave
+    __syncthreads();
+    for (int u = tid; u < n; u += THREADS) p.fired_out[u] = fgen[u] == waves;
+    if (tid == 0) {   // every thread counted every front
       p.stats_out[0] = size;
       p.stats_out[1] = waves;
     }
   }
+  if (g == 1 % owners)
+    for (int u = tid; u < n; u += THREADS) p.c_out[u] = c[u];
+  if (g == 2 % owners)
+    for (int u = tid; u < n; u += THREADS) p.recv_out[u] = recv[u];
 }
 
-// features per CTA: the fewest that keep one CTA per SM enough
-int plan_ds(int d, int sms) { return (d + sms - 1) / sms; }
+// the plan as ops.plan passes it (int32[8]): blocks, features a block,
+// threads, shared bytes, waves of draws staged, samples a search tile,
+// features a staged search chunk, columns of TMA boxes of the W slice
+// (0: the slice comes in by 4-byte copies)
+struct Plan {
+  int blocks, ds, threads, smem, staged, sample_tile, chunk, w_boxes;
+};
+
+// the columns of boxes the block with the most needs (its features from a
+// multiple of 4 on)
+int boxes_needed(int d, int ds, int blocks) {
+  int most = 0;
+  for (int g = 0; g < blocks && g * ds < d; ++g) {
+    const int f0 = g * ds, nf = d - f0 < ds ? d - f0 : ds;
+    const int need = (f0 % 4 + nf + W_BOX_COLS - 1) / W_BOX_COLS;
+    most = need > most ? need : most;
+  }
+  return most;
+}
+
+// cudaErrorInvalidValue unless the plan is one this kernel, as built, can
+// run: its threads, tile and chunk, the shared bytes of its layout, TMA
+// boxes only where rows are whole 16-byte units and enough for every block,
+// every feature in a block, and sites that fit the 16-bit lists
+cudaError_t check_plan(int n, int d, int b, const void* plan_in, Plan& pl) {
+  const int32_t* v = static_cast<const int32_t*>(plan_in);
+  pl = Plan{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]};
+  if (n < 1 || n > 65535 || d < 1 || b < 1 || pl.blocks < 1 || pl.ds < 1 ||
+      pl.threads != THREADS || pl.staged < 0 ||
+      (pl.w_boxes != 0 &&
+       (d % 4 != 0 || pl.w_boxes < boxes_needed(d, pl.ds, pl.blocks))) ||
+      pl.sample_tile != ROW_SAMPLES || pl.chunk != ROW_KC ||
+      static_cast<int64_t>(pl.blocks) * pl.ds < d ||
+      static_cast<size_t>(pl.smem) !=
+          layout(n, b, d, pl.ds, pl.staged, pl.w_boxes).bytes) {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+// cuTensorMapEncodeTiled, looked up by the CUDA runtime's entry-point query
+// (the library links no libcuda), or NULL
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
 
 }  // namespace
 
-// plan_out (int32[5]): features per CTA, CTAs, shared bytes per CTA, the
-// shared bytes a CTA may opt into, and the CTAs that fit on the card at once
-// (0 when the shared memory does not fit at all)
-extern "C" int repro_fused_plan(int n, int d, int b, void* plan_out) {
+// Checks a plan from ops.plan against the kernel as built and the card.
+// out (int32[3]): SMs, shared bytes a block may opt into, blocks of this
+// plan that fit on the card at once (0 when its shared memory does not fit
+// at all). Returns cudaErrorInvalidValue where the plan disagrees with the
+// kernel.
+extern "C" int repro_fused_plan(int n, int d, int b, const void* plan,
+                                void* out) {
+  Plan pl;
+  cudaError_t err = check_plan(n, d, b, plan, pl);
   int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ds = plan_ds(d, sms);
-  const int grid = (d + ds - 1) / ds;
-  const size_t smem = layout(n, b, ds).bytes;
-  if (smem <= (size_t)max_smem) {
+  if (pl.smem <= max_smem) {
     err = cudaFuncSetAttribute(fused_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               pl.smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_kernel,
-                                                          THREADS, smem);
+                                                          THREADS, pl.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int32_t* out = static_cast<int32_t*>(plan_out);
-  out[0] = ds;
-  out[1] = grid;
-  out[2] = (int32_t)smem;
-  out[3] = max_smem;
-  out[4] = per_sm * sms;
+  int32_t* o = static_cast<int32_t*>(out);
+  o[0] = sms;
+  o[1] = max_smem;
+  o[2] = per_sm * sms;
   return 0;
 }
 
+// scratch: (b, blocks) f32 then (b, blocks) int32 when the kernel searches
 extern "C" int repro_fused_step(
     const void* w, const void* c, const void* s, const void* drive,
     const void* bern, const void* gmu_in, int side, int d, int b, int theta,
     int budget, int bf16, float l_s, float l_c, void* w_out, void* c_out,
     void* fired_out, void* stats_out, void* recv_out, void* gmu_out,
-    void* q2_out, void* scratch, void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    void* q2_out, void* scratch, const void* plan, void* stream) {
+  Plan pl;
+  cudaError_t err = check_plan(side * side, d, b, plan, pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
   p.n = side * side;
@@ -383,7 +821,40 @@ extern "C" int repro_fused_step(
   p.theta = theta;
   p.budget = budget;
   p.bf16 = bf16;
-  p.ds = plan_ds(d, sms);
+  p.vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  p.ds = pl.ds;
+  p.staged = pl.staged;
+  const auto a16 = [](const void* x) {
+    return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  };
+  // the samples by one bulk copy on the exact tier's 16-byte search at
+  // B <= 16 (the main path); c, the drive and the draws where every piece
+  // is 16-byte aligned
+  p.bulk_s = gmu_in == nullptr && !bf16 && b <= ROW_SAMPLES && d % 4 == 0 &&
+             a16(w) && a16(s);
+  p.bulk_in = p.n % 4 == 0 && a16(c) && a16(drive) && a16(bern);
+  // the W slice by TMA boxes where the plan keeps room for them and W is
+  // 16-byte aligned (rows of d % 4 == 0 floats, as the plan requires)
+  p.w_boxes = pl.w_boxes;
+  p.out2 = pl.ds % 2 == 0 && d % 2 == 0 &&
+           reinterpret_cast<uintptr_t>(w_out) % 8 == 0;
+  p.tma_w = pl.w_boxes > 0 && a16(w);
+  if (p.tma_w) {
+    const EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                                static_cast<cuuint64_t>(p.n)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(float)};
+    const cuuint32_t box[2] = {W_BOX_COLS, W_BOX_ROWS};
+    const cuuint32_t steps[2] = {1, 1};
+    if (encode(&p.w_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+               const_cast<void*>(w), dims, strides, box, steps,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   p.l_s = l_s;
   p.l_c = l_c;
   p.w = static_cast<const float*>(w);
@@ -399,19 +870,17 @@ extern "C" int repro_fused_step(
   p.recv_out = static_cast<int32_t*>(recv_out);
   p.gmu_out = static_cast<int32_t*>(gmu_out);
   p.q2_out = static_cast<float*>(q2_out);
-  const int grid = (d + p.ds - 1) / p.ds;
-  p.part_val = static_cast<float*>(scratch);
-  p.part_idx = static_cast<int32_t*>(scratch) + (size_t)grid * b;
-  const size_t smem = layout(p.n, b, p.ds).bytes;
+  p.part_v = static_cast<float*>(scratch);
+  p.part_i = static_cast<int32_t*>(scratch) + static_cast<size_t>(pl.blocks) * b;
   // set at every launch: an earlier, smaller shape may have set it lower
   err = cudaFuncSetAttribute(fused_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel),
-                                    dim3(grid), dim3(THREADS), args, smem,
-                                    static_cast<cudaStream_t>(stream));
+                                    dim3(pl.blocks), dim3(THREADS), args,
+                                    pl.smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

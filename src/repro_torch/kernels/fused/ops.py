@@ -18,6 +18,7 @@ once per step, and only when ``max_waves`` exceeds ``wave_cap``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -55,27 +56,152 @@ def wave_budget(cfg) -> int:
             else cfg.max_waves)
 
 
+THREADS = 512                 # threads a block, as fused.cu is built
+SEARCH_WARPS = 8              # warps of a block that search
+SAMPLE_TILE = 16              # samples a warp of the search sums at once
+CHUNK = 512                   # features a staged chunk of the search
+W_BOX_COLS, W_BOX_ROWS = 8, 256   # a TMA box of the W slice
+#: waves of draws a block stages in shared memory at most (a 500-step fit
+#: at 30x30x784 averages 5.5 waves a step); later waves read theirs from
+#: device memory
+MAX_STAGED_WAVES = 8
+
+
+def _up16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def boxes_needed(d: int, ds: int, blocks: int) -> int:
+    """Columns of 8-feature TMA boxes the block with the most needs: a box
+    starts at a multiple of 4 features (16 bytes), so a slice that starts k
+    features past one is read from k features earlier."""
+    return max(-(-(f0 % 4 + min(ds, d - f0)) // W_BOX_COLS)
+               for f0 in range(0, min(d, blocks * ds), ds))
+
+
+def shared_bytes(n: int, b: int, d: int, ds: int, staged: int,
+                 w_boxes: int) -> int:
+    """Shared memory of one block of ``fused.cu`` (its ``layout``): each
+    region rounded up to 16 bytes."""
+    box_rows = -(-n // W_BOX_ROWS) * W_BOX_ROWS
+    regions = [4 * W_BOX_COLS * box_rows * w_boxes,  # the W slice's TMA boxes
+               4 * SAMPLE_TILE * max(CHUNK, d),     # search: samples
+               4 * ds * n, 4 * ds * n,              # two weight slices
+               4 * SEARCH_WARPS * SAMPLE_TILE,      # search: per-warp values
+               4 * n, 4 * n, 4 * n, 4 * n, 4 * n,   # c, recv, counts, first,
+               2 * 4 * n,                           # fired wave; receipts x2
+               8 * n, 4 * n * staged,               # drive and wave draws
+               2 * 2 * n, 2 * 2 * n,                # fronts x2, receivers x2
+               4 * b, 4 * b * ds,                   # GMUs, samples' slice
+               n,                                   # edge masks
+               6 * 4, 3 * 8]                        # flags, 3 mbarriers
+    return sum(_up16(r) for r in regions)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How ``fused.cu`` runs an (n units, d features, b samples) step: a
+    cooperative grid of ``blocks`` blocks of ``threads`` threads, one an SM.
+    Block ``i`` searches the units ``unit_range(i)`` (one split each) and
+    then owns the features ``feature_range(i)`` (empty past d), in ``smem``
+    bytes of shared memory, with the draws of the first ``staged_waves``
+    waves, and ``w_boxes`` columns of TMA boxes for the W slice (0: it comes
+    in by 4-byte copies)."""
+    n: int
+    d: int
+    b: int
+    blocks: int
+    ds: int
+    staged_waves: int
+    w_boxes: int
+    threads: int = THREADS
+
+    @property
+    def splits(self) -> int:
+        return self.blocks
+
+    @property
+    def feature_blocks(self) -> int:
+        """Blocks that own at least one feature."""
+        return -(-self.d // self.ds)
+
+    @property
+    def smem(self) -> int:
+        return shared_bytes(self.n, self.b, self.d, self.ds,
+                            self.staged_waves, self.w_boxes)
+
+    def unit_range(self, block: int) -> tuple[int, int]:
+        """[lo, hi) of the units block ``block`` searches."""
+        return (block * self.n // self.blocks,
+                (block + 1) * self.n // self.blocks)
+
+    def feature_range(self, block: int) -> tuple[int, int]:
+        """[lo, hi) of the features block ``block`` owns."""
+        return (min(self.d, block * self.ds),
+                min(self.d, (block + 1) * self.ds))
+
+    def c_array(self):
+        """The plan as ``repro_fused_plan`` and ``repro_fused_step`` take
+        it: int32 blocks, features a block, threads, shared bytes, staged
+        waves, samples a search tile, features a search chunk, columns of
+        TMA boxes."""
+        return (ctypes.c_int32 * 8)(self.blocks, self.ds, self.threads,
+                                    self.smem, self.staged_waves,
+                                    SAMPLE_TILE, CHUNK, self.w_boxes)
+
+
+def plan(n: int, d: int, b: int, sms: int, smem_optin: int) -> Plan:
+    """The launch plan of the fused kernel on a card with ``sms`` SMs whose
+    blocks may opt into ``smem_optin`` bytes of shared memory: one block an
+    SM (all co-resident, which the grid barrier needs); ``ceil(d / sms)``
+    features a block (6 at D = 784 on an H100: 131 blocks own features, the
+    last only searches); room for the W slice to come in by TMA boxes where
+    rows are whole 16-byte units (D % 4 == 0) and it fits; as many waves of
+    draws staged as fit, up to ``MAX_STAGED_WAVES``. Raises when a block's
+    shared memory cannot fit."""
+    if n < 1 or d < 1 or b < 1 or sms < 1:
+        raise ValueError(f"fused plan needs n, d, b, sms >= 1, got "
+                         f"{n}, {d}, {b}, {sms}")
+    ds = -(-d // sms)
+    need = shared_bytes(n, b, d, ds, 0, 0)
+    if need > smem_optin:
+        raise ValueError(
+            f"fused kernel: N={n}, D={d}, B={b} needs {need} bytes of shared "
+            f"memory a block ({ds} features of {n} units on {sms} SMs), more "
+            f"than the {smem_optin} this card allows")
+    w_boxes = boxes_needed(d, ds, sms) if d % 4 == 0 else 0
+    if shared_bytes(n, b, d, ds, 0, w_boxes) > smem_optin:
+        w_boxes = 0
+    staged = MAX_STAGED_WAVES
+    while shared_bytes(n, b, d, ds, staged, w_boxes) > smem_optin:
+        staged -= 1
+    return Plan(n, d, b, sms, ds, staged, w_boxes)
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(device_index: int, n: int, d: int, b: int) -> tuple[int, ...]:
-    """The kernel's launch plan for these shapes on this card: (features
-    per block, blocks, shared bytes, shared bytes allowed, blocks that fit
-    at once). Raises when the grid cannot be co-resident."""
+def _plan(device_index: int, n: int, d: int, b: int) -> Plan:
+    """``plan`` for this card, checked by the kernel as built
+    (``repro_fused_plan``). Raises when the kernel disagrees or the grid
+    cannot be co-resident."""
+    props = torch.cuda.get_device_properties(device_index)
+    p = plan(n, d, b, props.multi_processor_count,
+             props.shared_memory_per_block_optin)
     lib = _build.load()
-    plan = (ctypes.c_int32 * 5)()
+    out = (ctypes.c_int32 * 3)()
     with torch.cuda.device(device_index):
-        err = lib.repro_fused_plan(n, d, b, ctypes.addressof(plan))
-    _build.check(lib, err, "fused kernel plan")
-    ds, grid, smem, smem_max, fits = tuple(plan)
-    if smem > smem_max:
+        err = lib.repro_fused_plan(n, d, b, p.c_array(), out)
+    _build.check(lib, err, f"fused kernel plan {p}")
+    sms, smem_max, fits = tuple(out)
+    if (sms, smem_max) != (props.multi_processor_count,
+                           props.shared_memory_per_block_optin):
+        raise ValueError(f"fused kernel: the card reports {sms} SMs and "
+                         f"{smem_max} shared bytes, torch {props}")
+    if p.blocks > fits:
         raise ValueError(
-            f"fused kernel: N={n}, B={b} needs {smem} bytes of shared memory "
-            f"per block, more than the {smem_max} this card allows")
-    if grid > fits:
-        raise ValueError(
-            f"fused kernel: {grid} blocks of {ds} features (D={d}) cannot "
+            f"fused kernel: {p.blocks} blocks of {p.smem} shared bytes cannot "
             f"all be resident at once ({fits} fit), which its grid barrier "
             f"needs")
-    return ds, grid, smem, smem_max, fits
+    return p
 
 
 def fused_step(w, c2, s, l_s, l_c, drive, bern, gmu=None, *, theta: int,
@@ -132,8 +258,8 @@ def fused_step(w, c2, s, l_s, l_c, drive, bern, gmu=None, *, theta: int,
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("fused_step's kernel needs contiguous inputs")
     dev = w.device
-    _, grid, _, _, _ = _plan(dev.index if dev.index is not None
-                             else torch.cuda.current_device(), n, d, b)
+    p = _plan(dev.index if dev.index is not None
+              else torch.cuda.current_device(), n, d, b)
     lib = _build.load()
     w_out = torch.empty_like(w)
     c_out = torch.empty_like(c2)
@@ -143,8 +269,8 @@ def fused_step(w, c2, s, l_s, l_c, drive, bern, gmu=None, *, theta: int,
     searched = gmu is None
     gmu_out = torch.empty(b, dtype=torch.int32, device=dev)
     q2 = torch.empty(b, dtype=torch.float32, device=dev)
-    scratch = torch.empty(2 * grid * b if searched else 1, dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty(2 * p.blocks * b if searched else 1,
+                          dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.repro_fused_step(
             w.data_ptr(), c2.data_ptr(), s.data_ptr(), drive.data_ptr(),
@@ -152,7 +278,8 @@ def fused_step(w, c2, s, l_s, l_c, drive, bern, gmu=None, *, theta: int,
             int(theta), int(budget), int(precision == "bf16"), float(l_s),
             float(l_c), w_out.data_ptr(), c_out.data_ptr(), fired.data_ptr(),
             stats.data_ptr(), recv.data_ptr(), gmu_out.data_ptr(),
-            q2.data_ptr(), scratch.data_ptr(), _build.stream_of(w))
+            q2.data_ptr(), scratch.data_ptr(), p.c_array(),
+            _build.stream_of(w))
     _build.check(lib, err, "fused kernel launch")
     launches += 1
     out = (w_out, c_out, fired, stats, recv)

@@ -3,7 +3,7 @@ counter drive and cascade waves), port of ``repro.kernels.fused.ref`` and of
 what ``repro.kernels.fused.fused._fused_kernel`` computes.
 
 ``fused_step_ref`` has the CUDA kernel's signature and op order: the merge
-sums each GMU's samples in sample order and moves only hit units; a wave
+visits only the hit units and sums each one's samples in sample order; a wave
 adds the fired neighbours' weights as ``((up + dn) + lf) + rt`` and updates
 every site as ``w + l_c * (sum - n_recv * w)``. ``wave_loop`` runs waves
 from a draw source with seedable accumulators, so the wrapper can finish a
@@ -20,18 +20,22 @@ from repro_torch.kernels.cascade import ref as cascade_ref
 
 
 def merge(w: torch.Tensor, s: torch.Tensor, gmu: torch.Tensor, l_s: float):
-    """Eq. 3 on a flat (N, D) weight matrix, in the kernel's form: per-unit
-    counts, the target sum over samples in sample order (one row at a time,
-    so no float atomics on CUDA), then ``w + l_s * (mean - w)`` for hit
-    units; the others keep their rows. Returns (w, counts (N,) int32)."""
+    """Eq. 3 on a flat (N, D) weight matrix, in the kernel's form: only the
+    hit units move. Each, in the order of its first sample, sums its
+    samples' rows in sample order (from zeros), divides by its count and
+    moves by ``w + l_s * (mean - w)``; the other rows stay. Returns (w,
+    counts (N,) int32)."""
     n = w.shape[0]
     g = gmu.long()
     counts = torch.bincount(g, minlength=n).to(torch.int32)
-    tsum = torch.zeros_like(w)
-    for k in range(s.shape[0]):
-        tsum.index_add_(0, g[k:k + 1], s[k:k + 1])
-    mean = tsum / torch.clamp(counts, min=1).to(w.dtype)[:, None]
-    return torch.where((counts > 0)[:, None], w + l_s * (mean - w), w), counts
+    out = w.clone()
+    for u in dict.fromkeys(g.tolist()):     # hit units, first sample first
+        tsum = torch.zeros_like(w[u])
+        for k in (g == u).nonzero()[:, 0].tolist():
+            tsum = tsum + s[k]
+        mean = tsum / counts[u].to(w.dtype)
+        out[u] = w[u] + l_s * (mean - w[u])
+    return out, counts
 
 
 def drive_from_draws(c2: torch.Tensor, gmu_mask: torch.Tensor,

@@ -140,7 +140,8 @@ def test_kernel_backend_fits_on_the_card(cuda):
 @pytest.mark.parametrize("search", ["given", "exact", "bf16"])
 @pytest.mark.parametrize("side,d,b,w_cap,budget", [
     (30, 784, 16, 16, 16), (7, 13, 5, 3, 3), (30, 784, 16, 16, 5),
-    (1, 3, 1, 2, 2)])
+    (1, 3, 1, 2, 2), (30, 783, 40, 16, 16), (9, 50, 37, 20, 20),
+    (30, 784, 16, 4, 0)])
 def test_fused_kernel_matches_plain(cuda, side, d, b, w_cap, budget, search):
     """The fused kernel against its plain version on the card, same inputs:
     GMUs and q2 within the tie bound (a GMU that differs inside it: the
@@ -181,6 +182,170 @@ def test_fused_kernel_matches_plain(cuda, side, d, b, w_cap, budget, search):
     eps = torch.finfo(torch.float32).eps
     assert float((out[0] - ref[0]).abs().max()) <= \
         8 * (1 + waves) * eps * float(ref[0].abs().max())
+
+
+def _fused_inputs(cuda, side, d, b, w_cap=16, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    n = side * side
+    w = torch.rand(n, d, generator=gen).to(cuda)
+    s = torch.rand(b, d, generator=gen).to(cuda)
+    c = torch.randint(2, 4, (side, side), generator=gen,
+                      dtype=torch.int32).to(cuda)
+    drive = (torch.rand(8, side, side, generator=gen) < 0.9).to(cuda)
+    bern = (torch.rand(w_cap, 4, side, side, generator=gen) < 0.9).to(cuda)
+    return w, c, s, drive, bern
+
+
+#: (side, D, B): the main path's shape, B past two search tiles, ragged D
+#: (the scalar loads), fewer units than blocks, one unit
+FUSED_SEARCH_SHAPES = [(30, 784, 16), (30, 784, 40), (30, 783, 33),
+                       (7, 13, 5), (10, 785, 16), (1, 3, 1)]
+
+
+@pytest.mark.parametrize("side,d,b", FUSED_SEARCH_SHAPES)
+def test_fused_exact_search_equals_bmu_bitwise(cuda, side, d, b):
+    """The fused kernel's exact search and ``bmu``'s ``rows_kernel`` share
+    their arithmetic (``runtime/search.cuh``): the same GMUs and q2, bit for
+    bit, on the same W and samples, also where the two split the units
+    differently (B > 16)."""
+    w, c, s, drive, bern = _fused_inputs(cuda, side, d, b, seed=side + d + b)
+    n = side * side
+    assert bmu_ops.plan(n, b, d, sm_count(cuda)).kernel == "rows"
+    out = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, theta=4,
+                               budget=16)
+    idx, q2 = bmu_ops.bmu(w, s)
+    assert torch.equal(out[5], idx)
+    assert torch.equal(out[6], q2)
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16"])
+def test_fused_ties_across_splits_go_to_the_lowest_index(cuda, precision):
+    """Rows duplicated into other blocks' splits tie bitwise; the fused
+    search hands each tie to the lower index, as ``bmu`` does."""
+    side, d, b = 30, 784, 16
+    w, c, s, drive, bern = _fused_inputs(cuda, side, d, b, seed=7)
+    lo = torch.tensor([3, 10, 130, 255, 500], device=cuda)
+    hi = torch.tensor([800, 450, 899, 640, 777], device=cuda)
+    w[hi] = w[lo]
+    pick = torch.arange(b, device=cuda) % len(lo)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    s = (w[hi[pick]] + 1e-3 * torch.randn(b, d, generator=gen,
+                                          device=cuda)).contiguous()
+    p = fused_ops._plan(cuda.index or 0, side * side, d, b)
+    split = [next(i for i in range(p.splits)
+                  if p.unit_range(i)[0] <= int(u) < p.unit_range(i)[1])
+             for u in torch.cat([lo, hi])]
+    assert all(x != y for x, y in zip(split[:5], split[5:]))
+    out = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, theta=4,
+                               budget=16, precision=precision)
+    assert torch.equal(out[5].long(), lo[pick])
+
+
+@pytest.mark.parametrize("search", ["given", "exact", "bf16"])
+def test_fused_kernel_is_bitwise_repeatable(cuda, search):
+    """No float atomics and fixed orders: two calls give the same bits."""
+    side, d, b = 30, 784, 16
+    w, c, s, drive, bern = _fused_inputs(cuda, side, d, b, seed=3)
+    gmu = (torch.arange(b, dtype=torch.int32) * 37 % 900).to(cuda)
+    given = gmu if search == "given" else None
+    kw = dict(theta=4, budget=16,
+              precision="bf16" if search == "bf16" else "exact")
+    first = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, given, **kw)
+    again = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, given, **kw)
+    assert int(first[3][1]) > 0
+    for a, r in zip(first, again):
+        assert torch.equal(a, r)
+
+
+def _same_bits(a, r):
+    """Equal bit for bit, NaN where the other has NaN (its bits may vary)."""
+    nan = torch.isnan(r)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(
+        a[~nan].view(torch.int32), r[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["zeros", "overflow", "clean"])
+def test_fused_waves_are_bitwise_plain_on_any_weights(cuda, case):
+    """While every weight of a block's slice is finite and non-zero, the
+    kernel's waves update only the sites that receive a broadcast (the
+    others keep their bits); exact zeros of either sign from the start, or
+    an update that overflows in a wave, switch it to updating every site.
+    Each way the counters, front, [size, waves], receive counts and weights
+    are the plain version's bit for bit."""
+    side, d, b = 12, 20, 8
+    w, c, s, drive, bern = _fused_inputs(cuda, side, d, b, seed=11)
+    n = side * side
+    if case == "zeros":
+        w[::7] = 0.0
+        w[3::7] = -0.0
+    elif case == "overflow":   # horizontal neighbours of opposite sign
+        sign = 1.0 - 2.0 * (torch.arange(n, device=cuda) % 2)
+        w = (3e38 * sign[:, None]).expand(n, d).contiguous()
+    gmu = (torch.arange(b, dtype=torch.int32) * 17 % n).to(cuda)
+    kw = dict(theta=4, budget=16)
+    out = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, gmu, **kw)
+    ref = fused_ref.fused_step_ref(w, c, s, 0.05, 0.3, drive, bern, gmu, **kw)
+    assert int(ref[3][1]) > 1
+    assert bool(torch.isfinite(ref[0]).all()) == (case != "overflow")
+    for a, r in zip(out[1:5], ref[1:5]):
+        assert torch.equal(a, r)
+    assert _same_bits(out[0], ref[0])
+
+
+@pytest.mark.parametrize("search", ["given", "exact"])
+def test_fused_kernel_takes_inputs_off_16_byte_alignment(cuda, search):
+    """W, the samples and the draws 4 bytes (or 1 byte) past an aligned
+    address: the kernel copies them in without bulk or TMA copies and with
+    scalar row loads, and still gives the plain version's integers and
+    weights bit for bit (the GMUs within the tie bound)."""
+    side, d, b, w_cap = 30, 784, 16, 16
+    w0, c, s0, drive0, bern0 = _fused_inputs(cuda, side, d, b, seed=5)
+    n = side * side
+
+    def shifted(x, by):
+        flat = torch.empty(x.numel() + by, dtype=x.dtype, device=cuda)
+        out = flat[by:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    w, s = shifted(w0, 1), shifted(s0, 1)
+    drive, bern = shifted(drive0, 1), shifted(bern0, 3)
+    assert w.data_ptr() % 16 and bern.data_ptr() % 4
+    gmu = (torch.arange(b, dtype=torch.int32) * 29 % n).to(cuda)
+    given = gmu if search == "given" else None
+    kw = dict(theta=4, budget=w_cap)
+    out = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, given, **kw)
+    if given is None:
+        aligned = fused_ops.fused_step(w0, c, s0, 0.05, 0.3, drive0, bern0,
+                                       **kw)
+        assert torch.equal(out[5], aligned[5]) or bool(
+            (bmu_ref.top2_gap(w0, s0)[out[5] != aligned[5]]
+             <= bmu_ref.tie_bound(w0, s0)[out[5] != aligned[5]]).all())
+        given = out[5]
+    ref = fused_ref.fused_step_ref(w0, c, s0, 0.05, 0.3, drive0, bern0, given,
+                                   **kw)
+    assert int(ref[3][1]) > 0
+    for a, r in zip(out[1:5], ref[1:5]):
+        assert torch.equal(a, r)
+    assert _same_bits(out[0], ref[0])
+
+
+def test_fused_plan_is_checked_by_the_kernel(cuda):
+    """The C side holds ``ops.plan`` to the kernel as built: a plan whose
+    threads, shared bytes or feature split disagree with it is refused."""
+    import ctypes
+    from repro_torch.kernels import _build
+    p = fused_ops._plan(cuda.index or 0, 900, 784, 16)
+    assert (p.blocks, p.ds, p.feature_blocks) == (sm_count(cuda), 6, 131)
+    lib = _build.load()
+    out = (ctypes.c_int32 * 3)()
+    assert lib.repro_fused_plan(900, 784, 16, p.c_array(), out) == 0
+    assert out[2] >= p.blocks
+    for slot, value in ((2, 256), (3, p.smem + 16), (1, 5), (4, 2), (5, 8),
+                        (7, 2)):
+        arr = p.c_array()
+        arr[slot] = value
+        assert lib.repro_fused_plan(900, 784, 16, arr, out) != 0, slot
 
 
 def test_fused_backend_fits_on_the_card(cuda):
