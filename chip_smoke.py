@@ -8,19 +8,26 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels``;
 2. prints the card's name and power limit (``nvidia-smi``);
 3. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged ones;
+   main path's shapes and at ragged ones (``drive_cascade``, the staged
+   step's drive and whole cascade in one launch, bit for bit at side 30 and
+   7);
 4. checks that the adapt and cascade stages of a full-width step on the card
-   agree with the same stages on the CPU (same inputs, same draws);
+   agree with the same stages on the CPU (same inputs, same draws): the
+   cascade through the ``wave_fn`` seam (a ``cascade_wave`` launch a wave)
+   and through the kernel backend's stage (one ``drive_cascade`` launch);
 5. holds the fused training-step kernel against its plain version on the
    card (main-path and ragged shapes; GMUs given, exact and bf16 search; a
    wave budget cut by ``max_waves``; a cascade that outlives the kernel's
    wave block and finishes in the tail loop), its exact search against
    ``bmu``'s bitwise, and a fused step against a staged step from one state
-   on replayed draws (GMUs and q2 bitwise);
+   on one replayed draw list (GMUs and q2 bitwise), then 8 steps of both
+   from one ``GeneratorDraws`` seed, each from the staged state (GMUs, q2,
+   sizes, waves and counters bitwise, the same numbers consumed);
 6. trains a 30x30 map on 784-d MNIST-shaped data through
    ``TopoMap(backend="kernel")`` and queries it with the 10,000 test
-   samples, counting the kernel launches of that run; then trains it again
-   through ``backend_options={"kernel": "fused"}``;
+   samples, counting the kernel launches of that run (one ``drive_cascade``
+   a step, ``cascade_wave`` only for waves past the 16-wave block); then
+   trains it again through ``backend_options={"kernel": "fused"}``;
 7. times each kernel beside its bound, its plain version and a library call,
    queued ahead of the card (the card's time), with the back-to-back time
    (the host's rate where the wrapper is slower) printed beside it, and
@@ -172,7 +179,7 @@ def check_kernels(device):
     from repro_torch.kernels.cascade import ops as cas_ops
     from repro_torch.kernels.cascade import ref as cas_ref
     gen = torch.Generator(device=device).manual_seed(SEED)
-    worst = {"bmu": 0.0, "cascade_wave": 0.0}
+    worst = {"bmu": 0.0, "cascade_wave": 0.0, "drive_cascade": 0.0}
     for b, n, d in ((16, 900, 784), (10000, 900, 784)):
         w = torch.rand(n, d, generator=gen, device=device)
         s = torch.rand(b, d, generator=gen, device=device)
@@ -210,16 +217,54 @@ def check_kernels(device):
             if not torch.equal(a, r):
                 raise AssertionError(f"cascade_wave side {side}: not bitwise")
         print(f"cascade_wave side {side}: bitwise equal to the plain version")
-    torch.cuda.synchronize()
+    for side, d in ((30, 784), (7, 13)):
+        args = drive_inputs(torch.Generator().manual_seed(side + d), side, d,
+                            16, device)
+        for budget in (16, 3, 0):
+            kw = dict(l_c=0.3, theta=4, budget=budget)
+            out = cas_ops.drive_cascade(*args, **kw)
+            ref = cas_ref.drive_cascade_ref(*args, **kw)
+            again = cas_ops.drive_cascade(*args, **kw)
+            torch.cuda.synchronize()
+            for a, r, b in zip(out, ref, again):
+                same = (torch.equal(a.view(torch.int32), r.view(torch.int32))
+                        if a.is_floating_point() else torch.equal(a, r))
+                if not (same and torch.equal(a, b)):
+                    raise AssertionError(f"drive_cascade side {side} D={d} "
+                                         f"budget {budget}: not bitwise")
+            size, waves = out[3].tolist()
+            if budget and not waves:
+                raise AssertionError(f"drive_cascade side {side}: no wave")
+            print(f"drive_cascade side {side} D={d} budget {budget}: "
+                  f"{size} firings in {waves} waves, "
+                  f"{int(out[2].sum())} still firing; bitwise equal to the "
+                  f"plain version, and two calls bitwise equal")
     return worst
+
+
+def drive_inputs(gen, side, d, w_cap, device, theta=4, p=0.9):
+    """Random ``drive_cascade`` inputs with counters just below ``theta``:
+    merged weights, counters, adaptation counts, drive and wave draws,
+    drawn on the CPU (``gen``) and moved to ``device``."""
+    n = side * side
+    out = (torch.rand(n, d, generator=gen),
+           torch.randint(max(theta - 2, 0), theta, (side, side), generator=gen,
+                         dtype=torch.int32),
+           torch.randint(0, 3, (side, side), generator=gen, dtype=torch.int32),
+           torch.rand(8, side, side, generator=gen) < p,
+           torch.rand(w_cap, 4, side, side, generator=gen) < p)
+    return tuple(x.to(device) for x in out)
 
 
 def check_step_stages(device, xtr):
     """Phase 4: the adapt and cascade stages of a full-width step on the card
-    (cascade kernel) against the same stages on the CPU (plain versions),
-    from one state, one set of GMUs and the same draws. The search stage is
-    phase 3's. Counters, fired sizes and waves bitwise; weights within 8 f32
-    ULP per adaptation."""
+    against the same stages on the CPU (plain versions), from one state, one
+    set of GMUs and the same draws, for each cascade stage: the ``wave_fn``
+    seam (``cascade_wave`` a wave) and the kernel backend's
+    (``drive_cascade_stage``: the drive and up to 16 waves in one
+    ``drive_cascade`` launch). The search stage is phase 3's. Counters,
+    fired sizes and waves bitwise; weights within 8 f32 ULP per
+    adaptation."""
     from repro_torch.core import afm, schedules
     from repro_torch.kernels.cascade import ops as cas_ops
     cfg = afm.AFMConfig(side=30, dim=784, batch=16)
@@ -233,27 +278,39 @@ def check_step_stages(device, xtr):
                                                 cfg.c_s))
     p = float(schedules.cascade_probability(0, cfg.total_samples, cfg.n_units,
                                             cfg.c_m, cfg.c_d))
-    out = {}
-    for dev, wave_fn in (("cpu", None), (device, cas_ops.cascade_wave)):
-        w, counts = afm.adapt_merge(state.w.to(dev), samples.to(dev),
-                                    gmu.to(dev), cfg)
-        out[dev] = afm.cascade_default(w, c.to(dev), counts, l_c, p,
-                                       HostDraws(SEED + 1, dev), cfg,
-                                       wave_fn=wave_fn)
-    cpu, gpu = out["cpu"], out[device]
-    if (cpu.size, cpu.waves) != (gpu.size, gpu.waves) or cpu.waves == 0:
-        raise AssertionError(f"stage parity: size/waves {cpu.size, cpu.waves}"
-                             f" on the CPU, {gpu.size, gpu.waves} on the card")
-    if not torch.equal(cpu.c, gpu.c.cpu()):
-        raise AssertionError("stage parity: counters differ")
-    dw = float((cpu.w - gpu.w.cpu()).abs().max())
-    bound = (8 * (1 + cpu.waves) * torch.finfo(torch.float32).eps
-             * float(cpu.w.abs().max()))
-    if dw > bound:
-        raise AssertionError(f"stage parity: |dw| {dw} > {bound}")
-    print(f"stage parity (adapt + cascade of {cpu.size} firings in "
-          f"{cpu.waves} waves): integers bitwise, max|dw| {dw:.3g} <= "
-          f"{bound:.3g}")
+    stages = {
+        "wave_fn seam": lambda dev, *a: afm.cascade_default(
+            *a, wave_fn=None if dev == "cpu" else cas_ops.cascade_wave),
+        "drive_cascade stage": lambda dev, *a: cas_ops.drive_cascade_stage(
+            *a)}
+    for name, stage in stages.items():
+        out = {}
+        for dev in ("cpu", device):
+            w, counts = afm.adapt_merge(state.w.to(dev), samples.to(dev),
+                                        gmu.to(dev), cfg)
+            before = cas_ops.drive_launches
+            out[dev] = stage(dev, w, c.to(dev), counts, l_c, p,
+                             HostDraws(SEED + 1, dev), cfg)
+            launched = cas_ops.drive_launches - before
+            if launched != (dev != "cpu" and name != "wave_fn seam"):
+                raise AssertionError(f"stage parity, {name} on {dev}: "
+                                     f"drive_cascade launched {launched}")
+        cpu, gpu = out["cpu"], out[device]
+        size, waves = int(cpu.size), int(cpu.waves)
+        if (size, waves) != (int(gpu.size), int(gpu.waves)) or waves == 0:
+            raise AssertionError(f"stage parity, {name}: size/waves "
+                                 f"{size, waves} on the CPU, "
+                                 f"{int(gpu.size), int(gpu.waves)} on the card")
+        if not torch.equal(cpu.c, gpu.c.cpu()):
+            raise AssertionError(f"stage parity, {name}: counters differ")
+        dw = float((cpu.w - gpu.w.cpu()).abs().max())
+        bound = (8 * (1 + waves) * torch.finfo(torch.float32).eps
+                 * float(cpu.w.abs().max()))
+        if dw > bound:
+            raise AssertionError(f"stage parity, {name}: |dw| {dw} > {bound}")
+        print(f"stage parity, {name} (adapt + cascade of {size} firings in "
+              f"{waves} waves): integers bitwise, max|dw| {dw:.3g} <= "
+              f"{bound:.3g}")
 
 
 def _search_tier_ok(idx, q2, idx_r, q2_r, w, s, precision, what):
@@ -432,10 +489,11 @@ def check_fused_parts(device, xtr):
 
 def check_fused_vs_staged(device, xtr):
     """Phase 5c: one fused step against one staged step on the card, from
-    one state, replaying the same per-wave arrays: the staged path takes
-    them one at a time, the fused path the first ``wave_cap`` stacked and
-    the rest one per tail wave, half-way through the schedule. GMUs, q2
-    and integers bitwise, w within the stage bound."""
+    one state, each replaying the same list: the drive, the first
+    ``wave_cap`` waves' draws stacked and the rest one per tail wave (both
+    paths' draw order), half-way through the schedule. GMUs, q2 and
+    integers bitwise, w within the stage bound; then 8 steps of both from
+    one ``GeneratorDraws`` seed (``check_fused_vs_staged_steps``)."""
     import numpy as np
     from repro_torch.api.backends import get_backend
     from repro_torch.core import afm
@@ -454,13 +512,13 @@ def check_fused_vs_staged(device, xtr):
     waves = list(rng.random((400, 4, side, side), dtype=np.float32))
     staged = get_backend("kernel", cfg, device=device).stages
     fused = get_backend("kernel", cfg, kernel="fused", device=device).stages
-    draws_f = ReplayDraws([drive, np.stack(waves[:cap])] + waves[cap:],
-                          device=device)
+    arrays = [drive, np.stack(waves[:cap])] + waves[cap:]
+    draws_f = ReplayDraws(arrays, device=device)
     fnew, faux = afm._step(state, samples, draws_f, cfg, fused)
-    draws_s = ReplayDraws([drive] + waves, device=device)
+    draws_s = ReplayDraws(arrays, device=device)
     snew, saux = afm._step(state, samples, draws_s, cfg, staged)
     n_waves = int(saux.waves)
-    if (len(draws_s) != len(waves) - n_waves or n_waves >= len(waves)
+    if (n_waves >= len(waves) or len(draws_s) != len(draws_f)
             or len(draws_f) != len(waves) - max(cap, n_waves)):
         raise AssertionError("fused vs staged: the replays were not consumed "
                              "as the draw order says")
@@ -482,6 +540,61 @@ def check_fused_vs_staged(device, xtr):
     print(f"fused vs staged step: {int(saux.cascade_size)} firings in "
           f"{n_waves} waves (block {cap}) on both; GMUs, q2 and integers "
           f"bitwise, max|dw| {dw:.3g} <= {bound:.3g}")
+    check_fused_vs_staged_steps(device, xtr, staged, fused)
+
+
+#: steps of the staged-vs-fused trajectory check (phase 5c)
+PAIRED_STEPS = 8
+
+
+def check_fused_vs_staged_steps(device, xtr, staged, fused):
+    """Phase 5c, continued: ``PAIRED_STEPS`` steps of the kernel backend's
+    staged and fused stages from one ``GeneratorDraws`` seed, each step from
+    the staged state and the same generator state (the trajectory contract:
+    state re-injected from one side). GMUs, q2, cascade sizes, waves and
+    counters bitwise, w within the stage bound, and both generators in the
+    same state after each step: the two paths consume the same numbers."""
+    from repro_torch.core import afm
+    from repro_torch.draws import GeneratorDraws
+    cfg = afm.AFMConfig(side=30, dim=784, batch=16)
+    draws = GeneratorDraws(SEED + 21, device)
+    state = afm.init(draws, cfg, xtr[:4096])
+    state = state._replace(c=torch.full((cfg.n_units,), cfg.theta - 1,
+                                        dtype=torch.int32, device=device))
+    total, worst = [], 0.0
+    for step in range(PAIRED_STEPS):
+        samples = xtr[16 * step:16 * step + 16].contiguous()
+        other = GeneratorDraws(0, device)
+        other.generator.set_state(draws.generator.get_state())
+        snew, saux = afm._step(state, samples, draws, cfg, staged)
+        fnew, faux = afm._step(state, samples, other, cfg, fused)
+        if not torch.equal(draws.generator.get_state(),
+                           other.generator.get_state()):
+            raise AssertionError(f"fused vs staged, step {step}: the two "
+                                 f"paths consumed different draws")
+        for name in ("gmu", "q2", "cascade_size", "waves"):
+            if not torch.equal(getattr(saux, name), getattr(faux, name)):
+                raise AssertionError(f"fused vs staged, step {step}: {name} "
+                                     f"differs")
+        if not torch.equal(snew.c, fnew.c):
+            raise AssertionError(f"fused vs staged, step {step}: counters "
+                                 f"differ")
+        waves = int(saux.waves)
+        dw = float((snew.w - fnew.w).abs().max())
+        bound = (8 * (1 + waves) * torch.finfo(torch.float32).eps
+                 * float(snew.w.abs().max()))
+        if not dw <= bound:
+            raise AssertionError(f"fused vs staged, step {step}: |dw| {dw} "
+                                 f"> {bound}")
+        worst = max(worst, dw)
+        total.append((int(saux.cascade_size), waves))
+        state = snew
+    if not any(w for _, w in total):
+        raise AssertionError("fused vs staged: no step cascaded")
+    print(f"fused vs staged, {PAIRED_STEPS} steps from one GeneratorDraws "
+          f"seed, each from the staged state: (firings, waves) {total}; "
+          f"GMUs, q2, sizes, waves and counters bitwise, the same draws "
+          f"consumed, max|dw| {worst:.3g}")
 
 
 def _launch_counts():
@@ -490,6 +603,7 @@ def _launch_counts():
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.swa import ops as swa_ops
     return {"bmu": bmu_ops.launches, "cascade_wave": cas_ops.launches,
+            "drive_cascade": cas_ops.drive_launches,
             "fused_step": fused_ops.launches, "swa_decode": swa_ops.launches}
 
 
@@ -499,16 +613,18 @@ def _reset_launch_counts():
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.swa import ops as swa_ops
     bmu_ops.launches = cas_ops.launches = fused_ops.launches = 0
-    swa_ops.launches = 0
+    cas_ops.drive_launches = swa_ops.launches = 0
 
 
 def main_path(device, xtr, ytr, xte, yte, steps, kernel="staged",
-              required=("bmu", "cascade_wave")):
+              required=("bmu", "drive_cascade")):
     """Phase 6: train and query through the entry points a user
     calls, with the ``kernel`` backend's ``kernel`` option. Returns the
     trained map, the launch counts of its training and of the whole run,
     and its fit samples/s. Fails unless every kernel in ``required`` was
-    launched in this run."""
+    launched in this run, the step kernel (``drive_cascade`` staged,
+    ``fused_step`` fused) once a training step, and ``cascade_wave`` once
+    a wave past the 16-wave block."""
     from repro_torch.api import TopoMap
     from repro_torch.core import afm
     from repro_torch.draws import GeneratorDraws
@@ -571,6 +687,17 @@ def main_path(device, xtr, ytr, xte, yte, steps, kernel="staged",
     if not all(launches[k] for k in required):
         raise AssertionError(f"a kernel of the {kernel} path was not "
                              f"launched: {launches}, needs {required}")
+    from repro_torch.kernels.cascade.ops import DEFAULT_WAVE_CAP
+    tail = int((aux.waves - DEFAULT_WAVE_CAP).clamp(min=0).sum())
+    step_kernel = "drive_cascade" if kernel == "staged" else "fused_step"
+    if (train_launches[step_kernel] != steps
+            or train_launches["cascade_wave"] != tail):
+        raise AssertionError(f"{kernel} training launched {train_launches}: "
+                             f"{step_kernel} must run once a step ({steps})"
+                             f" and cascade_wave once a tail wave ({tail})")
+    print(f"launches per training step: {step_kernel} 1, cascade_wave "
+          f"{tail / steps:.4f} ({tail} waves past the {DEFAULT_WAVE_CAP}-wave"
+          f" block)")
     if not qe < qe0:
         raise AssertionError(f"QE did not fall: {qe0} -> {qe}")
     if acc < ACCURACY_FLOOR:
@@ -656,7 +783,70 @@ def kernel_table(device, tm, xtr, xte, train_launches, launches, worst):
         "bound_by": "bytes" if nbytes / bw > ops / (f32_peak / 2)
         else "operations",
         "library_ms": None})
+    rows.append(drive_cascade_row(device, tm, xtr, launches, worst))
     return rows
+
+
+def drive_cascade_row(device, tm, xtr, launches, worst):
+    """Phase 7, the staged step's drive and cascade: one call at the main
+    path's shape from the staged run's trained state (its counters, the
+    schedule there), after the merge of a batch into its ``bmu`` GMUs, the
+    first of up to 32 batches whose call runs at least 4 waves. No single
+    PyTorch call computes it: ``library_ms`` is null. The bound counts W
+    read and written once, the counters, counts, drive, the draws of the
+    waves that ran and the lattices once, and 6 N D operations a wave."""
+    from repro_torch.core import afm
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.cascade import ops as cas_ops
+    from repro_torch.kernels.cascade import ref as cas_ref
+    f32_peak, bw = peaks_for(torch.cuda.get_device_name(0))
+    cfg, state = tm.cfg, tm.state_
+    side, (n, d) = cfg.side, state.w.shape
+    cap = cas_ops.DEFAULT_WAVE_CAP
+    l_c, p_i = afm.schedule_values(state.i, cfg)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    c = state.c.reshape(side, side)
+    for k in range(32):
+        s = xtr[16 * k:16 * k + 16].contiguous()
+        gmu, _ = bmu_ops.bmu(state.w, s)
+        merged, counts = afm.adapt_merge(state.w, s, gmu, cfg)
+        counts = counts.to(torch.int32).reshape(side, side)
+        drive = (torch.rand(8, side, side, generator=gen) < p_i).to(device)
+        bern = (torch.rand(cap, 4, side, side, generator=gen) < p_i).to(
+            device)
+        args = (merged, c, counts, drive, bern)
+        kw = dict(l_c=l_c, theta=cfg.theta, budget=cap)
+        out = cas_ops.drive_cascade(*args, **kw)
+        size, waves = out[3].tolist()
+        if waves >= 4:
+            break
+    plan = cas_ops._cascade_plan(device.index or 0, n, d)
+    print(f"drive_cascade: plan {plan.blocks} blocks of {plan.threads} "
+          f"threads, {plan.ds} features a block, {plan.smem} bytes of shared"
+          f" memory each, the draws of {plan.staged_waves} waves staged")
+    print(f"drive_cascade timing call: {size} firings in {waves} waves, "
+          f"state after {state.i} samples, batch {k}")
+    t = time_both({
+        "plain": lambda: cas_ref.drive_cascade_ref(*args, **kw),
+        "kernel": lambda: cas_ops.drive_cascade(*args, **kw),
+    }, 200, "drive_cascade")
+    nbytes = 2 * 4 * n * d + n * (4 + 4 + 8 + 4 * waves) + n * (4 + 1 + 4) + 8
+    ops = 6 * n * d * waves
+    bound = max(nbytes / bw, ops / f32_peak) * 1e3
+    print(f"drive_cascade: bound {bound:.6f} ms ({nbytes / 1e6:.3f} MB, "
+          f"{ops / 1e6:.2f} M operations), kernel at "
+          f"{100 * bound / t['kernel']:.1f} % of it")
+    return {
+        "name": f"drive_cascade (N=900, D=784, {waves} waves)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/cascade/cascade.cu",
+        "replaces": "src/repro/kernels/cascade/cascade.py:38",
+        "launches": launches["drive_cascade"],
+        "max_abs_err": worst["drive_cascade"],
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / bw > ops / f32_peak
+        else "operations",
+        "library_ms": None}
 
 
 def fused_row(device, tmf, xtr, launches, worst):

@@ -9,6 +9,9 @@ Trains the 30x30x784 map of ``chip_smoke.py`` (B = 16, MNIST-shaped
 stand-in data) through ``TopoMap(backend="kernel",
 backend_options={"kernel": KERNEL})`` and reports, after a warm-up:
 
+0. the fit rate: ``--steps`` steps of ``afm.train`` with the backend's
+   stages, unsynchronised but for one ``torch.cuda.synchronize()`` at the
+   end, in ms a step and samples a second (init excluded);
 1. the wall time of each stage (staged: search / adapt / cascade; fused:
    the one fused stage), each stage timed on the host between
    ``torch.cuda.synchronize()`` calls;
@@ -78,6 +81,16 @@ def main() -> int:
                  ).fit(xtr, num_steps=100)
     print(f"kernel={args.kernel}")
     state, backend = tm.state_, tm.backend
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, aux = afm.train(state, xtr, GeneratorDraws(3, device), cfg,
+                       num_steps=args.steps, stages=backend.stages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"fit rate, {args.steps} steps, {int(aux.waves.sum())} waves: "
+          f"{wall * 1e3 / args.steps:.3f} ms/step, "
+          f"{args.steps * cfg.batch / wall:.1f} samples/s")
 
     totals = defaultdict(float)
     stages = timed_stages(backend.stages, totals)

@@ -41,9 +41,12 @@ draws at that state's p_i, a wave block of 16):
   largest time over the blocks.
 
 With ``--parent DIR`` (a directory holding another revision's
-``fused/fused.cu`` and ``runtime/search.cuh``, e.g. the parent commit's,
-written there with ``git show``) its copies are built and timed too, in
-turns with this tree's, on the same inputs.
+``fused/fused.cu`` and ``runtime/search.cuh``, and ``runtime/waves.cuh``
+and ``runtime/wave_loop.cuh`` where its ``fused.cu`` includes them; e.g.
+the parent commit's, written there with ``git show``) its copies are built
+and timed too, in turns with this tree's, on the same inputs. A
+``fused.cu`` that includes those headers is edited and built with their
+text in place of the includes.
 """
 import argparse
 import ctypes
@@ -166,14 +169,30 @@ NEW_SEARCH_END = ("  if (p.bulk_in) repro::mbar_wait(inputs_ready, 0);\n"
                   "  __syncthreads();\n")
 OLD_SEARCH_END = "    __syncthreads();\n    if (g == 0 && p.bf16) {"
 CUT = "  if (p.n > 0) return;\n"
+SEARCH_INCLUDE = '#include "../runtime/search.cuh"\n'
+#: the shared headers of the wave code, inlined into a copy's text
+WAVE_HEADERS = ("waves.cuh", "wave_loop.cuh")
 
 
-def fused_variants(source: str, parent: bool) -> dict:
-    what = "the parent's fused.cu" if parent else "fused.cu"
-    start = PARENT_BODY_START if parent else BODY_START
+def inline_waves(source: str, runtime: Path) -> str:
+    """``fused.cu`` with the text of ``runtime/waves.cuh`` and
+    ``runtime/wave_loop.cuh`` in place of their includes (the drive, wave
+    loop and outputs the stripped copies edit live in the second)."""
+    for name in WAVE_HEADERS:
+        include = f'#include "../runtime/{name}"\n'
+        if include in source:
+            source = source.replace(include, (runtime / name).read_text())
+    return source
+
+
+def fused_variants(source: str, old: bool) -> dict:
+    """The stripped copies of a ``fused.cu``; ``old``: an earlier
+    revision's, which plans on the card (another C interface)."""
+    what = "the earlier fused.cu" if old else "fused.cu"
+    start = PARENT_BODY_START if old else BODY_START
     barrier = replace(source, start,
                       start + "  cg::this_grid().sync();\n" + CUT, what)
-    if parent:
+    if old:
         search = replace(source, OLD_SEARCH_END,
                          "    __syncthreads();\n" + CUT
                          + OLD_SEARCH_END[len("    __syncthreads();\n"):],
@@ -236,8 +255,9 @@ extern "C" int repro_fused_stamps(void* clk, void* timer) {
 
 
 def phase_clock(source: str) -> str:
-    """This tree's fused.cu with a time stamp after each phase."""
-    out = replace(source, "namespace {\n", "namespace {\n" + STAMPS,
+    """This tree's fused.cu (``runtime/waves.cuh`` inlined) with a time
+    stamp after each phase."""
+    out = replace(source, SEARCH_INCLUDE, SEARCH_INCLUDE + STAMPS,
                   "fused.cu")
     # the later anchors first: "other waves" contains "first wave"'s line
     for k, (_, line, cond) in reversed(list(enumerate(PHASES))):
@@ -369,13 +389,16 @@ def profile_fused(device, parent_dir):
     w, c, s, drive, bern, cfg, l_c = fused_inputs(device)
     (n, d), b, side = w.shape, s.shape[0], cfg.side
     here = ROOT / "src/repro_torch/kernels"
-    trees = {"this tree": ((here / "fused/fused.cu").read_text(),
-                           (here / "runtime/search.cuh").read_text(), False)}
-    if parent_dir is not None:
-        parent_dir = Path(parent_dir)
-        trees["parent"] = ((parent_dir / "fused/fused.cu").read_text(),
-                           (parent_dir / "runtime/search.cuh").read_text(),
-                           True)
+    trees = {}
+    for tree, root in (("this tree", here), ("parent", parent_dir)):
+        if root is None:
+            continue
+        root = Path(root)
+        fused = inline_waves((root / "fused/fused.cu").read_text(),
+                             root / "runtime")
+        # an earlier kernel that plans on the card has another C interface
+        trees[tree] = (fused, (root / "runtime/search.cuh").read_text(),
+                       PARENT_BODY_START in fused)
     props = torch.cuda.get_device_properties(device)
     new_plan = fused_ops.plan(n, d, b, props.multi_processor_count,
                               props.shared_memory_per_block_optin)
@@ -389,18 +412,18 @@ def profile_fused(device, parent_dir):
                q2=torch.empty(b, dtype=torch.float32, device=device))
     new_cplan = new_plan.c_array()        # kept alive for every call
     specs = {f"fused {tree} {variant}": (text, search_h)
-             for tree, (fused, search_h, parent) in trees.items()
-             for variant, text in fused_variants(fused, parent).items()}
+             for tree, (fused, search_h, old) in trees.items()
+             for variant, text in fused_variants(fused, old).items()}
     specs["phase clock"] = (phase_clock(trees["this tree"][0]),
                             trees["this tree"][1])
     for name, text in wave_cuts(trees["this tree"][0]).items():
         specs[name] = (text, trees["this tree"][1])
     libs = build_fused(specs)
     calls = {}
-    for tree, (fused, search_h, parent) in trees.items():
-        for variant in fused_variants(fused, parent):
+    for tree, (fused, search_h, old) in trees.items():
+        for variant in fused_variants(fused, old):
             lib = libs[f"fused {tree} {variant}"]
-            if parent:                     # the parent plans on the card
+            if old:                        # it plans on the card
                 buf = (ctypes.c_int32 * 5)()
                 err = lib.repro_fused_plan(n, d, b, ctypes.c_void_p(
                     ctypes.addressof(buf)))
@@ -432,7 +455,7 @@ def profile_fused(device, parent_dir):
             if variant != "as is":
                 calls[(tree, variant)] = call
                 continue
-            if not parent:
+            if tree == "this tree":
                 clock = functools.partial(call, lib=libs["phase clock"])
                 report_phases(libs["phase clock"], clock, new_plan.blocks,
                               "phase clock")

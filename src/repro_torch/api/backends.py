@@ -9,10 +9,11 @@ string key:
 ``reference``  Faithful per-sample dynamics (B = 1), plain PyTorch.
 ``batched``    Bulk-asynchronous: B relay-race searches per step.
 ``kernel``     The counterpart of the JAX ``pallas`` backend: exact search
-               through the CUDA BMU kernel and cascade counter waves through
-               the CUDA cascade-wave kernel (``kernel="staged"``), or the
-               whole step as one CUDA kernel (``kernel="fused"``); on CPU
-               tensors the wrappers run their plain versions.
+               through the CUDA BMU kernel and each step's drive and cascade
+               through one launch of the CUDA drive-cascade kernel
+               (``kernel="staged"``), or the whole step as one CUDA kernel
+               (``kernel="fused"``); on CPU tensors the wrappers run their
+               plain versions.
 =============  ==============================================================
 
 Every backend implements the ``Backend`` protocol:
@@ -26,7 +27,6 @@ Every backend implements the ``Backend`` protocol:
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Protocol, runtime_checkable
 
 import torch
@@ -81,17 +81,12 @@ class Backend(Protocol):
     def bmu(self, w: torch.Tensor, samples: torch.Tensor): ...
 
 
-def _stages_for(search: str, cascade_wave_fn=None) -> afm.Stages:
+def _stages_for(search: str) -> afm.Stages:
     if search == "heuristic":
-        base = afm.DEFAULT_STAGES
-    elif search == "exact":
-        base = afm.EXACT_STAGES
-    else:
-        raise ValueError(f"search must be 'heuristic' or 'exact', got {search!r}")
-    if cascade_wave_fn is None:
-        return base
-    return base._replace(cascade=functools.partial(
-        afm.cascade_default, wave_fn=cascade_wave_fn))
+        return afm.DEFAULT_STAGES
+    if search == "exact":
+        return afm.EXACT_STAGES
+    raise ValueError(f"search must be 'heuristic' or 'exact', got {search!r}")
 
 
 class _DenseBackend:
@@ -158,12 +153,18 @@ class KernelBackend(_DenseBackend):
     ``kernel`` picks the step's execution:
 
     - ``'staged'`` (default): exact-BMU search via ``kernels.bmu.ops.bmu``,
-      the plain Eq. 3 merge, and cascade counter waves via
-      ``kernels.cascade.ops.cascade_wave``, one launch and one host sync per
-      wave.
+      the plain Eq. 3 merge, then the drive and up to ``DEFAULT_WAVE_CAP``
+      (16) waves in one launch of ``kernels.cascade.ops.drive_cascade``
+      (``drive_cascade_stage``), which counts the front on the card.
     - ``'fused'``: the whole step after sampling (search, merge, drive and
       up to 16 waves) as one launch of ``kernels.fused``, plugged in through
-      ``afm.Stages.fused``; a longer cascade finishes in a tail loop.
+      ``afm.Stages.fused``.
+
+    Either way a longer cascade finishes in a tail loop of
+    ``cascade_wave`` launches, and the step reads the front back once to
+    decide whether it needs one; both take their cascade draws in the same
+    order (drive, one block of 16 waves, one per tail wave), so one draw
+    source trains both on the same numbers.
 
     ``search='heuristic'`` keeps the paper's relay race outside the kernels.
     ``precision`` picks the distance tier of the training search: ``'exact'``
@@ -190,8 +191,8 @@ class KernelBackend(_DenseBackend):
                 fused=fused_ops.make_fused_stage(search=search,
                                                  precision=precision))
             return
-        self.stages = _stages_for(search,
-                                  cascade_wave_fn=cascade_ops.cascade_wave)
+        self.stages = self.stages._replace(
+            cascade=cascade_ops.drive_cascade_stage)
         if search == "exact":
             self.stages = self.stages._replace(search=self._search_stage)
 

@@ -89,8 +89,9 @@ class AFMState(NamedTuple):
 class StepAux(NamedTuple):
     gmu: torch.Tensor           # (B,) int32
     q2: torch.Tensor            # (B,) float32
-    cascade_size: torch.Tensor  # () int32, a_i for the step (staged: a CPU
-                                # tensor of the host count; fused: on device)
+    cascade_size: torch.Tensor  # () int32, a_i for the step (the plain
+                                # staged cascade: a CPU tensor of its host
+                                # count; the kernel stages: on device)
     waves: torch.Tensor         # () int32 (as cascade_size)
     greedy_steps: torch.Tensor  # (B,) int32
 
@@ -226,8 +227,11 @@ def _step(state: AFMState, samples: torch.Tensor, draws, cfg: AFMConfig,
         near=state.near,
         i=i + b,
     )
-    aux = StepAux(res.gmu, res.q2, torch.tensor(out.size, dtype=torch.int32),
-                  torch.tensor(out.waves, dtype=torch.int32),
+    # a host count becomes a CPU tensor; a device count stays where it is
+    # (no sync)
+    aux = StepAux(res.gmu, res.q2,
+                  torch.as_tensor(out.size, dtype=torch.int32),
+                  torch.as_tensor(out.waves, dtype=torch.int32),
                   res.greedy_steps)
     return new_state, aux
 
@@ -250,6 +254,18 @@ def stack_aux(auxes: list[StepAux]) -> StepAux:
     return StepAux(*(torch.stack(field) for field in zip(*auxes)))
 
 
+def _empty_aux(cfg: AFMConfig, device) -> StepAux:
+    """The stacked aux of zero steps: each field with a zero-length step
+    axis and the dtype and trailing shape of a step's."""
+    b = cfg.batch
+    return StepAux(
+        gmu=torch.zeros((0, b), dtype=torch.int32, device=device),
+        q2=torch.zeros((0, b), dtype=torch.float32, device=device),
+        cascade_size=torch.zeros((0,), dtype=torch.int32, device=device),
+        waves=torch.zeros((0,), dtype=torch.int32, device=device),
+        greedy_steps=torch.zeros((0, b), dtype=torch.int32, device=device))
+
+
 def train(state: AFMState, data: torch.Tensor, draws, cfg: AFMConfig,
           num_steps: int | None = None, stages: Stages = DEFAULT_STAGES
           ) -> tuple[AFMState, StepAux]:
@@ -257,11 +273,15 @@ def train(state: AFMState, data: torch.Tensor, draws, cfg: AFMConfig,
 
     data: (num_samples, D), sampled with replacement: each step draws
     ``randint(0, num_samples, (B,))`` indices before its own draws.
-    Returns the final state and the per-step aux stacked.
+    Returns the final state and the per-step aux stacked. Zero steps return
+    the state as it is and an aux with a zero-length step axis, as JAX's
+    ``lax.scan`` does.
     """
     num_steps = cfg.num_steps if num_steps is None else num_steps
-    if num_steps < 1:
-        raise ValueError(f"num_steps must be positive, got {num_steps}")
+    if num_steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+    if num_steps == 0:
+        return state, _empty_aux(cfg, state.w.device)
     auxes = []
     for _ in range(num_steps):
         idx = draws.randint(0, data.shape[0], (cfg.batch,))

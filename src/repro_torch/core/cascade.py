@@ -33,8 +33,11 @@ import torch
 class CascadeResult(NamedTuple):
     w: torch.Tensor   # (side, side, D) adapted weights
     c: torch.Tensor   # (side, side) int32 counters
-    size: int         # number of firing incidents a_i (counted on the host)
-    waves: int        # number of parallel waves
+    size: int | torch.Tensor   # number of firing incidents a_i: a host
+                               # int from ``cascade``, a 0-d int32 tensor on
+                               # the weights' device from the kernel stage
+                               # (``kernels.cascade.ops.drive_cascade_stage``)
+    waves: int | torch.Tensor  # number of parallel waves (as size)
 
 
 def _shift_sum(x: torch.Tensor) -> torch.Tensor:

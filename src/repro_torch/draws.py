@@ -9,18 +9,19 @@ which the JAX step consumes its key chain:
 2. drive: ``uniform((8, side, side))``;
 3. each cascade wave: ``uniform((4, side, side))``.
 
-The fused step (``kernels.fused.ops``, ``TopoMap(backend="kernel",
-backend_options={"kernel": "fused"})``) takes its cascade draws as one block:
-after 1 and 2 it draws **one** ``uniform((wave_cap, 4, side, side))`` for
-the first ``wave_cap`` waves (all of them, however many run), then one
-``uniform((4, side, side))`` per wave of a cascade that outlives the block.
-In JAX each wave's draw depends only on its position in the key chain, so
-a replay stacks JAX's first ``wave_cap`` per-wave draws into that block and
-both step flavours see the same numbers. A ``GeneratorDraws`` stream,
-however, is consumed differently: the fused path draws ``wave_cap`` waves
-where the staged path draws as many as ran, so after the first step the
-two flavours train on different random numbers (the CPU and the CUDA fused
-paths consume them identically).
+The kernel backend's steps (``TopoMap(backend="kernel")``, staged or
+fused: ``kernels.cascade.ops.drive_cascade_stage`` and
+``kernels.fused.ops.fused_step_parts``) take their cascade draws as one
+block: after 1 and 2 they draw **one** ``uniform((wave_cap, 4, side,
+side))`` for the first ``wave_cap`` waves (all of them, however many run),
+then one ``uniform((4, side, side))`` per wave of a cascade that outlives
+the block. In JAX each wave's draw depends only on its position in the key
+chain, so a replay stacks JAX's first ``wave_cap`` per-wave draws into that
+block and the port's steps see JAX's numbers. From one ``GeneratorDraws``
+seed the staged and fused kernel paths consume the stream identically
+(and so do their CPU and CUDA versions), so the same seed trains both on
+the same draws. The plain backends (``reference``, ``batched``) draw one
+``uniform((4, side, side))`` per wave that runs, as 3 says.
 
 ``afm.train`` draws ``randint(0, num_samples, (B,))`` sample indices before
 each step. LM serving (``serving.serve_step``) draws one ``gumbel((B, V))``

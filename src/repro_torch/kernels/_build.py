@@ -37,6 +37,13 @@ SIGNATURES = {
     "repro_bmu": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # c, fired, bern, side, theta, c_out, fired_out, recv_out, stream
     "repro_cascade_wave": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # n, d, plan (int32[5] from cascade ops.CascadePlan.c_array), out
+    # (int32[2]: SMs, shared bytes a block may opt into)
+    "repro_cascade_plan": [_I, _I, _P, _P],
+    # w, c, counts, drive, bern, side, d, theta, budget, l_c, w_out, c_out,
+    # fired_out, stats_out, recv_out, plan (int32[5]), stream
+    "repro_drive_cascade": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
+                            _P, _P, _P, _P, _P],
     # n, d, b, plan (int32[8] from fused ops.Plan.c_array), out (int32[3]:
     # SMs, shared bytes a block may opt into, blocks that fit at once)
     "repro_fused_plan": [_I, _I, _I, _P, _P],

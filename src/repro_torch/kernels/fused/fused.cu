@@ -56,21 +56,17 @@
 //    same inputs, and ties go to the lowest index for any split count.
 // 3. The Eq. 3 merge touches only the hit units, a thread a (first sample
 //    of a GMU, feature): it sums that GMU's samples in sample order, then
-//    w + l_s (mean - w). The drive adds its draws and lists the first
-//    front; the edge mask of each site is stored once, so the waves do no
-//    integer division.
-// 4. Waves, in work proportional to the front, two barriers each. Push: a
-//    thread a (fired site, direction) adds one receipt, and its draw, to
-//    the neighbour's packed count (shared-memory integer atomics: any order
-//    gives the same sums) and lists the sites that receive. Update: a
-//    thread a receiver sets its counter (in place: no site reads another's
-//    counter) and lists the next front; a thread a (site, feature) pair
-//    updates the weights. While every weight is steady, a site that
-//    receives nothing keeps its weights bit for bit (w + l_c (±0 - 0 w) is
-//    w), so only the receivers' pairs are updated, and last wave's
-//    receivers copied into the new buffer; a weight that is not steady
-//    sends every later wave back to updating every pair. Waves past the
-//    staged ones read their draws from device memory.
+//    w + l_s (mean - w). The edge mask of each site is stored once, so the
+//    waves do no integer division.
+// 4. The drive, the waves in work proportional to the front and the
+//    outputs: runtime/wave_loop.cuh, the code cascade.cu's drive_cascade
+//    (the staged step's drive and cascade) runs too, so the two give the
+//    same bits for the same merged W, counters and draws. While every
+//    weight is steady (finite, not -0), a site that receives nothing keeps
+//    its weights bit for bit and only the receivers' pairs are updated; a
+//    weight that is not steady sends every later wave back to updating
+//    every pair. Waves past the staged ones read their draws from device
+//    memory.
 // W is written out of place, so the bf16 polish reads the winners' input
 // rows after the barrier while other blocks write their slices. The merge
 // and wave updates use _rn intrinsics in the plain version's op order (no
@@ -83,6 +79,7 @@
 #include <stdint.h>
 
 #include "../runtime/search.cuh"
+#include "../runtime/waves.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -90,7 +87,12 @@ namespace {
 
 using repro::ROW_KC;
 using repro::ROW_SAMPLES;
+using repro::cp_async4;
+using repro::cp_async_commit;
+using repro::cp_async_wait_all;
 using repro::smem_addr;
+using repro::stage_bytes;
+using repro::steady;
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
@@ -188,48 +190,6 @@ __host__ __device__ inline Layout layout(int n, int b, int d, int ds,
   return l;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-// 16 bytes, of which the first `bytes` are read and the rest zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// `bytes` bytes from global memory into a 16-byte aligned shared region of
-// at least the next multiple of 16, by threads t (0 <= t < nth):
-// asynchronous 16-byte copies where the source is 16-byte aligned, 4-byte
-// ones where it and the size are 4-byte aligned, plain copies otherwise
-// (visible after the next barrier either way)
-__device__ __forceinline__ void stage_bytes(void* dst, const void* src,
-                                            int bytes, int t, int nth) {
-  unsigned char* d8 = static_cast<unsigned char*>(dst);
-  const unsigned char* s8 = static_cast<const unsigned char*>(src);
-  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
-  if ((at & 15) == 0) {
-    for (int i = 16 * t; i < bytes; i += 16 * nth)
-      cp_async16(d8 + i, s8 + i, min(16, bytes - i));
-  } else if ((at & 3) == 0 && (bytes & 3) == 0) {
-    for (int i = 4 * t; i < bytes; i += 4 * nth) cp_async4(d8 + i, s8 + i);
-  } else {
-    for (int i = t; i < bytes; i += nth) d8[i] = s8[i];
-  }
-}
-
 // one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned),
 // completing on the mbarrier `bar`
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
@@ -269,40 +229,6 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
-// a weight the sparse waves can leave as it is: finite, and not -0 (for
-// such a w, w + l_c * (±0 - 0 * w) is w bit for bit, with l_c finite, and
-// a non-finite l_c makes the first wave's weights non-finite; -0 turns
-// into +0)
-__device__ __forceinline__ bool steady(float w) {
-  return isfinite(w) && __float_as_uint(w) != 0x80000000u;
-}
-
-// The weight update of feature f of site u in wave k, in the plain
-// version's op order, from `wa` into `wb`: a neighbour broadcasts when it
-// fired in wave k (fgen == k); m is u's edge mask. Returns whether the new
-// value is steady.
-__device__ __forceinline__ bool update(const float* wa, float* wb,
-                                       const int32_t* fgen, int k, int n,
-                                       int side, int u, int f, int m,
-                                       float l_c) {
-  const int below = (m & 1) ? (fgen[u + side] == k) : 0;
-  const int above = (m & 2) ? (fgen[u - side] == k) : 0;
-  const int right = (m & 4) ? (fgen[u + 1] == k) : 0;
-  const int left = (m & 8) ? (fgen[u - 1] == k) : 0;
-  const int nr = below + above + right + left;
-  const float* col = wa + f * n;
-  const float up = (m & 1) ? __fmul_rn(col[u + side], below ? 1.f : 0.f) : 0.f;
-  const float dn = (m & 2) ? __fmul_rn(col[u - side], above ? 1.f : 0.f) : 0.f;
-  const float lf = (m & 4) ? __fmul_rn(col[u + 1], right ? 1.f : 0.f) : 0.f;
-  const float rt = (m & 8) ? __fmul_rn(col[u - 1], left ? 1.f : 0.f) : 0.f;
-  const float sum = __fadd_rn(__fadd_rn(__fadd_rn(up, dn), lf), rt);
-  const float wv = col[u];
-  const float out = __fadd_rn(
-      wv, __fmul_rn(l_c, __fsub_rn(sum, __fmul_rn((float)nr, wv))));
-  wb[f * n + u] = out;
-  return steady(out);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: every lane ends with the same bits
 #pragma unroll
@@ -334,23 +260,6 @@ __device__ void search_split(const Params& p, float* s_tile,
     }
   }
 }
-
-// pairs (u, f) of a slice of nf features, f fastest (a warp reads or writes
-// a few 24-byte runs of rows), for thread t of nth, without a division a
-// pair
-#define FOR_PAIRS(n, nf, t, nth, BODY)                     \
-  {                                                        \
-    const int du_ = (nth) / (nf), df_ = (nth) - du_ * (nf); \
-    for (int u = (t) / (nf), f = (t) % (nf); u < (n);) {   \
-      BODY;                                                \
-      u += du_;                                            \
-      f += df_;                                            \
-      if (f >= (nf)) {                                     \
-        f -= (nf);                                         \
-        ++u;                                               \
-      }                                                    \
-    }                                                      \
-  }
 
 __global__ void __launch_bounds__(THREADS, 1)
 fused_kernel(const __grid_constant__ Params p) {
@@ -436,7 +345,7 @@ fused_kernel(const __grid_constant__ Params p) {
   } else if (nf > 0) {
     const int t = tid - t0;
     if (!p.tma_w)
-      FOR_PAIRS(n, nf, t, nth, cp_async4(wa + f * n + u,
+      REPRO_FOR_PAIRS(n, nf, t, nth, cp_async4(wa + f * n + u,
                                          p.w + static_cast<size_t>(u) * d + f0 + f));
     for (int e = t; e < b * nf; e += nth) {
       const int bi = e / nf, f = e - bi * nf;
@@ -449,8 +358,7 @@ fused_kernel(const __grid_constant__ Params p) {
       stage_bytes(smem + lay.draws, p.bern, draw_bytes, t, nth);
     }
     cp_async_commit();
-    // the sites' state, and their edge masks (1 a row below, 2 a row above,
-    // 4 a column right, 8 a column left)
+    // the sites' state, and their edge masks
     for (int u = t; u < n; u += nth) {
       cnt[u] = 0;
       recv[u] = 0;
@@ -458,9 +366,7 @@ fused_kernel(const __grid_constant__ Params p) {
       fgen[u] = -1;   // fired in no wave
       acc[u] = 0;
       acc[n + u] = 0;
-      const int r = u / side, col = u - r * side;
-      nbr[u] = (r + 1 < side) | ((r > 0) << 1) | ((col + 1 < side) << 2) |
-               ((col > 0) << 3);
+      nbr[u] = repro::edge_mask(u, side);
     }
     // the copies landed: this thread's pairs of the slice (from the TMA's
     // unit-major boxes, or already in place) into both weight buffers, and
@@ -476,7 +382,7 @@ fused_kernel(const __grid_constant__ Params p) {
     }
     if (p.tma_w) {
       const int rows = w_rows(n);
-      FOR_PAIRS(n, nf, t, nth, {
+      REPRO_FOR_PAIRS(n, nf, t, nth, {
         const int x = shift + f;
         const float v = wbox[(static_cast<size_t>(x / W_BOX_COLS) * rows + u) *
                                  W_BOX_COLS + x % W_BOX_COLS];
@@ -485,7 +391,7 @@ fused_kernel(const __grid_constant__ Params p) {
         clean &= steady(v);
       });
     } else {
-      FOR_PAIRS(n, nf, t, nth, {
+      REPRO_FOR_PAIRS(n, nf, t, nth, {
         const float v = wa[f * n + u];
         wb[f * n + u] = v;
         clean &= steady(v);
@@ -587,123 +493,8 @@ fused_kernel(const __grid_constant__ Params p) {
     wb[f * n + u] = out;
     clean &= steady(out);
   }
-  for (int u = THREADS - 1 - tid; u < n; u += THREADS) {   // from the top
-    const int k = min(cnt[u], 8);
-    int inc = 0;
-    for (int j = 0; j < k; ++j) inc += drive[j * n + u] != 0;
-    const int cv = c[u] + inc;
-    c[u] = cv;
-    if (cv >= p.theta) fronts[atomicAdd(&n_front[0], 1)] = u;
-  }
-  if (!clean) *dirty = 1;
-  __syncthreads();
-
-  // ---- 4. waves, until the front is empty or the budget is spent
-  int size = 0, waves = 0;
-  while (n_front[waves & 1] > 0 && waves < p.budget) {
-    const int k = waves;
-    const int nfront = n_front[k & 1];
-    const uint16_t* front = fronts + (k & 1) * n;
-    uint16_t* next_front = fronts + ((k + 1) & 1) * n;
-    uint16_t* cur = receivers + (k & 1) * n;        // receivers of wave k
-    const uint16_t* prev = receivers + ((k + 1) & 1) * n;   // of wave k - 1
-    int32_t* acc_k = acc + (k & 1) * n;
-    const uint8_t* bw =
-        (k < staged ? draws : p.bern) + static_cast<size_t>(k) * 4 * n;
-    // the flag is read before the barrier after which it may change
-    const bool full = *dirty != 0;
-    size += nfront;
-    // push: a fired site v sends to the site above it (for which v is
-    // below: slot 0), below it (slot 1), left of it (slot 2), right of it
-    // (slot 3); a receipt adds 1 to the packed count, a draw 256
-    for (int e = tid; e < 4 * nfront; e += THREADS) {
-      const int v = front[e >> 2], dir = e & 3;
-      const int m = nbr[v];
-      if (dir == 0) fgen[v] = k;
-      if (!(m & (dir == 0 ? 2 : dir == 1 ? 1 : dir == 2 ? 8 : 4))) continue;
-      const int u = dir == 0 ? v - side : dir == 1 ? v + side
-                  : dir == 2 ? v - 1 : v + 1;
-      const int add = 1 + (bw[dir * n + u] != 0 ? 256 : 0);
-      if (atomicAdd(&acc_k[u], add) == 0)
-        cur[atomicAdd(&n_recv[k % 3], 1)] = u;
-    }
-    // last wave's receipts are read: clear them for wave k + 1 (threads
-    // from the top, so the few pushes and these run side by side)
-    for (int i = THREADS - 1 - tid; i < n_recv[(k + 2) % 3]; i += THREADS)
-      acc[((k + 1) & 1) * n + prev[i]] = 0;
-    if (tid == 0) {
-      n_front[(k + 1) & 1] = 0;
-      n_recv[(k + 1) % 3] = 0;
-    }
-    __syncthreads();
-    // update: counters of the receivers (in place) and of the fired sites
-    // that receive nothing (reset), the next front, and the weights; the
-    // three lists start at different threads
-    const int nrc = n_recv[k % 3];
-    for (int i = tid; i < nrc; i += THREADS) {
-      const int u = cur[i];
-      const int a = acc_k[u], nr = a & 255;
-      const int cv = (fgen[u] == k ? 0 : c[u]) + (a >> 8);
-      c[u] = cv;
-      recv[u] += nr;
-      if (cv >= p.theta) next_front[atomicAdd(&n_front[(k + 1) & 1], 1)] = u;
-    }
-    for (int i = THREADS - 1 - tid; i < nfront; i += THREADS) {
-      const int v = front[i];
-      if (acc_k[v] == 0) c[v] = 0;
-    }
-    bool fresh = true;
-    if (full) {
-      FOR_PAIRS(n, nf, tid, THREADS,
-                fresh &= update(wa, wb, fgen, k, n, side, u, f, nbr[u],
-                                p.l_c));
-    } else {
-      const int npr = n_recv[(k + 2) % 3];
-      for (int e = (tid + THREADS / 2) % THREADS; e < (nrc + npr) * nf;
-           e += THREADS) {
-        const int i = e / nf, f = e - i * nf;
-        if (i < nrc) {
-          const int u = cur[i];
-          fresh &= update(wa, wb, fgen, k, n, side, u, f, nbr[u], p.l_c);
-        } else {
-          const int u = prev[i - nrc];
-          if (acc_k[u] == 0) wb[f * n + u] = wa[f * n + u];
-        }
-      }
-    }
-    if (!fresh) *dirty = 1;
-    float* tw = wa; wa = wb; wb = tw;
-    ++waves;
-    __syncthreads();
-  }
-
-  // ---- outputs: the slice, and the lattices, each from another of the
-  // blocks that own features (each holds the whole cascade's state)
-  if (p.out2) {   // two features a store
-    FOR_PAIRS(n, nf / 2, tid, THREADS,
-              *reinterpret_cast<float2*>(p.w_out + static_cast<size_t>(u) * d +
-                                         f0 + 2 * f) =
-                  make_float2(wa[2 * f * n + u], wa[(2 * f + 1) * n + u]));
-  } else {
-    FOR_PAIRS(n, nf, tid, THREADS,
-              p.w_out[static_cast<size_t>(u) * d + f0 + f] = wa[f * n + u]);
-  }
-  const int owners = (d + ds - 1) / ds;
-  if (g == 0) {
-    const uint16_t* front = fronts + (waves & 1) * n;
-    for (int i = tid; i < n_front[waves & 1]; i += THREADS)
-      fgen[front[i]] = waves;   // the front left after the last wave
-    __syncthreads();
-    for (int u = tid; u < n; u += THREADS) p.fired_out[u] = fgen[u] == waves;
-    if (tid == 0) {   // every thread counted every front
-      p.stats_out[0] = size;
-      p.stats_out[1] = waves;
-    }
-  }
-  if (g == 1 % owners)
-    for (int u = tid; u < n; u += THREADS) p.c_out[u] = c[u];
-  if (g == 2 % owners)
-    for (int u = tid; u < n; u += THREADS) p.recv_out[u] = recv[u];
+  // the drive, the waves and the outputs, as drive_cascade runs them
+#include "../runtime/wave_loop.cuh"
 }
 
 // the plan as ops.plan passes it (int32[8]): blocks, features a block,

@@ -9,10 +9,12 @@ for CUDA tensors, with no fallback between the two.
 (``uniform((8, side, side))``) and then **one** block of wave draws
 (``uniform((wave_cap, 4, side, side))``) from the draw source, runs
 ``fused_step``, and finishes a cascade that outlives the block with a tail
-``wave_loop`` that draws ``uniform((4, side, side))`` per wave. Those are the
-JAX key chain's positions, so a replay of JAX's draws feeds both packages
-the same numbers. Deciding whether a tail is needed reads the front back
-once per step, and only when ``max_waves`` exceeds ``wave_cap``.
+loop that draws ``uniform((4, side, side))`` per wave (``kernels.cascade.
+ops.draw_block`` and ``finish_tail``, which the staged step's cascade stage
+runs too). Those are the JAX key chain's positions, so a replay of JAX's
+draws feeds both packages the same numbers. Deciding whether a tail is
+needed reads the front back once per step, and only when ``max_waves``
+exceeds ``wave_cap``.
 ``make_fused_stage`` adapts the op to the ``afm.Stages.fused`` seam.
 """
 from __future__ import annotations
@@ -28,11 +30,8 @@ from repro_torch.core import afm as afm_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels.bmu.ops import PRECISIONS
 from repro_torch.kernels.cascade import ops as cascade_ops
+from repro_torch.kernels.cascade.ops import DEFAULT_WAVE_CAP, wave_budget
 from repro_torch.kernels.fused import ref
-
-#: Default wave budget of one launch; deeper cascades continue in the tail
-#: loop on the same draws, so this is a speed knob, not a semantic one.
-DEFAULT_WAVE_CAP = 16
 
 #: kernel launches made by ``fused_step`` (CPU calls do not count)
 launches = 0
@@ -48,12 +47,6 @@ class FusedStep(NamedTuple):
     size: torch.Tensor    # () i32
     waves: torch.Tensor   # () i32
     recv: torch.Tensor    # (N,) i32 per-unit broadcast receipts
-
-
-def wave_budget(cfg) -> int:
-    """The step's wave bound (``None`` -> 8·side²), as ``core.cascade``."""
-    return (8 * cfg.side * cfg.side if cfg.max_waves is None
-            else cfg.max_waves)
 
 
 THREADS = 512                 # threads a block, as fused.cu is built
@@ -310,11 +303,10 @@ def fused_step_parts(w, c, samples, draws, cfg, *, l_c: float, p_i: float,
                          f"{precision!r}")
     if wave_cap < 1:
         raise ValueError(f"wave_cap must be positive, got {wave_cap}")
-    side, d, theta = cfg.side, cfg.dim, cfg.theta
+    side, theta = cfg.side, cfg.theta
     b = samples.shape[0]
     max_waves = wave_budget(cfg)
-    drive = draws.uniform((8, side, side)) < p_i
-    bern = draws.uniform((wave_cap, 4, side, side)) < p_i
+    drive, bern = cascade_ops.draw_block(draws, side, p_i, wave_cap)
     budget = min(wave_cap, max_waves)
     gmu = None if search_result is None else \
         search_result.gmu.to(torch.int32).contiguous()
@@ -329,14 +321,9 @@ def fused_step_parts(w, c, samples, draws, cfg, *, l_c: float, p_i: float,
         q2, greedy = search_result.q2, search_result.greedy_steps
     if recv0 is not None:
         recv = recv + recv0.reshape(side, side)
-    size, waves = stats[0], stats[1]
-    # a non-empty front after the kernel means it ran all ``budget`` waves
-    if budget < max_waves and bool(fired.any()):     # the step's host sync
-        w3, ck, size, waves, recv = ref.wave_loop(
-            wk.reshape(side, side, d), ck, fired, draws, l_c=l_c, p_i=p_i,
-            theta=theta, max_waves=max_waves, size0=size, waves0=budget,
-            recv0=recv, wave_fn=cascade_ops.cascade_wave)
-        wk = w3.reshape(-1, d)
+    wk, ck, size, waves, recv = cascade_ops.finish_tail(
+        wk, ck, fired, stats, recv, draws, l_c=l_c, p_i=p_i, theta=theta,
+        budget=budget, max_waves=max_waves)
     return FusedStep(wk, ck.reshape(-1), gmu, q2, greedy, size, waves,
                      recv.reshape(-1))
 

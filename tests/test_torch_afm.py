@@ -19,8 +19,9 @@ from repro.core import afm as jafm
 from repro_torch.api import backends as tbackends
 from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.core import afm as tafm
-from torch_parity import (F32_EPS, assert_bmu_tier, jax_cfg, replay,
-                          step_draws, t, torch_cfg, train_draws)
+from repro_torch.kernels.cascade.ops import DEFAULT_WAVE_CAP
+from torch_parity import (F32_EPS, assert_bmu_tier, fused_step_draws,
+                          jax_cfg, replay, t, torch_cfg, train_draws)
 
 # c_m = 1 raises the cascade probability p_i to ~0.8, for more cascades
 CFG = dict(side=6, dim=12, e_factor=0.5, i_max=2000, c_m=1.0)
@@ -51,7 +52,9 @@ def _assert_w_close(w, w_ref, adaptations):
 def test_step_matches_jax(search, b):
     """One ``_step`` through the kernel backend's stages (plain versions on
     the CPU) against JAX's staged step, from three keys; at least one of
-    them must set off a cascade."""
+    them must set off a cascade. The kernel backend's cascade stage takes
+    its wave draws as one block of ``DEFAULT_WAVE_CAP`` waves (then one per
+    tail wave): JAX's per-wave draws, stacked."""
     kw = dict(CFG, batch=b)
     jcfg, tcfg = jax_cfg(**kw), torch_cfg(**kw)
     data = _data(64, jcfg.dim, seed=b)
@@ -65,9 +68,10 @@ def test_step_matches_jax(search, b):
     for seed in range(3):
         key = jax.random.PRNGKey(10 * b + seed)
         jnew, jaux = jstep(jstate, jnp.asarray(samples), key)
-        draws = replay(step_draws(key, jcfg, b,
-                                  heuristic=search == "heuristic",
-                                  waves=int(jaux.waves)))
+        draws = replay(fused_step_draws(key, jcfg, b,
+                                        heuristic=search == "heuristic",
+                                        wave_cap=DEFAULT_WAVE_CAP,
+                                        waves=int(jaux.waves)))
         tnew, taux = tafm._step(state_from_numpy(jstate, device="cpu"),
                                 t(samples), draws, tcfg, stages)
         assert len(draws) == 0
@@ -128,6 +132,36 @@ def test_train_matches_jax(search):
                                       np.asarray(getattr(jaux, field)))
     np.testing.assert_array_equal(tnew.c.numpy(), np.asarray(jnew.c))
     _assert_w_close(tnew.w, jnew.w, 3 + int(np.sum(jaux.waves)))
+
+
+@pytest.mark.parametrize("search", ["exact", "heuristic"])
+def test_train_zero_steps_matches_jax(search):
+    """``train`` with ``num_steps=0``: JAX's ``lax.scan`` runs no step and
+    returns the state as it was and an aux with a zero-length step axis;
+    the port returns the same state and an aux of the same shapes and
+    dtypes, and draws nothing."""
+    kw = dict(CFG, batch=3)
+    jcfg, tcfg = jax_cfg(**kw), torch_cfg(**kw)
+    data = _data(20, jcfg.dim, seed=2)
+    jstate = _jax_state(jcfg, seed=4, data=data)
+    jstages = jafm.EXACT_STAGES if search == "exact" else jafm.DEFAULT_STAGES
+    jnew, jaux = jafm.train(jstate, jnp.asarray(data), jax.random.PRNGKey(0),
+                            jcfg, num_steps=0, stages=jstages)
+    tstages = tafm.EXACT_STAGES if search == "exact" else tafm.DEFAULT_STAGES
+    draws = replay([])
+    tnew, taux = tafm.train(state_from_numpy(jstate, device="cpu"), t(data),
+                            draws, tcfg, num_steps=0, stages=tstages)
+    for field in ("w", "c", "far", "near"):
+        np.testing.assert_array_equal(getattr(tnew, field).numpy(),
+                                      np.asarray(getattr(jnew, field)))
+    assert tnew.i == int(jnew.i)
+    for field in taux._fields:
+        got, want = getattr(taux, field), np.asarray(getattr(jaux, field))
+        assert tuple(got.shape) == want.shape, field
+        assert got.numpy().dtype == want.dtype, field
+    assert taux.gmu.shape == (0, 3)
+    with pytest.raises(ValueError, match="num_steps"):
+        tafm.train(tnew, t(data), draws, tcfg, num_steps=-1)
 
 
 def test_state_numpy_round_trip():

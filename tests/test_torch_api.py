@@ -8,7 +8,9 @@ JAX package's, on the CPU.
   (measured over 16 seeds: QE sd 0.4 %, TE sd 0.06, accuracy sd 0.02); each
   side averages two seeds and the tolerance is about 3 sd of the difference.
 - bitwise: ``reference`` == ``batched`` at B = 1, and the ``kernel`` backend
-  == exact-search ``batched`` on the CPU (same draws, same arithmetic).
+  == exact-search ``batched`` on the CPU (same arithmetic, and the same
+  numbers: ``batched`` draws one array a wave, the kernel backend the first
+  16 waves' as one block, so its run replays ``batched``'s stacked).
 - metrics and classifier from one JAX-trained state: ULP / bitwise tiers.
 """
 import jax
@@ -26,7 +28,8 @@ from repro_torch.api import TopoMap, available_backends, get_backend
 from repro_torch.convert import state_from_numpy
 from repro_torch.core import classifier as tclf
 from repro_torch.core import metrics as tmetrics
-from repro_torch.draws import GeneratorDraws
+from repro_torch.draws import GeneratorDraws, ReplayDraws
+from repro_torch.kernels.cascade.ops import DEFAULT_WAVE_CAP
 from torch_parity import (F32_EPS, jax_cfg, replay, search_draws, t,
                           torch_cfg)
 
@@ -74,12 +77,86 @@ def test_reference_matches_batched_b1_bitwise():
     assert torch.equal(w_ref, w_bat)
 
 
+class _Recorder(GeneratorDraws):
+    """A ``GeneratorDraws`` that keeps every array it hands out."""
+
+    def __init__(self, seed):
+        super().__init__(seed, device="cpu")
+        self.log = []
+
+    def _keep(self, x):
+        self.log.append(x.numpy().copy())
+        return x
+
+    def randint(self, low, high, shape):
+        return self._keep(super().randint(low, high, shape))
+
+    def uniform(self, shape):
+        return self._keep(super().uniform(shape))
+
+    def normal(self, shape):
+        return self._keep(super().normal(shape))
+
+    def gumbel(self, shape):
+        return self._keep(super().gumbel(shape))
+
+
+def _as_blocks(log, waves, side, cap=DEFAULT_WAVE_CAP):
+    """A per-wave draw log in the kernel backend's order: after each step's
+    drive ``(8, side, side)``, its first ``cap`` wave draws stacked into one
+    block (padded with draws no wave reads), then the rest one a wave."""
+    out, it, steps = [], iter(log), iter(waves)
+    for x in it:
+        out.append(x)
+        if x.shape != (8, side, side):
+            continue
+        per_wave = [next(it) for _ in range(int(next(steps)))]
+        pad = [np.ones((4, side, side), np.float32)] * max(0, cap - len(
+            per_wave))
+        out += [np.stack((per_wave + pad)[:cap])] + per_wave[cap:]
+    assert next(steps, None) is None
+    return out
+
+
 def test_kernel_backend_matches_exact_batched_bitwise():
+    """``batched`` with exact search fits first on a recording draw source;
+    the kernel backend then replays the same numbers, its wave draws
+    stacked from the wave counts that fit recorded: the weights agree bit
+    for bit, and the replay is used up."""
     cfg = torch_cfg(**dict(SMALL, batch=4))
-    w_k = TopoMap(cfg, backend="kernel", device="cpu", seed=3).fit(XTR).state_.w
-    w_b = TopoMap(cfg, backend="batched", backend_options={"search": "exact"},
-                  device="cpu", seed=3).fit(XTR).state_.w
-    assert torch.equal(w_k, w_b)
+    rec = _Recorder(3)
+    tb = TopoMap(cfg, backend="batched", backend_options={"search": "exact"},
+                 device="cpu").fit(XTR, draws=rec)
+    waves = tb.fit_aux_.waves.numpy()
+    assert waves.max() > 0
+    replay_k = ReplayDraws(_as_blocks(rec.log, waves, cfg.side))
+    tk = TopoMap(cfg, backend="kernel", device="cpu").fit(XTR, draws=replay_k)
+    assert len(replay_k) == 0
+    np.testing.assert_array_equal(tk.fit_aux_.waves.numpy(), waves)
+    assert torch.equal(tk.state_.w, tb.state_.w)
+
+
+@pytest.mark.parametrize("backend", ["batched", "reference", "kernel"])
+def test_fit_zero_steps_matches_jax(backend):
+    """``TopoMap.fit(num_steps=0)``: as JAX's, the initial map and a
+    per-step aux with no steps, of the reference's shapes and dtypes."""
+    cfg = dict(side=4, dim=16, batch=2)
+    jaux = JTopoMap(jax_cfg(**cfg), backend="batched").fit(
+        XTR[:50], num_steps=0).fit_aux_
+    tm = TopoMap(torch_cfg(**cfg), backend=backend, device="cpu", seed=1)
+    tm.fit(XTR[:50], YTR[:50], num_steps=0)
+    init = tm.backend.init(GeneratorDraws(1, device="cpu"), tm._tensor(
+        XTR[:50]))
+    assert torch.equal(tm.state_.w, init.w) and tm.state_.i == 0
+    b = 1 if backend == "reference" else 2
+    assert tm.fit_aux_.gmu.shape == (0, b)
+    for field in jaux._fields:
+        got, want = getattr(tm.fit_aux_, field), np.asarray(
+            getattr(jaux, field))
+        assert got.shape[0] == want.shape[0] == 0, field
+        assert got.shape[1:] == want.shape[1:] or backend == "reference"
+        assert got.numpy().dtype == want.dtype, field
+    assert tm.predict(XTE[:5]).shape == (5,)
 
 
 def test_kernel_backend_options():

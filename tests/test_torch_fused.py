@@ -34,10 +34,10 @@ from repro_torch.api.backends import get_backend
 from repro_torch.convert import state_from_numpy
 from repro_torch.core import afm as tafm
 from repro_torch.core import search as tsearch
+from repro_torch.kernels.cascade import ref as cas_ref
 from repro_torch.kernels.fused import ops as fused_ops
-from repro_torch.kernels.fused import ref as fused_ref
 from torch_parity import (F32_EPS, assert_bmu_tier, cascade_draws,
-                          fused_step_draws, jax_cfg, replay, step_draws, t,
+                          fused_step_draws, jax_cfg, replay, t,
                           torch_cfg)
 
 #: (side, d, b, theta, max_waves) of ``test_kernels_properties.py``'s fused
@@ -147,7 +147,7 @@ def test_wave_loop_continues_with_seeded_accumulators():
         key, sub = jax.random.split(key)
         draws.append(jax.random.uniform(sub, (4, side, side)))
     rd = replay(draws)
-    tw, tc, tsize, twaves, trecv = fused_ref.wave_loop(
+    tw, tc, tsize, twaves, trecv = cas_ref.wave_loop(
         t(w3), t(c2), t(fired), rd, size0=7, waves0=4, recv0=t(recv0),
         **{k: float(v) if k in ("l_c", "p_i") else v for k, v in kw.items()})
     assert len(rd) == 0 and n_tail > 0
@@ -164,7 +164,7 @@ def test_drive_from_draws_matches_jax():
     mask = rng.integers(0, 11, (7, 7)).astype(np.int32)
     draws = rng.random((8, 7, 7)) < 0.5
     np.testing.assert_array_equal(
-        fused_ref.drive_from_draws(t(c2), t(mask), t(draws)).numpy(),
+        cas_ref.drive_from_draws(t(c2), t(mask), t(draws)).numpy(),
         np.asarray(jfused_ref.drive_from_draws(
             jnp.asarray(c2), jnp.asarray(mask), jnp.asarray(draws))))
 
@@ -232,10 +232,11 @@ def test_fused_topomap_matches_jax_pallas_fused_backend():
 @pytest.mark.parametrize("wave_cap,max_waves", [(4, None), (16, 3)])
 def test_fused_matches_staged_step(search, wave_cap, max_waves):
     """Port fused step against port staged step on the CPU, from one state,
-    on JAX's draws: the staged step takes the waves one at a time, the
-    fused step the first ``wave_cap`` stacked and the rest in its tail;
-    with a tail (``wave_cap`` 4) and with ``max_waves`` 3 < ``wave_cap``.
-    Integers bitwise, w within the step bound."""
+    on JAX's draws: the staged step takes the first ``DEFAULT_WAVE_CAP``
+    waves stacked and the rest in its tail, the fused step the first
+    ``wave_cap`` stacked and the rest in its tail; with a tail (``wave_cap``
+    4) and with ``max_waves`` 3 < ``wave_cap``. Integers bitwise, w within
+    the step bound."""
     kw = _hot_cfg(6, 12, 4, 3, max_waves=max_waves)
     jcfg, tcfg = jax_cfg(**kw), torch_cfg(**kw)
     rng = np.random.default_rng(6)
@@ -251,9 +252,10 @@ def test_fused_matches_staged_step(search, wave_cap, max_waves):
     for step in range(3):
         key = jax.random.PRNGKey(200 + step)
         samples = t(data[step * 4:step * 4 + 4])
-        long = step_draws(key, jcfg, 4, heuristic=search == "heuristic",
-                          waves=8 * tcfg.n_units)
-        sd = replay(long)
+        sd = replay(fused_step_draws(key, jcfg, 4,
+                                     heuristic=search == "heuristic",
+                                     wave_cap=fused_ops.DEFAULT_WAVE_CAP,
+                                     waves=8 * tcfg.n_units))
         snew, saux = tafm._step(state, samples, sd, tcfg, staged)
         waves = int(saux.waves)
         fd = replay(fused_step_draws(key, jcfg, 4,

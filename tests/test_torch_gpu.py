@@ -127,14 +127,167 @@ def test_cascade_kernel_bitwise(cuda, side):
 
 
 def test_kernel_backend_fits_on_the_card(cuda):
+    """The staged path: a bmu search and one drive_cascade launch a step,
+    cascade_wave only for the waves past the 16-wave block."""
     rng = np.random.default_rng(0)
     x = rng.random((500, 24), dtype=np.float32)
-    before = (bmu_ops.launches, cas_ops.launches)
+    before = (bmu_ops.launches, cas_ops.drive_launches, cas_ops.launches)
     tm = TopoMap(AFMConfig(side=8, dim=24, batch=8, i_max=800),
                  backend="kernel", device=cuda).fit(x, num_steps=40)
-    assert bmu_ops.launches > before[0] and cas_ops.launches > before[1]
+    tail = int((tm.fit_aux_.waves - cas_ops.DEFAULT_WAVE_CAP).clamp(
+        min=0).sum())
+    assert bmu_ops.launches > before[0]
+    assert cas_ops.drive_launches == before[1] + 40
+    assert cas_ops.launches == before[2] + tail
+    assert tm.fit_aux_.waves.is_cuda and int(tm.fit_aux_.waves.sum()) > 0
     assert tm.state_.w.is_cuda and bool(torch.isfinite(tm.state_.w).all())
     assert tm.transform(x).shape == (500,)
+
+
+def _drive_inputs(cuda, side, d, w_cap=16, seed=0, theta=4):
+    """Merged weights, counters below theta, adaptation counts and the
+    draws, made on the CPU and moved to the card."""
+    gen = torch.Generator().manual_seed(seed)
+    n = side * side
+    out = (torch.rand(n, d, generator=gen),
+           torch.randint(theta - 2, theta, (side, side), generator=gen,
+                         dtype=torch.int32),
+           torch.randint(0, 3, (side, side), generator=gen,
+                         dtype=torch.int32),
+           torch.rand(8, side, side, generator=gen) < 0.9,
+           torch.rand(w_cap, 4, side, side, generator=gen) < 0.9)
+    return tuple(x.to(cuda) for x in out)
+
+
+#: (name, budget) on a 16-wave block: none, one wave, the whole block, and
+#: a budget cut short
+DRIVE_BUDGETS = [("zero", 0), ("one", 1), ("cap", 16), ("cut", 5)]
+
+
+@pytest.mark.parametrize("budget", [b for _, b in DRIVE_BUDGETS],
+                         ids=[name for name, _ in DRIVE_BUDGETS])
+@pytest.mark.parametrize("d", [13, 50, 783, 784])
+@pytest.mark.parametrize("side", [1, 7, 9, 12, 30])
+def test_drive_cascade_kernel_matches_plain(cuda, side, d, budget):
+    """The staged step's drive and cascade kernel against its plain version
+    on the card, same inputs: the weights, counters, front, [size, waves]
+    and receive counts bit for bit (the same _rn operations in the same
+    order); one launch a call."""
+    args = _drive_inputs(cuda, side, d, seed=side * 1000 + d + budget)
+    kw = dict(l_c=0.3, theta=4, budget=budget)
+    before = cas_ops.drive_launches
+    out = cas_ops.drive_cascade(*args, **kw)
+    assert cas_ops.drive_launches == before + 1
+    ref = cas_ref.drive_cascade_ref(*args, **kw)
+    for a, r in zip(out, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert _same_bits(a, r) if a.is_floating_point() else torch.equal(a, r)
+    waves = int(ref[3][1])
+    assert waves <= budget and (waves == budget or not bool(ref[2].any()))
+    if side > 1 and budget > 0:
+        assert waves > 0
+
+
+@pytest.mark.parametrize("case", ["zeros", "overflow", "clean"])
+def test_drive_cascade_is_bitwise_plain_on_any_weights(cuda, case):
+    """Weights of both zero signs from the start, or an update that
+    overflows in a wave, send the kernel's waves to the dirty path
+    (every pair updated); each way the outputs are the plain version's bit
+    for bit."""
+    side, d = 12, 20
+    w, c, counts, drive, bern = _drive_inputs(cuda, side, d, seed=11)
+    n = side * side
+    if case == "zeros":
+        w[::7] = 0.0
+        w[3::7] = -0.0
+    elif case == "overflow":   # horizontal neighbours of opposite sign
+        sign = 1.0 - 2.0 * (torch.arange(n, device=cuda) % 2)
+        w = (3e38 * sign[:, None]).expand(n, d).contiguous()
+    kw = dict(l_c=0.3, theta=4, budget=16)
+    out = cas_ops.drive_cascade(w, c, counts, drive, bern, **kw)
+    ref = cas_ref.drive_cascade_ref(w, c, counts, drive, bern, **kw)
+    assert int(ref[3][1]) > 1
+    assert bool(torch.isfinite(ref[0]).all()) == (case != "overflow")
+    for a, r in zip(out[1:], ref[1:]):
+        assert torch.equal(a, r)
+    assert _same_bits(out[0], ref[0])
+
+
+def test_drive_cascade_takes_inputs_off_16_byte_alignment(cuda):
+    """W, the counters and counts 4 bytes past an aligned address and the
+    draws 1 and 3 bytes past one: the kernel copies them in by 4-byte or
+    plain copies and still gives the plain version's bits."""
+    side, d = 30, 784
+    args0 = _drive_inputs(cuda, side, d, seed=5)
+
+    def shifted(x, by):
+        flat = torch.empty(x.numel() + by, dtype=x.dtype, device=cuda)
+        out = flat[by:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    args = [shifted(x, by) for x, by in zip(args0, (1, 1, 1, 1, 3))]
+    assert all(x.data_ptr() % 16 for x in args)
+    kw = dict(l_c=0.3, theta=4, budget=16)
+    out = cas_ops.drive_cascade(*args, **kw)
+    ref = cas_ref.drive_cascade_ref(*args0, **kw)
+    assert int(ref[3][1]) > 0
+    for a, r in zip(out[1:], ref[1:]):
+        assert torch.equal(a, r)
+    assert _same_bits(out[0], ref[0])
+
+
+def test_drive_cascade_kernel_is_bitwise_repeatable(cuda):
+    """No float atomics and fixed orders: two calls give the same bits."""
+    args = _drive_inputs(cuda, 30, 784, seed=3)
+    kw = dict(l_c=0.3, theta=4, budget=16)
+    first = cas_ops.drive_cascade(*args, **kw)
+    again = cas_ops.drive_cascade(*args, **kw)
+    assert int(first[3][1]) > 0
+    for a, r in zip(first, again):
+        assert torch.equal(a, r)
+
+
+def test_drive_cascade_plan_is_checked_by_the_kernel(cuda):
+    """The C side holds ``ops.plan_cascade`` to the kernel as built: a plan
+    whose blocks, features a block, threads, shared bytes or staged waves
+    disagree with it is refused."""
+    import ctypes
+    from repro_torch.kernels import _build
+    p = cas_ops._cascade_plan(cuda.index or 0, 900, 784)
+    assert (p.blocks, p.ds) == (131, 6) or sm_count(cuda) != 132
+    lib = _build.load()
+    out = (ctypes.c_int32 * 2)()
+    assert lib.repro_cascade_plan(900, 784, p.c_array(), out) == 0
+    assert tuple(out)[0] == sm_count(cuda)
+    for slot, value in ((0, p.blocks + 1), (1, p.ds + 1), (2, 256),
+                        (3, p.smem + 16), (4, p.staged_waves + 1)):
+        arr = p.c_array()
+        arr[slot] = value
+        assert lib.repro_cascade_plan(900, 784, arr, out) != 0, slot
+    huge = cas_ops.CascadePlan(900, 784 * 40, 1, 784 * 40, 0)
+    assert lib.repro_cascade_plan(900, 784 * 40, huge.c_array(), out) != 0
+
+
+@pytest.mark.parametrize("side,d,b", [(30, 784, 16), (7, 13, 5),
+                                      (12, 50, 40)])
+def test_fused_cascade_equals_drive_cascade(cuda, side, d, b):
+    """The cascade of a ``fused_step`` call with given GMUs equals the
+    merge plus ``drive_cascade`` from the same merged W bit for bit: the
+    two kernels run the same drive and waves (``runtime/waves.cuh``)."""
+    w, c, s, drive, bern = _fused_inputs(cuda, side, d, b, seed=side + b)
+    n = side * side
+    gmu = (torch.arange(b, dtype=torch.int32) * 37 % n).to(cuda)
+    out = fused_ops.fused_step(w, c, s, 0.05, 0.3, drive, bern, gmu,
+                               theta=4, budget=16)
+    merged, counts = fused_ref.merge(w, s, gmu, 0.05)
+    staged = cas_ops.drive_cascade(merged.contiguous(), c,
+                                   counts.reshape(side, side), drive, bern,
+                                   l_c=0.3, theta=4, budget=16)
+    assert int(out[3][1]) > 0
+    for a, r in zip(out[1:5], staged[1:]):
+        assert torch.equal(a, r)
+    assert _same_bits(out[0], staged[0])
 
 
 @pytest.mark.parametrize("search", ["given", "exact", "bf16"])
