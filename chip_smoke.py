@@ -45,7 +45,21 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     prefill) and 64 new tokens on the 8,192-slot ring, counting the kernel's
     launches in each run and checking it on the layer-0 cache of the long
     prefill;
-11. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
+11. trains the same map through ``TopoMap(backend="async")``, one sample
+    an event, on the mnist stand-in (seed 0): A. zero latency, exact search,
+    ``kernel="fused"``, 8,000 events (one ``fused_step`` launch an event);
+    B. the same with ``kernel="staged"`` (one ``bmu`` at B = 1 and one
+    ``drive_cascade`` an event); each with the report's identities, QE
+    falling and accuracy >= 0.9; A2. the fused path with the relay race's
+    GMU given, 200 events; C. the discrete-event engine against A's runner,
+    200 events from one ``GeneratorDraws`` seed (integers bitwise, per event
+    with the state re-injected); D. constant latency (delay 1.0), the relay
+    race, 2,000 events (message conservation, QE, rounds/s, launches and
+    host syncs a round); E. a small constant-latency run on the card
+    against the CPU; then ``drive_cascade`` after a one-sample merge, and
+    the B = 1 rows of the kernel table (``bmu``, ``fused_step`` searching
+    and given its GMU, ``drive_cascade``);
+12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -86,6 +100,7 @@ class HostDraws:
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
+        self.seed, self.spawned = seed, 0
         self.gen = torch.Generator().manual_seed(seed)
 
     def randint(self, low, high, shape):
@@ -94,6 +109,15 @@ class HostDraws:
 
     def uniform(self, shape):
         return torch.rand(tuple(shape), generator=self.gen).to(self.device)
+
+    def exponential(self, shape):
+        return -torch.log1p(-self.uniform(shape))
+
+    def spawn(self):
+        """A child source (one cascade of the event engine), seeded from
+        this one's seed and its count of children."""
+        self.spawned += 1
+        return HostDraws(self.seed * 7919 + self.spawned, self.device)
 
 
 #: cycles of the sleep kernel that holds the card while the host queues a
@@ -180,7 +204,7 @@ def check_kernels(device):
     from repro_torch.kernels.cascade import ref as cas_ref
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = {"bmu": 0.0, "cascade_wave": 0.0, "drive_cascade": 0.0}
-    for b, n, d in ((16, 900, 784), (10000, 900, 784)):
+    for b, n, d in ((16, 900, 784), (10000, 900, 784), (1, 900, 784)):
         w = torch.rand(n, d, generator=gen, device=device)
         s = torch.rand(b, d, generator=gen, device=device)
         for precision in ("exact", "bf16"):
@@ -383,7 +407,8 @@ def check_fused_kernel(device):
     gen = torch.Generator().manual_seed(SEED + 5)
     worst = {"dw": 0.0, "dq2": 0.0}
     cases = []
-    for side, d, b in ((30, 784, 16), (7, 13, 5), (30, 783, 40)):
+    for side, d, b in ((30, 784, 16), (7, 13, 5), (30, 783, 40),
+                       (30, 784, 1)):
         for precision in ("given", "exact", "bf16"):
             cases.append((side, d, b, precision, 16, 16, 4))
     cases += [(30, 784, 16, "exact", 16, 5, 2),    # max_waves 5 < wave_cap
@@ -787,14 +812,15 @@ def kernel_table(device, tm, xtr, xte, train_launches, launches, worst):
     return rows
 
 
-def drive_cascade_row(device, tm, xtr, launches, worst):
+def drive_cascade_row(device, tm, xtr, launches, worst, b=16):
     """Phase 7, the staged step's drive and cascade: one call at the main
     path's shape from the staged run's trained state (its counters, the
-    schedule there), after the merge of a batch into its ``bmu`` GMUs, the
-    first of up to 32 batches whose call runs at least 4 waves. No single
-    PyTorch call computes it: ``library_ms`` is null. The bound counts W
-    read and written once, the counters, counts, drive, the draws of the
-    waves that ran and the lattices once, and 6 N D operations a wave."""
+    schedule there), after the merge of a batch of ``b`` samples into their
+    ``bmu`` GMUs, the first of up to 512 // b batches whose call runs at
+    least 4 waves. No single PyTorch call computes it: ``library_ms`` is
+    null. The bound counts W read and written once, the counters, counts,
+    drive, the draws of the waves that ran and the lattices once, and
+    6 N D operations a wave."""
     from repro_torch.core import afm
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.cascade import ops as cas_ops
@@ -806,8 +832,8 @@ def drive_cascade_row(device, tm, xtr, launches, worst):
     l_c, p_i = afm.schedule_values(state.i, cfg)
     gen = torch.Generator().manual_seed(SEED + 11)
     c = state.c.reshape(side, side)
-    for k in range(32):
-        s = xtr[16 * k:16 * k + 16].contiguous()
+    for k in range(512 // b):
+        s = xtr[b * k:b * k + b].contiguous()
         gmu, _ = bmu_ops.bmu(state.w, s)
         merged, counts = afm.adapt_merge(state.w, s, gmu, cfg)
         counts = counts.to(torch.int32).reshape(side, side)
@@ -837,7 +863,8 @@ def drive_cascade_row(device, tm, xtr, launches, worst):
           f"{ops / 1e6:.2f} M operations), kernel at "
           f"{100 * bound / t['kernel']:.1f} % of it")
     return {
-        "name": f"drive_cascade (N=900, D=784, {waves} waves)",
+        "name": f"drive_cascade (N=900, D=784, {waves} waves"
+                + (")" if b == 16 else f", a {b}-sample merge: async staged)"),
         "route": "cuda",
         "source": "src/repro_torch/kernels/cascade/cascade.cu",
         "replaces": "src/repro/kernels/cascade/cascade.py:38",
@@ -849,12 +876,17 @@ def drive_cascade_row(device, tm, xtr, launches, worst):
         "library_ms": None}
 
 
-def fused_row(device, tmf, xtr, launches, worst):
+def fused_row(device, tmf, xtr, launches, worst, given=False):
     """Phase 7, the fused step: one call at the main path's shape from the
     fused run's trained state (its counters, the schedule's p_i there), the
-    kernel beside its plain version, with the wave count of that call. No
-    single PyTorch call computes a training step: ``library_ms`` is null."""
+    kernel beside its plain version, with the wave count of that call (the
+    first of up to 512 // b batches whose call runs at least 4 waves); the
+    batch is the run's (16, or 1 for the async backend); ``given`` passes
+    the batch's ``bmu`` GMUs in (the relay race's seam) instead of
+    searching. No single PyTorch call computes a training step:
+    ``library_ms`` is null."""
     from repro_torch.core import afm
+    from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.fused import ref as fused_ref
     name = torch.cuda.get_device_name(0)
@@ -867,11 +899,15 @@ def fused_row(device, tmf, xtr, launches, worst):
     drive = (torch.rand(8, side, side, generator=gen) < p_i).to(device)
     bern = (torch.rand(cap, 4, side, side, generator=gen) < p_i).to(device)
     w, c = state.w, state.c.reshape(side, side)
-    s = xtr[:b].contiguous()
-    args = (w, c, s, cfg.l_s, l_c, drive, bern)
     kw = dict(theta=cfg.theta, budget=cap)
-    out = fused_ops.fused_step(*args, **kw)
-    waves = int(out[3][1])
+    for k in range(512 // b):         # the first batch whose call runs 4 waves
+        s = xtr[b * k:b * k + b].contiguous()
+        gmu = bmu_ops.bmu(w, s)[0] if given else None
+        args = (w, c, s, cfg.l_s, l_c, drive, bern, gmu)
+        out = fused_ops.fused_step(*args, **kw)
+        waves = int(out[3][1])
+        if waves >= 4:
+            break
     fplan = fused_ops._plan(w.device.index or 0, n, d, b)
     print(f"fused_step: plan {fplan.blocks} cooperative blocks of "
           f"{fplan.threads} threads, {fplan.splits} search splits, "
@@ -885,13 +921,14 @@ def fused_row(device, tmf, xtr, launches, worst):
     }, 100, "fused_step")
     nbytes = (2 * 4 * n * d + 4 * b * d
               + n * (4 + 8 + 4 * cap + 4 + 1 + 4) + 8 + 8 * b)
-    flops = (2 * b * n * d + 2 * n * d + 2 * b * d + 3 * b * d
-             + waves * 6 * n * d)
+    flops = ((0 if given else 2 * b * n * d) + 2 * n * d + 2 * b * d
+             + 3 * b * d + waves * 6 * n * d)
     bound = max(nbytes / bw, flops / f32_peak) * 1e3
     print(f"fused_step timing call: {int(out[3][0])} firings in {waves} "
           f"waves, state after {state.i} samples")
     return {
-        "name": f"fused_step (B=16, N=900, D=784, {waves} waves)",
+        "name": f"fused_step (B={b}, N=900, D=784, {waves} waves"
+                + (", GMU given)" if given else ")"),
         "route": "cuda", "source": "src/repro_torch/kernels/fused/fused.cu",
         "replaces": "src/repro/kernels/fused/fused.py:75",
         "launches": launches["fused_step"], "max_abs_err": worst["dw"],
@@ -899,6 +936,377 @@ def fused_row(device, tmf, xtr, launches, worst):
         "bound_by": "bytes" if nbytes / bw > flops / f32_peak
         else "operations",
         "library_ms": None}
+
+
+#: events of the async fast-path phases A and B: the kernel path's 500
+#: steps x 16 samples, one sample an event
+ASYNC_EVENTS = 8000
+#: events of phase C (the engine against the fused fast path, per event)
+ASYNC_PAIRED = 200
+#: events of phase D (constant latency, the relay race)
+ASYNC_CONSTANT = 2000
+#: events of phase D's profiled window
+ASYNC_PROFILED = 10
+
+
+def _async_cfg():
+    from repro_torch.core import afm
+    # batch 1: the async backend's per-sample events; i_max stays 600 N, so
+    # the schedules are those of the full run, cut to its first events
+    return afm.AFMConfig(side=30, dim=784, batch=1)
+
+
+def _report_identities(rep, events, waves, what):
+    """The fast path's accounting: every sample consumed, one round a
+    sample and one a wave, every broadcast delivered, nothing dropped."""
+    if not (rep.samples == events and rep.rounds == events + waves
+            and rep.sent == rep.deliveries and rep.dropped == 0
+            and rep.stranded == 0):
+        raise AssertionError(f"{what}: report identities fail: {rep}")
+
+
+def async_fast_path(device, xtr, ytr, xte, yte, kernel):
+    """Phases A and B: ``TopoMap(backend="async")`` at zero latency with
+    exact search, ``kernel`` 'fused' (one ``fused_step`` launch an event,
+    the search in the kernel) or 'staged' (a ``bmu`` launch at B = 1, the
+    plain merge and one ``drive_cascade`` launch an event), for
+    ``ASYNC_EVENTS`` events; ``cascade_wave`` once a wave past the 16-wave
+    block. The report's identities, QE falling and test accuracy >= 0.9.
+    Returns the map, its training launches and its events/s."""
+    from repro_torch.api import TopoMap
+    from repro_torch.core import afm
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.kernels.cascade.ops import DEFAULT_WAVE_CAP
+    cfg = _async_cfg()
+    opts = {"kernel": kernel, "search": "exact"}
+    qe0 = TopoMap.from_state(afm.init(GeneratorDraws(SEED, device), cfg, xtr),
+                             cfg, backend="async", device=device
+                             ).quantization_error(xte)
+    TopoMap(cfg, backend="async", backend_options=opts,
+            device=device).fit(xtr, num_steps=3)
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tm = TopoMap(cfg, backend="async", backend_options=opts, device=device,
+                 seed=SEED).fit(xtr, num_steps=ASYNC_EVENTS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    tm.label(xtr, ytr)
+    qe = tm.quantization_error(xte)
+    acc = float((tm.predict(xte) == yte).float().mean())
+    rep, aux = tm.backend.last_report, tm.fit_aux_
+    waves = int(aux.waves.sum())
+    what = f"async kernel={kernel!r}"
+    _report_identities(rep, ASYNC_EVENTS, waves, what)
+    tail = int((aux.waves - DEFAULT_WAVE_CAP).clamp(min=0).sum())
+    want = ({"fused_step": ASYNC_EVENTS} if kernel == "fused" else
+            {"bmu": ASYNC_EVENTS, "drive_cascade": ASYNC_EVENTS})
+    want["cascade_wave"] = tail
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{what}: launched {launches}, needs {want}")
+    if not bool(torch.isfinite(tm.state_.w).all()):
+        raise AssertionError(f"{what}: non-finite weights")
+    if not qe < qe0:
+        raise AssertionError(f"{what}: QE did not fall: {qe0} -> {qe}")
+    if acc < ACCURACY_FLOOR:
+        raise AssertionError(f"{what}: accuracy {acc} below {ACCURACY_FLOOR}")
+    print(f"{what}, exact search, zero latency: {ASYNC_EVENTS} events at "
+          f"30x30x784 (B = 1); {waves} waves, {rep.deliveries} deliveries, "
+          f"{rep.rounds} rounds; launches {launches} (as required: {want})")
+    print(f"{what}: QE initial {qe0:.4f} -> trained {qe:.4f}; accuracy "
+          f"{acc:.4f}; fit events/s {ASYNC_EVENTS / fit_s:.1f} "
+          f"({fit_s:.3f} s, init included)")
+    return tm, launches, ASYNC_EVENTS / fit_s
+
+
+#: events of phase A2 (the fused fast path with the relay race's GMU)
+ASYNC_GIVEN = 200
+
+
+def async_fused_given(device, xtr):
+    """Phase A2: the fused fast path with ``search='heuristic'``: the relay
+    race outside the kernel, its GMU given to one ``fused_step`` launch an
+    event, ``ASYNC_GIVEN`` events. Returns the launches of the run."""
+    from repro_torch.api import TopoMap
+    from repro_torch.kernels.cascade.ops import DEFAULT_WAVE_CAP
+    cfg = _async_cfg()
+    opts = {"kernel": "fused", "search": "heuristic"}
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    tm = TopoMap(cfg, backend="async", backend_options=opts, device=device,
+                 seed=SEED).fit(xtr, num_steps=ASYNC_GIVEN)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    aux = tm.fit_aux_
+    waves = int(aux.waves.sum())
+    _report_identities(tm.backend.last_report, ASYNC_GIVEN, waves,
+                       "async fused, relay race")
+    tail = int((aux.waves - DEFAULT_WAVE_CAP).clamp(min=0).sum())
+    if (launches["fused_step"] != ASYNC_GIVEN or launches["bmu"]
+            or launches["cascade_wave"] != tail):
+        raise AssertionError(f"async fused, relay race: launched {launches}")
+    if not bool(torch.isfinite(tm.state_.w).all()):
+        raise AssertionError("async fused, relay race: non-finite weights")
+    print(f"async kernel='fused', relay race (GMU given to the kernel): "
+          f"{ASYNC_GIVEN} events, {waves} waves; launches {launches}; "
+          f"{ASYNC_GIVEN / fit_s:.1f} events/s ({fit_s:.3f} s, init "
+          f"included)")
+    return launches
+
+
+def _ints_equal(a, b, what):
+    """Two ``run_events`` results: integer state, aux and report bitwise
+    (the clocks too: float32 times from the same operations)."""
+    (sa, xa, ra), (sb, xb, rb) = a, b
+    pairs = [("c", sa.c, sb.c), ("gmu", xa.gmu, xb.gmu),
+             ("cascade_size", xa.cascade_size, xb.cascade_size),
+             ("waves", xa.waves, xb.waves)]
+    pairs += [(f, getattr(ra, f), getattr(rb, f)) for f in ra._fields]
+    for name, x, y in pairs:
+        same = torch.equal(x, y) if torch.is_tensor(x) else x == y
+        if not same:
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def async_engine_vs_fused(device, xtr):
+    """Phase C: the discrete-event engine (``engine='event'``) at zero
+    latency with exact search (a ``bmu`` launch a sample round) against the
+    fused fast path (A's runner), ``ASYNC_PAIRED`` events from the same
+    ``GeneratorDraws`` seed and state: the whole runs' integer state and
+    report bitwise; then event by event from the fused run's state (state
+    re-injected), integers bitwise and w within 8 (1 + waves) ulps of
+    max |w|, the fused step's bound against the plain merge."""
+    from repro_torch.core import afm
+    from repro_torch.core import events
+    from repro_torch.draws import GeneratorDraws
+    cfg = _async_cfg()
+    state = afm.init(GeneratorDraws(SEED, device), cfg, xtr)
+    idx = GeneratorDraws(SEED + 3, device).randint(0, xtr.shape[0],
+                                                   (ASYNC_PAIRED,))
+    samples = xtr[idx].contiguous()
+    fused, engine = (events.EventConfig(kernel="fused"),
+                     events.EventConfig(engine="event"))
+
+    def run(st, s, draws, ecfg):
+        return events.run_events(st, s, draws, cfg, ecfg,
+                                 search=events.search_exact)
+
+    a = run(state, samples, GeneratorDraws(SEED, device), fused)
+    b = run(state, samples, GeneratorDraws(SEED, device), engine)
+    _ints_equal(a, b, "engine vs fused, whole run")
+    eps = torch.finfo(torch.float32).eps
+    worst = 0.0
+    da, db = GeneratorDraws(SEED, device), GeneratorDraws(SEED, device)
+    st = state
+    for k in range(ASYNC_PAIRED):
+        ea = run(st, samples[k:k + 1], da, fused)
+        eb = run(st, samples[k:k + 1], db, engine)
+        _ints_equal(ea, eb, f"engine vs fused, event {k}")
+        waves = int(ea[1].waves[0])
+        dw = float((ea[0].w - eb[0].w).abs().max())
+        if dw > 8 * (1 + waves) * eps * float(ea[0].w.abs().max()):
+            raise AssertionError(f"engine vs fused, event {k}: |dw| {dw}")
+        worst = max(worst, dw)
+        st = ea[0]
+    rep = a[2]
+    if rep.deliveries == 0:
+        raise AssertionError("engine vs fused: no cascade ran")
+    print(f"engine vs fused fast path, {ASYNC_PAIRED} events from one "
+          f"GeneratorDraws seed: {rep.rounds} rounds, {rep.deliveries} "
+          f"deliveries; integers and report bitwise over the whole run and "
+          f"per event, max|dw| per event {worst:.3g}; whole-run max|dw| "
+          f"{float((a[0].w - b[0].w).abs().max()):.3g}")
+
+
+def _profile_counts(fn):
+    """Kernel launches and host syncs of ``fn()`` from a ``torch.profiler``
+    trace, with its wall seconds."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {e.key: e.count for e in prof.key_averages()}
+    launches = (counts.get("cudaLaunchKernel", 0)
+                + counts.get("cudaLaunchCooperativeKernel", 0))
+    return launches, counts.get("cudaStreamSynchronize", 0), wall
+
+
+def async_constant_latency(device, xtr, xte):
+    """Phase D, the paper's model: ``latency='constant'``, ``delay=1.0``,
+    the relay race (``search='heuristic'``), ``ASYNC_CONSTANT`` events
+    through the sample-scan engine. Message conservation with nothing
+    stranded, QE falling; rounds, rounds/s and events/s, then launches and
+    host syncs a round over a profiled window of ``ASYNC_PROFILED``
+    events."""
+    from repro_torch.api import TopoMap
+    from repro_torch.core import afm
+    from repro_torch.draws import GeneratorDraws
+    cfg = _async_cfg()
+    opts = {"latency": "constant", "delay": 1.0, "search": "heuristic"}
+    qe0 = TopoMap.from_state(afm.init(GeneratorDraws(SEED, device), cfg, xtr),
+                             cfg, backend="async", device=device
+                             ).quantization_error(xte)
+    TopoMap(cfg, backend="async", backend_options=opts,
+            device=device).fit(xtr, num_steps=3)
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tm = TopoMap(cfg, backend="async", backend_options=opts, device=device,
+                 seed=SEED).fit(xtr, num_steps=ASYNC_CONSTANT)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    qe = tm.quantization_error(xte)
+    rep = tm.backend.last_report
+    if not (rep.sent == rep.deliveries + rep.dropped_overflow + rep.stranded
+            and rep.stranded == 0 and rep.samples == ASYNC_CONSTANT):
+        raise AssertionError(f"constant latency: accounting fails: {rep}")
+    if rep.deliveries == 0:
+        raise AssertionError("constant latency: no broadcast delivered")
+    if not bool(torch.isfinite(tm.state_.w).all()):
+        raise AssertionError("constant latency: non-finite weights")
+    if not qe < qe0:
+        raise AssertionError(f"constant latency: QE did not fall: {qe0} -> "
+                             f"{qe}")
+    print(f"async constant latency (delay 1.0), relay race: {ASYNC_CONSTANT} "
+          f"events, {rep.rounds} rounds, {rep.deliveries} deliveries, "
+          f"{rep.dropped_overflow} dropped, sent {rep.sent}; QE initial "
+          f"{qe0:.4f} -> trained {qe:.4f}; our kernels' launches {launches}")
+    print(f"async constant latency: {rep.rounds / fit_s:.1f} rounds/s, "
+          f"{rep.events / fit_s:.1f} events/s (samples and deliveries), "
+          f"{ASYNC_CONSTANT / fit_s:.1f} samples/s ({fit_s:.3f} s, init "
+          f"included)")
+    backend, state = tm.backend, tm.state_
+    draws = GeneratorDraws(SEED + 5, device)
+    n_launch, n_sync, wall = _profile_counts(
+        lambda: backend.run(state, xtr, draws, ASYNC_PROFILED))
+    rounds = backend.last_report.rounds
+    print(f"async constant latency, profiled {ASYNC_PROFILED} events, "
+          f"{rounds} rounds: {n_launch / rounds:.1f} kernel launches and "
+          f"{n_sync / rounds:.2f} host syncs a round (the relay race's "
+          f"included), {wall * 1e3 / rounds:.3f} ms a round under the "
+          f"profiler")
+    return rep.rounds / fit_s
+
+
+def async_card_vs_cpu(device):
+    """Phase E: a small constant-latency run (8x8, D 16, 64 events, exact
+    search, a hot p = 0.8) on the card and on the CPU from the same host
+    draws: integers, report and clocks bitwise, w within 64 ulps of
+    max |w|, q2 within 1e-4 of its largest."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import afm
+    from repro_torch.core import events
+    cfg = afm.AFMConfig(side=8, dim=16, theta=3, i_max=96, e_factor=0.5)
+    data = torch.randn(64, 16, generator=torch.Generator().manual_seed(4))
+    base = state_to_numpy(afm.init(HostDraws(1, "cpu"), cfg, data))
+    outs = [events.run_events(
+        state_from_numpy(base, dev), data.to(dev), HostDraws(2, dev), cfg,
+        events.EventConfig(latency="constant", delay=1.0),
+        search=events.search_exact, p_fn=lambda i, c: 0.8)
+        for dev in (device, torch.device("cpu"))]
+    card = tuple(outs[0])
+    card = (card[0]._replace(w=card[0].w.cpu(), c=card[0].c.cpu()),
+            type(card[1])(*(x.cpu() for x in card[1])),
+            card[2]._replace(clock=card[2].clock.cpu(),
+                             nevents=card[2].nevents.cpu()))
+    cpu = outs[1]
+    _ints_equal(card, cpu, "card vs CPU")
+    eps = torch.finfo(torch.float32).eps
+    dw = float((card[0].w - cpu[0].w).abs().max())
+    dq2 = float((card[1].q2 - cpu[1].q2).abs().max())
+    if dw > 64 * eps * float(cpu[0].w.abs().max()) or dq2 > 1e-4 * float(
+            cpu[1].q2.abs().max()):
+        raise AssertionError(f"card vs CPU: |dw| {dw}, |dq2| {dq2}")
+    if cpu[2].deliveries == 0:
+        raise AssertionError("card vs CPU: no cascade ran")
+    print(f"async card vs CPU, 8x8 D 16, 64 events at constant latency: "
+          f"{cpu[2].rounds} rounds, {cpu[2].deliveries} deliveries; integers,"
+          f" report and clocks bitwise, max|dw| {dw:.3g}, max|dq2| {dq2:.3g}")
+
+
+def check_b1_kernels(device, tms):
+    """The async path's new B = 1 shape of ``drive_cascade``: fed from a
+    one-sample merge of the staged async map's state, bitwise its plain
+    version."""
+    from repro_torch.core import afm
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.cascade import ops as cas_ops
+    from repro_torch.kernels.cascade import ref as cas_ref
+    cfg, state = tms.cfg, tms.state_
+    side = cfg.side
+    gen = torch.Generator().manual_seed(SEED + 13)
+    s = torch.rand(1, cfg.dim, generator=gen).to(device)
+    gmu, _ = bmu_ops.bmu(state.w, s)
+    merged, counts = afm.adapt_merge(state.w, s, gmu, cfg)
+    c = torch.full((side, side), cfg.theta - 1, dtype=torch.int32,
+                   device=device)
+    args = (merged, c, counts.to(torch.int32).reshape(side, side),
+            (torch.rand(8, side, side, generator=gen) < 0.9).to(device),
+            (torch.rand(16, 4, side, side, generator=gen) < 0.9).to(device))
+    out = cas_ops.drive_cascade(*args, l_c=0.3, theta=cfg.theta, budget=16)
+    ref = cas_ref.drive_cascade_ref(*args, l_c=0.3, theta=cfg.theta,
+                                    budget=16)
+    torch.cuda.synchronize()
+    for a, r in zip(out, ref):
+        same = (torch.equal(a.view(torch.int32), r.view(torch.int32))
+                if a.is_floating_point() else torch.equal(a, r))
+        if not same:
+            raise AssertionError("drive_cascade from a one-sample merge: "
+                                 "not bitwise")
+    print(f"drive_cascade from a one-sample merge (30x30x784): "
+          f"{int(out[3][0])} firings in {int(out[3][1])} waves; bitwise "
+          f"equal to the plain version")
+
+
+def async_rows(device, tmf, tms, xtr, fused_launches, staged_launches,
+               given_launches, worst, fused_worst):
+    """Phase 7 at the async path's B = 1 shapes: ``bmu`` (the staged fast
+    path's and the engine's exact search, ``cdist().min`` beside it),
+    ``fused_step`` searching and with a given GMU, and ``drive_cascade``
+    after a one-sample merge. Launches are those of phases A, A2 and B."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    f32_peak, bw = peaks_for(torch.cuda.get_device_name(0))
+    w = tms.state_.w
+    s = xtr[:1].contiguous()
+    (n, d), b = w.shape, 1
+    plan = bmu_ops.plan(n, b, d, sm_count(w.device))
+    print(f"bmu (async search, B=1): plan {plan.kernel}_kernel, grid "
+          f"{plan.grid} ({plan.blocks} blocks, {plan.splits} splits of the "
+          f"units), then the merge")
+    t = time_both({
+        "plain": lambda: bmu_ref.bmu_ref(w, s),
+        "kernel": lambda: bmu_ops.bmu(w, s),
+        "library": lambda: torch.cdist(s, w).min(dim=1),
+    }, 500, "bmu (async search, B=1)")
+    nbytes = 4 * (n * d + b * d) + 8 * b
+    flops = 2 * b * n * d + 2 * (n + b) * d
+    bound = max(nbytes / bw, flops / f32_peak) * 1e3
+    print(f"bmu (async search, B=1): bound {bound:.6f} ms, kernel at "
+          f"{100 * bound / t['kernel']:.1f} % of it")
+    rows = [{
+        "name": "bmu (async search, B=1)", "route": "cuda",
+        "source": "src/repro_torch/kernels/bmu/bmu.cu",
+        "replaces": "src/repro/kernels/bmu/bmu.py:26",
+        "launches": staged_launches["bmu"], "max_abs_err": worst["bmu"],
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / bw > flops / f32_peak
+        else "operations",
+        "library_ms": t["library"]}]
+    rows.append(fused_row(device, tmf, xtr, fused_launches, fused_worst))
+    rows.append(fused_row(device, tmf, xtr, given_launches, fused_worst,
+                          given=True))
+    rows.append(drive_cascade_row(device, tms, xtr, staged_launches, worst,
+                                  b=1))
+    return rows
 
 
 LM_ARCH = "llama3.2-1b"
@@ -1231,7 +1639,22 @@ def main() -> int:
           f"{staged_rate:.1f}, fused {fused_rate:.1f}")
     rows = kernel_table(device, tm, xtr, xte, train_launches, launches, worst)
     rows.append(fused_row(device, tmf, xtr, fused_launches, fused_worst))
-    del tm, tmf, xtr, ytr, xte, yte
+    del tm, tmf
+    tmaf, af_launches, af_rate = async_fast_path(device, xtr, ytr, xte, yte,
+                                                 "fused")
+    tmas, as_launches, as_rate = async_fast_path(device, xtr, ytr, xte, yte,
+                                                 "staged")
+    given_launches = async_fused_given(device, xtr)
+    async_engine_vs_fused(device, xtr)
+    rounds_rate = async_constant_latency(device, xtr, xte)
+    async_card_vs_cpu(device)
+    check_b1_kernels(device, tmas)
+    print(f"async events/s at 30x30x784, zero latency, exact: fused "
+          f"{af_rate:.1f}, staged {as_rate:.1f}; constant latency, relay "
+          f"race: {rounds_rate:.1f} rounds/s")
+    rows += async_rows(device, tmaf, tmas, xtr, af_launches, as_launches,
+                       given_launches, worst, fused_worst)
+    del tmaf, tmas, xtr, ytr, xte, yte
     swa_worst = check_swa_kernel(device)
     check_decode_card_vs_cpu(device)
     runs, long_inputs = serve_full_width(device, swa_worst)

@@ -3,7 +3,8 @@
 NVIDIA card.
 
     PYTHONPATH=src python3 scripts/profile_torch_fit.py [--steps 200] \
-        [--kernel staged|fused]
+        [--kernel staged|fused] [--backend kernel|async] \
+        [--latency zero|constant] [--search exact|heuristic]
 
 Trains the 30x30x784 map of ``chip_smoke.py`` (B = 16, MNIST-shaped
 stand-in data) through ``TopoMap(backend="kernel",
@@ -22,6 +23,14 @@ backend_options={"kernel": KERNEL})`` and reports, after a warm-up:
 
 The synchronised timing adds one sync per stage and so slows the step; the
 profiled run is the one whose wall time matches an ordinary fit.
+
+``--backend async`` trains the same map through ``TopoMap(backend=
+"async")``, one sample an event (``--search``, exact by default;
+``--latency constant`` sends the run through the discrete-event engine
+with ``delay=1.0``), and reports 0 and 2 for ``--steps`` events of
+``AsyncBackend.run``: events and rounds a second, then per event and per
+round the wall time, device busy time, idle share, kernel launches and host
+syncs.
 """
 import argparse
 import subprocess
@@ -62,6 +71,12 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=200)
     parser.add_argument("--kernel", choices=("staged", "fused"),
                         default="staged")
+    parser.add_argument("--backend", choices=("kernel", "async"),
+                        default="kernel")
+    parser.add_argument("--latency", choices=("zero", "constant"),
+                        default="zero")
+    parser.add_argument("--search", choices=("exact", "heuristic"),
+                        default="exact")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -75,6 +90,8 @@ def main() -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
     xtr, _, _, _ = make_dataset("mnist", device=device)
+    if args.backend == "async":
+        return profile_async(args, xtr, device)
     cfg = afm.AFMConfig(side=30, dim=784, batch=16)
     tm = TopoMap(cfg, backend="kernel", device=device,
                  backend_options={"kernel": args.kernel}
@@ -109,13 +126,31 @@ def main() -> int:
         print(f"  cascade per wave "
               f"{totals['cascade'] * 1e3 / max(waves, 1):.3f} ms")
 
+    (_, aux), events, attr, device_us, wall = profiled(lambda: afm.train(
+        state, xtr, GeneratorDraws(2, device), cfg, num_steps=args.steps,
+        stages=backend.stages))
+    print(f"profiled, {args.steps} steps, {int(aux.waves.sum())} waves: wall "
+          f"{wall * 1e3 / args.steps:.3f} ms/step, device busy "
+          f"{device_us / 1e3 / args.steps:.3f} ms/step, idle share "
+          f"{100 * (1 - device_us / 1e6 / wall):.1f} %")
+    counts = {e.key: e.count for e in events if e.key in HOST_CALLS}
+    print("per step: " + ", ".join(
+        f"{k} {counts.get(k, 0) / args.steps:.2f}" for k in HOST_CALLS))
+    print(events.table(sort_by=attr, row_limit=12))
+    print(events.table(sort_by="self_cpu_time_total", row_limit=12))
+    return 0
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: (its result, its key averages,
+    the attribute of their device time, the device's busy microseconds,
+    wall seconds)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, aux = afm.train(state, xtr, GeneratorDraws(2, device), cfg,
-                           num_steps=args.steps, stages=backend.stages)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -126,13 +161,46 @@ def main() -> int:
     device_us = sum(getattr(e, attr) for e in events
                     if e.device_type == DeviceType.CUDA
                     and not e.is_user_annotation)
-    print(f"profiled, {args.steps} steps, {int(aux.waves.sum())} waves: wall "
-          f"{wall * 1e3 / args.steps:.3f} ms/step, device busy "
-          f"{device_us / 1e3 / args.steps:.3f} ms/step, idle share "
+    return out, events, attr, device_us, wall
+
+
+def profile_async(args, xtr, device) -> int:
+    """``--backend async``: events of ``AsyncBackend.run`` from a map
+    warmed up by 200 events of the same backend."""
+    from repro_torch.api import TopoMap
+    from repro_torch.core import afm
+    from repro_torch.draws import GeneratorDraws
+    cfg = afm.AFMConfig(side=30, dim=784, batch=1)
+    opts = {"kernel": args.kernel, "search": args.search}
+    if args.latency == "constant":
+        opts = {"latency": "constant", "delay": 1.0, "search": args.search}
+    tm = TopoMap(cfg, backend="async", device=device,
+                 backend_options=opts).fit(xtr, num_steps=200)
+    print(f"backend=async {opts}")
+    state, backend = tm.state_, tm.backend
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    backend.run(state, xtr, GeneratorDraws(3, device), args.steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = backend.last_report
+    print(f"run rate, {args.steps} events, {rep.rounds} rounds, "
+          f"{rep.deliveries} deliveries: {args.steps / wall:.1f} events/s, "
+          f"{rep.rounds / wall:.1f} rounds/s, {wall * 1e3 / args.steps:.3f} "
+          f"ms/event, {wall * 1e3 / rep.rounds:.3f} ms/round")
+    _, events, attr, device_us, wall = profiled(
+        lambda: backend.run(state, xtr, GeneratorDraws(2, device),
+                            args.steps))
+    rep = backend.last_report
+    print(f"profiled, {args.steps} events, {rep.rounds} rounds: wall "
+          f"{wall * 1e3 / args.steps:.3f} ms/event "
+          f"({wall * 1e3 / rep.rounds:.3f} ms/round), device busy "
+          f"{device_us / 1e3 / args.steps:.4f} ms/event, idle share "
           f"{100 * (1 - device_us / 1e6 / wall):.1f} %")
     counts = {e.key: e.count for e in events if e.key in HOST_CALLS}
-    print("per step: " + ", ".join(
-        f"{k} {counts.get(k, 0) / args.steps:.2f}" for k in HOST_CALLS))
+    for unit, k in (("event", args.steps), ("round", rep.rounds)):
+        print(f"per {unit}: " + ", ".join(
+            f"{name} {counts.get(name, 0) / k:.2f}" for name in HOST_CALLS))
     print(events.table(sort_by=attr, row_limit=12))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     return 0

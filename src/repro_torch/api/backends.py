@@ -14,6 +14,10 @@ string key:
                (``kernel="staged"``), or the whole step as one CUDA kernel
                (``kernel="fused"``); on CPU tensors the wrappers run their
                plain versions.
+``async``      Event-driven: per-sample dynamics under a message-latency
+               model (``repro_torch.training.async_trainer`` over
+               ``core.events``), its zero-latency fast path on the
+               ``drive_cascade`` or fused kernel.
 =============  ==============================================================
 
 Every backend implements the ``Backend`` protocol:
@@ -205,3 +209,9 @@ class KernelBackend(_DenseBackend):
 
     def bmu(self, w, samples):
         return bmu_ops.bmu(w, samples)
+
+
+# The event-driven trainer lives with the training code; importing it here
+# (after the registry above exists: the module imports this one back) keeps
+# "async" registered whenever the registry is.
+from repro_torch.training import async_trainer as _async_trainer  # noqa: E402,F401

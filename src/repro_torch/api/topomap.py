@@ -35,9 +35,10 @@ class TopoMap:
 
     Args:
       cfg: an ``AFMConfig``; omit to build one from ``**overrides``.
-      backend: registry key ('reference', 'batched', 'kernel').
+      backend: registry key ('reference', 'batched', 'kernel', 'async').
       backend_options: forwarded to the backend constructor (e.g.
-           ``{"search": "heuristic"}`` or ``{"precision": "bf16"}``).
+           ``{"search": "heuristic"}``, ``{"precision": "bf16"}`` or, for
+           'async', ``{"latency": "constant", "delay": 1.0}``).
       seed: seed of the default draw source.
       labeling: unit-labelling rule for ``predict``: 'nearest' (Eq. 7) or
            'majority' (vote of the unit's basin, Eq.-7 fallback when empty).

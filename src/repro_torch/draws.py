@@ -30,6 +30,26 @@ per decode step when it samples at a temperature, as
 ``GeneratorDraws`` is the production source (a ``torch.Generator`` on the
 step's device); ``ReplayDraws`` hands out given arrays in order, so a test
 can feed the port exactly the numbers a JAX key chain produced.
+
+The ``async`` backend (``core.events``) gives every cascade a source of its
+own, as JAX gives each sample event its own ``k_cascade`` chain: per sample
+event it asks the run's source for
+
+1. the search's draws (heuristic only), as above;
+2. ``spawn()``: a child source that stands for ``k_cascade``. The child
+   hands out the drive ``uniform((8, side, side))``, then one block
+   ``uniform((wave_cap, 4, side, side))`` for the cascade's first
+   ``wave_cap`` delivery rounds, then one ``uniform((4, side, side))`` per
+   later round: the kernel paths' layout.
+
+At nonzero latency the waves of different cascades interleave, so one
+ordered stream could not replay them; a child per cascade can, and since
+children are independent it does not matter that the zero-latency fast
+path draws a child's block at its sample round and the engine at its first
+delivery round. ``AsyncBackend.run`` first draws ``randint(0, num_samples,
+(E,))`` sample indices for the whole run (JAX's ``_select_run_samples``).
+The exponential latency model draws ``exponential((4 N,))`` delays from a
+latency source of its own, once per broadcast that enqueues messages.
 """
 from __future__ import annotations
 
@@ -50,6 +70,19 @@ class Draws(Protocol):
     def uniform(self, shape: tuple[int, ...]) -> torch.Tensor: ...  # f32 [0,1)
     def normal(self, shape: tuple[int, ...]) -> torch.Tensor: ...   # f32 N(0,1)
     def gumbel(self, shape: tuple[int, ...]) -> torch.Tensor: ...   # f32 Gumbel
+    def exponential(self, shape: tuple[int, ...]) -> torch.Tensor: ...  # Exp(1)
+    def spawn(self) -> "Draws": ...          # a child source (one cascade)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finaliser: a well-spread 64-bit value from ``x``."""
+    x &= _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
 
 
 class GeneratorDraws:
@@ -57,8 +90,18 @@ class GeneratorDraws:
 
     def __init__(self, seed: int = 0, device: torch.device | str | None = None):
         self.device = resolve_device(device)
+        self.seed = int(seed)
+        self.spawned = 0
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        self.generator.manual_seed(self.seed)
+
+    def spawn(self) -> "GeneratorDraws":
+        """The next child source, seeded on the host from (seed, the count
+        of children so far): no device read, and the parent's own stream
+        does not move."""
+        self.spawned += 1
+        return GeneratorDraws(_mix64(_mix64(self.seed) + self.spawned),
+                              self.device)
 
     def randint(self, low, high, shape):
         return torch.randint(int(low), int(high), tuple(shape),
@@ -77,14 +120,21 @@ class GeneratorDraws:
         u = self.uniform(shape).clamp_(min=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
 
+    def exponential(self, shape):
+        """-log1p(-u), u uniform in [0, 1), as ``jax.random.exponential``."""
+        return -torch.log1p(-self.uniform(shape))
+
 
 class ReplayDraws:
     """Hands out pre-drawn arrays in order; each request must match the
-    next array's shape (and, for ``randint``, its range), else it raises."""
+    next array's shape (and, for ``randint``, its range), else it raises.
+    A nested list in the sequence is a child's draws, which ``spawn``
+    hands out as a ``ReplayDraws`` of its own."""
 
     def __init__(self, arrays: Iterable, device: torch.device | str = "cpu"):
         self.device = torch.device(device)
-        self._queue = collections.deque(np.asarray(a) for a in arrays)
+        self._queue = collections.deque(
+            list(a) if isinstance(a, list) else np.asarray(a) for a in arrays)
 
     def __len__(self) -> int:
         return len(self._queue)
@@ -93,6 +143,9 @@ class ReplayDraws:
         if not self._queue:
             raise IndexError(f"replay exhausted: {kind}{tuple(shape)} requested")
         arr = self._queue.popleft()
+        if isinstance(arr, list):
+            raise ValueError(f"replay mismatch: {kind}{tuple(shape)} requested,"
+                             f" next item is a child's draws")
         if arr.shape != tuple(shape):
             raise ValueError(f"replay mismatch: {kind}{tuple(shape)} requested,"
                              f" next array has shape {arr.shape}")
@@ -115,3 +168,16 @@ class ReplayDraws:
     def gumbel(self, shape):
         arr = self._next("gumbel", shape)
         return torch.as_tensor(arr.astype(np.float32), device=self.device)
+
+    def exponential(self, shape):
+        arr = self._next("exponential", shape)
+        return torch.as_tensor(arr.astype(np.float32), device=self.device)
+
+    def spawn(self) -> "ReplayDraws":
+        if not self._queue:
+            raise IndexError("replay exhausted: spawn requested")
+        item = self._queue.popleft()
+        if not isinstance(item, list):
+            raise ValueError(f"replay mismatch: spawn requested, next array "
+                             f"has shape {item.shape}")
+        return ReplayDraws(item, device=self.device)

@@ -599,3 +599,153 @@ def test_generate_on_the_card_equals_the_cpu(cuda):
             assert float(top2[0] - top2[1]) <= tol
         err = (logits_g[row, :upto + 1] - logits_c[row, :upto + 1]).abs()
         assert float(err.max()) <= tol
+
+
+# ----------------------------------------- the async backend's B = 1 shapes
+
+
+class _HostDraws:
+    """Draws made by a seeded CPU generator and moved to ``device``, with
+    children of their own: a CPU run and a card run consume the very same
+    numbers."""
+
+    def __init__(self, seed, device):
+        self.device, self.seed, self.spawned = torch.device(device), seed, 0
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def randint(self, low, high, shape):
+        return torch.randint(low, high, tuple(shape), generator=self.gen
+                             ).to(self.device)
+
+    def uniform(self, shape):
+        return torch.rand(tuple(shape), generator=self.gen).to(self.device)
+
+    def exponential(self, shape):
+        return -torch.log1p(-self.uniform(shape))
+
+    def spawn(self):
+        self.spawned += 1
+        return _HostDraws(self.seed * 7919 + self.spawned, self.device)
+
+
+def test_bmu_kernel_at_b1(cuda):
+    """The async path's exact search: one sample against 30x30x784."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    w = torch.rand(900, 784, generator=gen, device=cuda)
+    for k in range(8):
+        s = torch.rand(1, 784, generator=gen, device=cuda)
+        idx, q2 = bmu_ops.bmu(w, s)
+        idx_r, q2_r = bmu_ref.bmu_ref(w, s)
+        bound = bmu_ref.tie_bound(w, s)
+        assert bool(idx == idx_r) or bool(bmu_ref.top2_gap(w, s) <= bound)
+        assert bool((q2 - q2_r).abs() <= bound)
+
+
+@pytest.mark.parametrize("search", ["given", "exact"])
+def test_fused_step_parts_at_b1_with_recv0_matches_the_cpu(cuda, search):
+    """``fused_step_parts`` as the async fast path calls it (one sample, a
+    child's draws, ``recv0``) on the card against the plain version on the
+    CPU: counters, receipts (``recv0`` added), size and waves bitwise, the
+    GMU equal (given, or the exact search away from a tie), w within
+    8 (1 + waves) ulps of max |w|."""
+    from repro_torch.core.search import SearchResult
+    cfg = AFMConfig(side=30, dim=784)
+    w, c, s, _, _ = _fused_inputs(cuda, 30, 784, 1, seed=5)
+    recv0 = torch.randint(0, 5, (900,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(2))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        res = None
+        if search == "given":
+            g = torch.tensor([417], dtype=torch.int32, device=dev)
+            res = SearchResult(g, torch.zeros(1, device=dev), g * 0, g * 0)
+        before = fused_ops.launches
+        outs.append(fused_ops.fused_step_parts(
+            w.to(dev), c.reshape(-1).to(dev), s.to(dev), _HostDraws(3, dev),
+            cfg, l_c=0.3, p_i=0.9, search_result=res, recv0=recv0.to(dev)))
+        assert fused_ops.launches == before + (dev.type == "cuda")
+    card, cpu = outs
+    assert int(cpu.waves) > 0
+    for f in ("c", "gmu", "size", "waves", "recv"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    eps = torch.finfo(torch.float32).eps
+    assert float((card.w.cpu() - cpu.w).abs().max()) <= \
+        8 * (1 + int(cpu.waves)) * eps * float(cpu.w.abs().max())
+
+
+def test_drive_cascade_from_one_samples_merge(cuda):
+    """The staged fast path's cascade: ``drive_cascade`` fed from a
+    one-sample Eq. 3 merge at 30x30x784, bitwise its plain version."""
+    from repro_torch.core import afm
+    cfg = AFMConfig(side=30, dim=784)
+    w, c, s, drive, bern = _fused_inputs(cuda, 30, 784, 1, seed=7)
+    c = torch.full_like(c, 3)              # the GMU's drive fires it
+    gmu, _ = bmu_ops.bmu(w, s)
+    merged, counts = afm.adapt_merge(w, s, gmu, cfg)
+    args = (merged, c, counts.to(torch.int32).reshape(30, 30), drive, bern)
+    out = cas_ops.drive_cascade(*args, l_c=0.3, theta=4, budget=16)
+    ref = cas_ref.drive_cascade_ref(*args, l_c=0.3, theta=4, budget=16)
+    assert int(ref[3][1]) > 0
+    for a, r in zip(out, ref):
+        assert _same_bits(a, r) if a.is_floating_point() else torch.equal(a, r)
+
+
+def test_spawn_makes_no_host_sync(cuda):
+    """A child source is seeded on the host: spawning one and drawing from
+    it never waits for the card."""
+    from repro_torch.draws import GeneratorDraws
+    draws = GeneratorDraws(0, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            child = draws.spawn()
+            child.uniform((8, 30, 30))
+            child.uniform((16, 4, 30, 30))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    a, b = GeneratorDraws(0, cuda), GeneratorDraws(0, cuda)
+    assert torch.equal(a.spawn().uniform((5,)), b.spawn().uniform((5,)))
+
+
+ASYNC_CASES = {"staged": {}, "fused": dict(kernel="fused"),
+               "event": dict(engine="event"),
+               "constant": dict(latency="constant", delay=1.0),
+               "exponential": dict(latency="exponential", delay=1.5)}
+
+
+@pytest.mark.parametrize("name", sorted(ASYNC_CASES))
+def test_run_events_on_the_card_equals_the_cpu(cuda, name):
+    """A small run (8x8, D 16, 64 events, exact search, a hot schedule) on
+    the card and on the CPU from the same host draws: integers, the report
+    and the clocks bitwise, w within 64 ulps of max |w| (the fused kernel's
+    merge rounds apart from the plain one's)."""
+    from repro_torch.convert import state_to_numpy, state_from_numpy
+    from repro_torch.core import afm
+    from repro_torch.core import events
+    cfg = AFMConfig(side=8, dim=16, theta=3, i_max=96, e_factor=0.5)
+    gen = torch.Generator().manual_seed(4)
+    data = torch.randn(64, 16, generator=gen)
+    base = afm.init(_HostDraws(1, "cpu"), cfg, data)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        outs.append(events.run_events(
+            state_from_numpy(state_to_numpy(base), dev), data.to(dev),
+            _HostDraws(2, dev), cfg, events.EventConfig(**ASYNC_CASES[name]),
+            search=events.search_exact, p_fn=lambda i, c: 0.8,
+            lat_draws=_HostDraws(3, dev)))
+    (sg, ag, rg), (sc, ac, rc) = outs
+    assert rc.deliveries > 0
+    assert torch.equal(sg.c.cpu(), sc.c)
+    for a, r in zip(ag, ac):
+        if a.is_floating_point():
+            assert float((a.cpu() - r).abs().max()) <= 1e-4 * float(
+                r.abs().max())
+        else:
+            assert torch.equal(a.cpu(), r)
+    for f in rc._fields:
+        a, r = getattr(rg, f), getattr(rc, f)
+        assert torch.equal(a.cpu(), r) if torch.is_tensor(a) else a == r, f
+    eps = torch.finfo(torch.float32).eps
+    assert float((sg.w.cpu() - sc.w).abs().max()) <= \
+        64 * eps * float(sc.w.abs().max())

@@ -5,6 +5,8 @@ The port takes its random numbers from a ``ReplayDraws`` fed with the draws
 that JAX's own key chain produces, built here from ``jax.random`` in the
 test process (never from ``tests/golden``), in the order the port asks.
 """
+import contextlib
+
 import jax
 import numpy as np
 import torch
@@ -74,7 +76,9 @@ def train_draws(key, cfg, n_data: int, num_steps: int, waves, *,
 
 
 def replay(arrays) -> ReplayDraws:
-    return ReplayDraws([np.asarray(a) for a in arrays], device="cpu")
+    """A CPU ``ReplayDraws``; a nested list stays a child's draws."""
+    return ReplayDraws([a if isinstance(a, list) else np.asarray(a)
+                        for a in arrays], device="cpu")
 
 
 def t(x) -> torch.Tensor:
@@ -106,3 +110,90 @@ def jax_cfg(**kw):
 def torch_cfg(**kw):
     from repro_torch.core.afm import AFMConfig
     return AFMConfig(**kw)
+
+
+def event_draws(step_keys, cfg, waves, *, heuristic: bool,
+                wave_cap: int) -> list:
+    """``run_events``' draws for JAX's per-event ``step_keys``, in the
+    port's order: per event the search's draws (heuristic only), then a
+    nested list, the event's cascade child in the kernel paths' layout from
+    JAX's ``k_cascade`` chain: the drive, the first ``wave_cap`` waves'
+    draws stacked into one block, then one per delivery round past the
+    block; ``waves`` are JAX's per-event delivery-round counts
+    (``aux.waves``)."""
+    out = []
+    for key, w in zip(step_keys, np.asarray(waves).tolist()):
+        k_search, k_cascade = jax.random.split(key)
+        if heuristic:
+            out += search_draws(k_search, cfg.n_units, cfg.phi, 1, cfg.e)
+        chain = cascade_draws(k_cascade, cfg.side, max(w, wave_cap))
+        block = np.stack([np.asarray(x) for x in chain[1:1 + wave_cap]])
+        out.append([chain[0], block] + chain[1 + wave_cap:1 + w])
+    return out
+
+
+def select_run_draws(key, n_data: int, num_steps: int):
+    """JAX ``AsyncBackend.run``'s sample selection
+    (``_select_run_samples``): the (num_steps,) indices, which the port
+    draws first, and the per-event step keys."""
+    pairs = jax.vmap(jax.random.split)(jax.random.split(key, num_steps))
+    idx = jax.vmap(lambda k: jax.random.randint(k, (1,), 0, n_data))(
+        pairs[:, 1])[:, 0]
+    return np.asarray(idx), pairs[:, 0]
+
+
+@contextlib.contextmanager
+def recorded_exponentials():
+    """Records the exponential draws JAX's event engine makes, in the order
+    it makes them: ``jax.random.exponential`` is wrapped with an ordered
+    debug callback while the engine is traced anew (its jitted runners are
+    cached per config, so the cache is cleared on the way in and out).
+    JAX draws one ``exponential((4N,))`` per broadcast that enqueues, from
+    its latency key chain; the list replays as the port's latency source."""
+    from repro.core import events as jevents
+    rec = []
+    real = jax.random.exponential
+
+    def wrapped(key, shape=(), dtype=float):
+        out = real(key, shape, dtype)
+        jax.debug.callback(lambda v: rec.append(np.array(v)), out,
+                           ordered=True)
+        return out
+
+    jevents._compiled_runner.cache_clear()
+    jax.random.exponential = wrapped
+    try:
+        yield rec
+    finally:
+        jax.random.exponential = real
+        jevents._compiled_runner.cache_clear()
+
+
+def assert_same_run(jout, tout, w0, data, w_ulps: int):
+    """A port ``run_events`` result (state, aux, report) against JAX's:
+    integers, accounting and the float32 times bitwise, the weights within
+    ``w_ulps`` ulps of the largest weight, q2 within 4x the BMU tie bound of
+    the starting weights ``w0`` (the runs are short, so the weights move
+    little)."""
+    (js, ja, jr), (ts, ta, tr) = jout, tout
+    for name, a, b in (("c", js.c, ts.c), ("gmu", ja.gmu, ta.gmu),
+                       ("cascade_size", ja.cascade_size, ta.cascade_size),
+                       ("waves", ja.waves, ta.waves),
+                       ("greedy", ja.greedy_steps, ta.greedy_steps),
+                       ("nevents", jr.nevents, tr.nevents),
+                       ("clock", jr.clock, tr.clock)):
+        np.testing.assert_array_equal(np.asarray(a), b.cpu().numpy(),
+                                      err_msg=name)
+    assert int(js.i) == ts.i
+    for f in ("rounds", "samples", "deliveries", "dropped", "sent",
+              "dropped_fault", "stranded", "samples_dead"):
+        assert int(getattr(jr, f)) == getattr(tr, f), f
+    assert np.float32(jr.t_end) == np.float32(tr.t_end)
+    np.testing.assert_array_equal(np.asarray(jr.shard_counts),
+                                  np.asarray(tr.shard_counts))
+    wj, wt = np.asarray(js.w), ts.w.cpu().numpy()
+    assert np.abs(wj - wt).max() <= w_ulps * F32_EPS * np.abs(wj).max()
+    samples = np.asarray(data)[:ja.gmu.shape[0]]
+    bound = bmu_ref.tie_bound(t(w0), t(samples)).numpy()
+    assert np.all(np.abs(np.asarray(ja.q2)[:, 0] - ta.q2[:, 0].cpu().numpy())
+                  <= 4 * bound)
