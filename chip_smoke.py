@@ -31,7 +31,20 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 7. times each kernel beside its bound, its plain version and a library call,
    queued ahead of the card (the card's time), with the back-to-back time
    (the host's rate where the wrapper is slower) printed beside it, and
-   prints each kernel's plan (grid, splits);
+   prints each kernel's plan (grid, splits); the main path's queries run
+   through the serving engine, ``bmu`` on chunks of at most 4,096;
+7b. serves the staged map (``serving_path``): ``TopoMap.save`` / ``load``
+   bitwise on the card; ``MapService`` on the 10,000 test samples and on
+   one-sample and ragged requests of 2..8 under the tie-bound contract,
+   one signature per bucket; a ``MapGateway`` under 8 threads x 250
+   batch-1 requests and a 2-replica ``MapFleet`` from a ``MapStore``
+   rolled to v2 mid-run, every answer held to the plain version
+   (requests/s, mean dispatch, p50/p95/p99; no failure); ``update`` on
+   the ``kernel`` backend bitwise ``partial_fit`` with no new signature;
+   ``serve_map`` in-process; then ``BmuEngine.bmu`` at buckets 8 and
+   4,096, a batch-1 request through the engine beside the bare wrapper
+   and ``cdist().min``, and a 10,000-sample query as one launch beside the
+   engine's 4,096 + 4,096 + 1,808;
 8. holds the sliding-window decode kernel (``kernels/swa``) against its plain
    version on the card, f32 and bf16, at llama3.2-1b's long_500k and serve
    decode shapes and at ragged ones;
@@ -74,6 +87,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -623,13 +637,22 @@ def check_fused_vs_staged_steps(device, xtr, staged, fused):
 
 
 def _launch_counts():
+    """Each kernel's launches through its wrapper's count, and
+    ``bmu@<bucket>``: the serving engine's dispatches by bucket, each one
+    ``bmu`` launch (counted in ``bmu`` too)."""
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.cascade import ops as cas_ops
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.swa import ops as swa_ops
-    return {"bmu": bmu_ops.launches, "cascade_wave": cas_ops.launches,
-            "drive_cascade": cas_ops.drive_launches,
-            "fused_step": fused_ops.launches, "swa_decode": swa_ops.launches}
+    from repro_torch.serving import maps
+    counts = {"bmu": bmu_ops.launches,
+              "cascade_wave": cas_ops.launches,
+              "drive_cascade": cas_ops.drive_launches,
+              "fused_step": fused_ops.launches,
+              "swa_decode": swa_ops.launches}
+    for key, n in sorted(maps.GLOBAL_COMPILE_CACHE.dispatches.items()):
+        counts[f"bmu@{key[0]}"] = counts.get(f"bmu@{key[0]}", 0) + n
+    return counts
 
 
 def _reset_launch_counts():
@@ -637,19 +660,23 @@ def _reset_launch_counts():
     from repro_torch.kernels.cascade import ops as cas_ops
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.serving import maps
     bmu_ops.launches = cas_ops.launches = fused_ops.launches = 0
     cas_ops.drive_launches = swa_ops.launches = 0
+    maps.GLOBAL_COMPILE_CACHE.dispatches.clear()
 
 
 def main_path(device, xtr, ytr, xte, yte, steps, kernel="staged",
-              required=("bmu", "drive_cascade")):
+              required=("bmu", "drive_cascade", "bmu@4096")):
     """Phase 6: train and query through the entry points a user
     calls, with the ``kernel`` backend's ``kernel`` option. Returns the
     trained map, the launch counts of its training and of the whole run,
     and its fit samples/s. Fails unless every kernel in ``required`` was
-    launched in this run, the step kernel (``drive_cascade`` staged,
-    ``fused_step`` fused) once a training step, and ``cascade_wave`` once
-    a wave past the 16-wave block."""
+    launched in this run (the queries run through the serving engine:
+    ``bmu`` on 4,096 + 4,096 + 1,808 samples, bucket 4,096's chunks), the
+    step kernel (``drive_cascade`` staged, ``fused_step`` fused) once a
+    training step, and ``cascade_wave`` once a wave past the 16-wave
+    block."""
     from repro_torch.api import TopoMap
     from repro_torch.core import afm
     from repro_torch.draws import GeneratorDraws
@@ -754,8 +781,8 @@ def kernel_table(device, tm, xtr, xte, train_launches, launches, worst):
     for label, s, iters, n_launch in (
             ("bmu (training search, B=16)", xtr[:16].contiguous(), 200,
              train_launches["bmu"]),
-            ("bmu (queries, B=10000)", xte.contiguous(), 20,
-             launches["bmu"] - train_launches["bmu"])):
+            ("bmu (queries, bucket 4096)", xte[:4096].contiguous(), 40,
+             launches.get("bmu@4096", 0))):
         (n, d), b = w.shape, s.shape[0]
         plan = bmu_ops.plan(n, b, d, sm_count(w.device))
         print(f"{label}: plan {plan.kernel}_kernel, grid {plan.grid} "
@@ -937,6 +964,353 @@ def fused_row(device, tmf, xtr, launches, worst, given=False):
         else "operations",
         "library_ms": None}
 
+
+#: batch-1 requests of the gateway phase: 8 client threads x 250
+GATEWAY_CLIENTS, GATEWAY_REQUESTS = 8, 250
+#: fleet phase: 8 client threads x 40 requests of 8 samples, 2 replicas
+FLEET_CLIENTS, FLEET_REQUESTS, FLEET_BATCH = 8, 40, 8
+#: online updates of the update phase, B = 16 each
+UPDATE_STEPS = 4
+
+
+def _bmu_bound(n, b, d, f32_peak, bw):
+    """Least time (ms) of an exact search of b samples over n units of d
+    features, and what bounds it: w and s read once, idx and q2 written
+    once; 2 b n d FLOPs of distances and 2 (n + b) d of norms."""
+    nbytes = 4 * (n * d + b * d) + 8 * b
+    flops = 2 * b * n * d + 2 * (n + b) * d
+    by_bytes, by_ops = nbytes / bw, flops / f32_peak
+    return max(by_bytes, by_ops) * 1e3, (
+        "bytes" if by_bytes > by_ops else "operations")
+
+
+def _client_threads(n_threads, fn):
+    """Runs ``fn(k)`` on ``n_threads`` threads; re-raises the first error."""
+    import threading
+    errors = []
+
+    def run(k):
+        try:
+            fn(k)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+
+
+def _held_to_ref(w, s, idx, q2, what):
+    """Holds a served (idx, q2) to the plain version on the same weights
+    under the tie-bound contract: an index may differ only where the
+    reference's top-two gap is within the tie bound, q2 (where given) only
+    within that bound. Returns (index differences, max |dq2|)."""
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    idx_r, q2_r = bmu_ref.bmu_ref(w, s)
+    bound = bmu_ref.tie_bound(w, s)
+    differ = idx != idx_r
+    if differ.any() and not bool((bmu_ref.top2_gap(w, s)[differ]
+                                  <= bound[differ]).all()):
+        raise AssertionError(f"{what}: indices differ away from ties")
+    if q2 is None:
+        return int(differ.sum()), 0.0
+    dq2 = (q2 - q2_r).abs()
+    if not bool((dq2 <= bound).all()):
+        raise AssertionError(f"{what}: q2 off by {float(dq2.max())} > bound")
+    return int(differ.sum()), float(dq2.max())
+
+
+def _labels_of_ref(w, labels, s):
+    """The plain version's predictions of ``s`` on a map (``labels`` of its
+    exact BMUs), and the samples within the tie bound of a tie, where a
+    served prediction may name the other unit's label."""
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    idx_r, _ = bmu_ref.bmu_ref(w, s)
+    near = bmu_ref.top2_gap(w, s) <= bmu_ref.tie_bound(w, s)
+    return labels[idx_r.long()], near
+
+
+def serving_path(device, tm, xte, worst):
+    """Phase 7b, the map-serving tier on the staged main path's 30x30x784
+    map: (1) ``tm.save`` and ``TopoMap.load`` on the card, bitwise, the
+    checksums verified; (2) ``MapService.from_artifact`` serving the 10,000
+    test samples (bucket 4,096: 4,096 + 4,096 + 1,808), 64 one-sample
+    requests and ragged ones of 2..8 (bucket 8), each held to the plain
+    version under the tie-bound contract and repeated bitwise, one
+    signature per bucket, one ``bmu`` launch a dispatch; (3) a
+    ``MapGateway`` with 8 client threads x 250 batch-1 requests, every
+    answer held to the plain version; (4) a 2-replica ``MapFleet`` from a
+    ``MapStore`` under 8 threads of batch-8 requests, v2 published and
+    ``reload()`` mid-run, no failure, every prediction the plain version's
+    on v1 or v2; (5) ``update`` on the ``kernel`` backend, 4 steps of
+    B = 16, bitwise ``TopoMap.partial_fit``, no new signature, the new
+    weights served; (6) ``serve_map.main`` in-process through the gateway.
+    Launch counts are those of (1)-(6). Then (7) the kernel rows:
+    ``BmuEngine.bmu`` at buckets 8 and 4,096, a batch-1 request through
+    the engine beside the bare wrapper and ``cdist().min``, and the
+    10,000-sample query as one B = 10,000 launch beside the engine's
+    chunks."""
+    import shutil
+    from repro_torch.api import MapStore, TopoMap, load_artifact
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    from repro_torch.launch import serve_map
+    from repro_torch.serving import (LatencyHistogram, MapFleet, MapGateway,
+                                     MapService, maps)
+    from repro_torch.training.checkpoint import file_sha256
+    f32_peak, bw = peaks_for(torch.cuda.get_device_name(0))
+    cache = maps.GLOBAL_COMPILE_CACHE
+    work = ROOT / "build" / "chip_smoke_maps"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    _reset_launch_counts()
+
+    # (1) artifact round trip on the card
+    path = tm.save(str(work / "art"), extra_meta={"by": "chip_smoke"})
+    art = load_artifact(path, device=device)
+    for fname, digest in art.meta["checksums"].items():
+        if file_sha256(str(Path(path) / fname)) != digest:
+            raise AssertionError(f"artifact {fname}: checksum differs")
+    tm2 = TopoMap.load(path, device=device)
+    if not (torch.equal(tm.transform(xte), tm2.transform(xte))
+            and torch.equal(tm.predict(xte), tm2.predict(xte))
+            and torch.equal(tm.state_.w, tm2.state_.w)):
+        raise AssertionError("TopoMap.save/load: not bitwise")
+    print(f"serving (1): save -> load on the card bitwise (transform, "
+          f"predict, w); checksums of {sorted(art.meta['checksums'])} "
+          f"verified")
+
+    # (2) the service: 10,000 samples (bucket 4,096), one-sample and
+    # ragged requests of 2..8 (bucket 8), each served twice
+    svc = MapService.from_artifact(path, device=device)
+    w = svc.snapshot()[0].w
+    launches0, dispatches0 = bmu_ops.launches, sum(cache.dispatches.values())
+    requests = ([("4096", xte)] + [("1", xte[i:i + 1]) for i in range(64)]
+                + [("8", xte[64 + 8 * k:64 + 8 * k + b])
+                   for k, b in enumerate(range(2, 9))])
+    err = {"4096": 0.0, "1": 0.0, "8": 0.0}
+    ties = {"4096": 0, "1": 0, "8": 0}
+    for kind, s in requests:
+        idx, q2, _ = svc.serve_bmu(s)
+        idx2, q22, _ = svc.serve_bmu(s)
+        if not (torch.equal(idx, idx2) and torch.equal(q2, q22)):
+            raise AssertionError(f"service, {len(s)} samples: identical "
+                                 f"requests differ")
+        n_tie, e = _held_to_ref(w, s, idx, q2, f"service, {len(s)} samples")
+        ties[kind] += n_tie
+        err[kind] = max(err[kind], e)
+    err["8"] = max(err["8"], err["1"])
+    worst["bmu"] = max(worst["bmu"], *err.values())
+    shape_keys = [k for k in cache.keys if k[1:3] == tuple(w.shape)]
+    if ({k[0] for k in shape_keys} != {8, 4096}
+            or len(shape_keys) != 2 or cache.trace_count != len(cache.keys)):
+        raise AssertionError(f"signatures: {cache.trace_count} for "
+                             f"{sorted(cache.keys)}")
+    dispatched = sum(cache.dispatches.values()) - dispatches0
+    if bmu_ops.launches - launches0 != dispatched:
+        raise AssertionError(f"service: {bmu_ops.launches - launches0} bmu "
+                             f"launches for {dispatched} dispatches")
+    print(f"serving (2): through MapService, each request twice: 10,000 "
+          f"queries ({ties['4096']} near-tie index differences from the "
+          f"plain version, max|dq2| {err['4096']:.3g}); 64 one-sample "
+          f"requests ({ties['1']}, {err['1']:.3g}); 7 of 2..8 samples "
+          f"({ties['8']}, {err['8']:.3g}); repeats bitwise; signatures "
+          f"{sorted(k[0] for k in shape_keys)}; {dispatched} dispatches, "
+          f"as many bmu launches")
+
+    # (3) the gateway: 8 threads x 250 batch-1 requests
+    n_req = GATEWAY_CLIENTS * GATEWAY_REQUESTS
+    queries = xte[:n_req].cpu().numpy()
+    answers = [None] * n_req
+    lat = LatencyHistogram()
+    with MapGateway(max_delay=0.002, device=device) as gw:
+        gw.attach("map", svc)
+
+        def client(k):
+            for i in range(k, n_req, GATEWAY_CLIENTS):
+                t0 = time.perf_counter()
+                answers[i] = gw.transform("map", queries[i:i + 1])
+                lat.record(time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        _client_threads(GATEWAY_CLIENTS, client)
+        gw_s = time.perf_counter() - t0
+        g = gw.stats
+    got = torch.as_tensor(np.concatenate(answers), device=device)
+    gw_ties, _ = _held_to_ref(w, xte[:n_req], got, None, "gateway")
+    q = lat.quantiles()
+    print(f"serving (3): gateway, {GATEWAY_CLIENTS} threads x "
+          f"{GATEWAY_REQUESTS} batch-1 requests: {n_req / gw_s:.1f} "
+          f"requests/s, {g.dispatches} dispatches of mean "
+          f"{g.mean_dispatch_size():.2f} samples (max {g.max_dispatch}); "
+          f"latency ms p50 {q['p50'] * 1e3:.3f} p95 {q['p95'] * 1e3:.3f} "
+          f"p99 {q['p99'] * 1e3:.3f}; every answer the plain version's "
+          f"({gw_ties} near-tie differences)")
+
+    # (4) a 2-replica fleet from a store, v2 published and rolled mid-run
+    store = MapStore(str(work / "store"))
+    store.save(tm, "mnist")
+    fleet = MapFleet.from_store(store.root, "mnist", replicas=2,
+                                device=device, max_outstanding=64,
+                                shed_deadline=30.0)
+    v2 = tm.state_._replace(w=torch.flip(tm.state_.w, [0]).contiguous())
+    labels2 = torch.flip(tm.unit_labels_, [0])
+    n_batches = FLEET_CLIENTS * FLEET_REQUESTS
+    xf = xte[:n_batches * FLEET_BATCH]
+    want = [_labels_of_ref(v.w, lab, xf)
+            for v, lab in ((tm.state_, tm.unit_labels_), (v2, labels2))]
+
+    def plain_on(i, p, versions=(0, 1)):
+        rows = slice(FLEET_BATCH * i, FLEET_BATCH * (i + 1))
+        return any(bool(((p == want[v][0][rows]) | want[v][1][rows]).all())
+                   for v in versions)
+
+    failures, done, preds = [], [0], [None] * n_batches
+
+    def fleet_client(k):
+        for i in range(k, n_batches, FLEET_CLIENTS):
+            try:
+                preds[i] = fleet.predict(
+                    xf[FLEET_BATCH * i:FLEET_BATCH * (i + 1)])
+            except BaseException as e:  # noqa: BLE001 — counted
+                failures.append(e)
+                continue
+            done[0] += 1
+
+    def publish(k):
+        if k == 0:
+            deadline = time.perf_counter() + 60
+            while (done[0] < n_batches // 4
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+            store.save_state("mnist", cfg=tm.cfg, state=v2,
+                             unit_labels=labels2)
+            fleet.reload()
+        else:
+            fleet_client(k - 1)
+
+    t0 = time.perf_counter()
+    _client_threads(FLEET_CLIENTS + 1, publish)
+    fleet_s = time.perf_counter() - t0
+    f = fleet.stats
+    failures += [("torn or wrong predict", i) for i, p in enumerate(preds)
+                 if p is not None and not plain_on(i, p)]
+    if failures or f.sheds or fleet.version != 2 or f.reloads != 1:
+        raise AssertionError(f"fleet: {failures[:3]}, sheds {f.sheds}, "
+                             f"version {fleet.version}")
+    if not plain_on(0, fleet.predict(xf[:FLEET_BATCH]), versions=(1,)):
+        raise AssertionError("fleet: v2 not served after the reload")
+    print(f"serving (4): fleet of 2 replicas, {FLEET_CLIENTS} threads x "
+          f"{FLEET_REQUESTS} requests of {FLEET_BATCH}: {f.completed} "
+          f"completed, 0 failed, 0 shed, rolled v1 -> v{fleet.version} "
+          f"mid-run, every prediction the plain version's on v1 or v2; "
+          f"{f.completed / fleet_s:.1f} requests/s; latency ms "
+          f"{f.latency.summary()}")
+
+    # (5) online updates on the kernel backend
+    upd = MapService(tm.cfg, tm.state_, update_backend="kernel", seed=SEED,
+                     device=device)
+    upd.transform(xte[:8])
+    traces = cache.trace_count
+    mirror = TopoMap.from_state(tm.state_, tm.cfg, backend="kernel",
+                                seed=SEED, device=device)
+    for k in range(UPDATE_STEPS):
+        batch = xte[16 * k:16 * (k + 1)]
+        aux = upd.update(batch)
+        mirror.partial_fit(batch)
+        st, _ = upd.snapshot()
+        same = (torch.equal(st.w.view(torch.int32),
+                            mirror.state_.w.view(torch.int32))
+                and torch.equal(st.c, mirror.state_.c)
+                and st.i == mirror.state_.i
+                and all(torch.equal(getattr(aux, a),
+                                    getattr(mirror.fit_aux_, a))
+                        for a in ("gmu", "cascade_size", "waves")))
+        if not same:
+            raise AssertionError(f"update {k}: not bitwise partial_fit")
+    served, q2, _ = upd.serve_bmu(xte)
+    if not torch.equal(served, mirror.transform(xte)):
+        raise AssertionError("update: the new weights are not served")
+    _held_to_ref(upd.snapshot()[0].w, xte, served, q2, "update")
+    if cache.trace_count != traces:
+        raise AssertionError("update: a new signature")
+    print(f"serving (5): {UPDATE_STEPS} kernel-backend updates of B = 16 "
+          f"bitwise TopoMap.partial_fit (w, c, i, gmu, sizes, waves); the "
+          f"new weights served (held to the plain version), no new "
+          f"signature")
+
+    # (6) the CLI, in-process
+    t0 = time.perf_counter()
+    serve_map.main(["--artifact", path, "--random", "4096", "--batch", "1",
+                    "--concurrency", "8", "--gateway"])
+    print(f"serving (6): serve_map --gateway in {time.perf_counter() - t0:.2f}"
+          f" s")
+    launches = _launch_counts()
+    print(f"serving launches {launches}")
+    if not (launches.get("bmu@4096") and launches.get("bmu@8")):
+        raise AssertionError(f"serving: a bucket was not dispatched: "
+                             f"{launches}")
+    print(f"serving phase: {time.perf_counter() - t_phase:.2f} s")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # (7) kernel rows: the engine's dispatch at each bucket
+    rows = []
+    (n, d), engine = w.shape, svc.engine
+    for label, b, bucket in (("bmu (serving, bucket 8)", 8, "8"),
+                             ("bmu (serving, bucket 4096)", 4096, "4096")):
+        s = xte[:b].contiguous()
+        plan = bmu_ops.plan(n, b, d, sm_count(w.device))
+        print(f"{label}: plan {plan.kernel}_kernel, grid {plan.grid} "
+              f"({plan.blocks} blocks, {plan.splits} splits of the units)")
+        t = time_both({
+            "plain": lambda: bmu_ref.bmu_ref(w, s),
+            "engine": lambda: engine.bmu(w, s),
+            "library": lambda: torch.cdist(s, w).min(dim=1),
+        }, 40 if b > 8 else 500, label)
+        bound, by = _bmu_bound(n, b, d, f32_peak, bw)
+        rows.append({
+            "name": label, "route": "cuda",
+            "source": "src/repro_torch/kernels/bmu/bmu.cu",
+            "replaces": "src/repro/kernels/bmu/bmu.py:26",
+            "launches": launches[f"bmu@{bucket}"],
+            "max_abs_err": err[bucket],
+            "ms": t["engine"], "plain_ms": t["plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": t["library"]})
+    s1 = xte[:1].contiguous()
+    fns = {"engine": lambda: engine.bmu(w, s1),
+           "wrapper": lambda: bmu_ops.bmu(w, s1),
+           "plain": lambda: bmu_ref.bmu_ref(w, s1),
+           "library": lambda: torch.cdist(s1, w).min(dim=1)}
+    queued = time_in_turns(fns, 100, queue_ahead=True)
+    b2b = time_in_turns(fns, 500)
+    print("bmu (batch-1 request): " + ", ".join(
+        f"{k} {queued[k]:.5f} ms queued ahead ({b2b[k]:.5f} back to back)"
+        for k in fns))
+    bound, by = _bmu_bound(n, 1, d, f32_peak, bw)
+    rows.append({
+        "name": "bmu (batch-1 request, BmuEngine.bmu)", "route": "cuda",
+        "source": "src/repro_torch/kernels/bmu/bmu.cu",
+        "replaces": "src/repro/kernels/bmu/bmu.py:26",
+        "launches": launches["bmu@8"], "max_abs_err": err["1"],
+        "ms": queued["engine"], "plain_ms": queued["plain"],
+        "bound_ms": bound, "bound_by": by, "library_ms": queued["library"],
+        "b2b_ms": b2b["engine"], "wrapper_ms": queued["wrapper"],
+        "wrapper_b2b_ms": b2b["wrapper"]})
+    xq = xte.contiguous()
+    t = time_both({"one B=10000 launch": lambda: bmu_ops.bmu(w, xq),
+                   "engine": lambda: engine.bmu(w, xq)}, 20,
+                  "10,000-sample query")
+    print(f"10,000-sample query: {1e4 / t['one B=10000 launch']:.1f} "
+          f"samples/ms as one B = 10,000 launch, {1e4 / t['engine']:.1f} "
+          f"through the engine, 4,096 + 4,096 + 1,808 (queued)")
+    return rows
 
 #: events of the async fast-path phases A and B: the kernel path's 500
 #: steps x 16 samples, one sample an event
@@ -1634,11 +2008,12 @@ def main() -> int:
         device, xtr, ytr, xte, yte, STEPS)
     tmf, _, fused_launches, fused_rate = main_path(
         device, xtr, ytr, xte, yte, STEPS, kernel="fused",
-        required=("fused_step", "bmu"))
+        required=("fused_step", "bmu@4096"))
     print(f"fit samples/s at 30x30x784, B=16, {STEPS} steps: staged "
           f"{staged_rate:.1f}, fused {fused_rate:.1f}")
     rows = kernel_table(device, tm, xtr, xte, train_launches, launches, worst)
     rows.append(fused_row(device, tmf, xtr, fused_launches, fused_worst))
+    rows += serving_path(device, tm, xte, worst)
     del tm, tmf
     tmaf, af_launches, af_rate = async_fast_path(device, xtr, ytr, xte, yte,
                                                  "fused")

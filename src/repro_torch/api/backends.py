@@ -59,6 +59,18 @@ def available_backends() -> tuple[str, ...]:
     return tuple(sorted(BACKENDS))
 
 
+def add_backend_argument(parser, *, default: str = "batched",
+                         flag: str = "--backend"):
+    """Add a ``--backend`` CLI argument whose choices and help text come
+    from the live registry, so launchers can never drift from the set of
+    registered backends."""
+    choices = sorted(available_backends())
+    return parser.add_argument(
+        flag, default=default, choices=choices,
+        help=f"execution backend ({', '.join(choices)}; "
+             f"default: {default})")
+
+
 def get_backend(name: str, cfg: AFMConfig, **options):
     """Instantiate a registered backend for ``cfg``."""
     try:

@@ -6,12 +6,15 @@
     units = tm.transform(xte)          # BMU projection
     pred = tm.predict(xte)             # unit-label classification
     q = tm.quantization_error(xte)
+    tm.save("artifacts/mnist-map")     # versioned artifact; TopoMap.load()
 
 Everything runs on ``device`` (CUDA unless the caller asks for the CPU).
 Randomness comes from a draw source (``repro_torch.draws``): a
 ``GeneratorDraws(seed)`` unless ``fit`` is handed one. Inference
-(``transform`` / ``predict`` / ``quantization_error``) calls the BMU kernel
-wrapper directly, ``chunk`` samples per launch.
+(``transform`` / ``predict`` / ``quantization_error``) runs on the same
+bucketed engine that backs ``repro_torch.serving.maps.MapService``:
+requests are cut into chunks of at most the top bucket (4,096 samples),
+each one launch of the ``bmu`` kernel on exactly its rows.
 """
 from __future__ import annotations
 
@@ -24,10 +27,9 @@ from repro_torch.api import backends as backends_lib
 from repro_torch.core import classifier, metrics
 from repro_torch.core.afm import AFMConfig, AFMState
 from repro_torch.draws import GeneratorDraws
-from repro_torch.kernels.bmu import ops as bmu_ops
 
-#: samples per BMU launch at inference; one launch covers a 10k test set
-INFERENCE_CHUNK = 16384
+#: backend names of JAX-written artifacts, in the port's registry
+_JAX_BACKENDS = {"pallas": "kernel"}
 
 
 class TopoMap:
@@ -71,6 +73,7 @@ class TopoMap:
         self.unit_labels_: torch.Tensor | None = None
         self._backend_state = None
         self._draws = None
+        self._engine = None
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device).contiguous()
@@ -138,24 +141,67 @@ class TopoMap:
             tm.unit_labels_ = tm._tensor(unit_labels, torch.int32)
         return tm
 
+    # ---------------------------------------------------------- persistence
+
+    def save(self, path: str, *, extra_meta: dict | None = None) -> str:
+        """Write the fitted map as a versioned artifact directory (config,
+        dense state, unit labels, labeling/backend metadata), see
+        ``repro_torch.api.persistence``. Returns ``path``."""
+        self._check_fitted()
+        from repro_torch.api import persistence
+        return persistence.save_artifact(
+            path, cfg=self.cfg, state=self.state_,
+            unit_labels=self.unit_labels_, labeling=self.labeling,
+            backend=self.backend.name, extra_meta=extra_meta)
+
+    @classmethod
+    def load(cls, path: str, *, backend: str | None = None,
+             device: torch.device | str | None = None,
+             **kwargs) -> "TopoMap":
+        """Load a saved artifact back into an estimator on ``device`` (CUDA
+        unless the caller asks for the CPU).
+
+        The stored backend and labeling are used unless overridden; a JAX
+        artifact's ``"pallas"`` becomes the port's ``"kernel"``. The
+        round-trip is bit-identical on ``transform`` and ``predict``.
+        """
+        from repro_torch.api import persistence
+        art = persistence.load_artifact(path, device=device)
+        if backend is None:
+            if art.backend == "sharded":
+                raise NotImplementedError(
+                    f"{path}: a 'sharded' map; the port has no sharded "
+                    f"backend yet (ROADMAP queue 1, item 5): pass backend=")
+            backend = _JAX_BACKENDS.get(art.backend, art.backend)
+        kwargs.setdefault("labeling", art.labeling)
+        return cls.from_state(art.state, art.cfg,
+                              unit_labels=art.unit_labels, backend=backend,
+                              device=device, **kwargs)
+
     # ------------------------------------------------------------ inference
 
-    def _bmu(self, data, chunk: int | None):
-        data = self._tensor(data)
-        chunk = INFERENCE_CHUNK if chunk is None else int(chunk)
-        parts = [bmu_ops.bmu(self.state_.w, data[lo:lo + chunk])
-                 for lo in range(0, data.shape[0], chunk)]
-        if not parts:
-            return bmu_ops.bmu(self.state_.w, data)
-        return (torch.cat([p[0] for p in parts]),
-                torch.cat([p[1] for p in parts]))
+    @property
+    def engine(self):
+        """The bucketed BMU engine shared with ``MapService``, recording its
+        (bucket, map shape) signatures in the process-wide
+        ``repro_torch.serving.maps.CompileCache`` that every estimator,
+        service and gateway shares. Always the exact tier: a backend's
+        ``precision`` is its training search's."""
+        if self._engine is None:
+            from repro_torch.serving import maps as maps_lib
+            self._engine = maps_lib.BmuEngine()
+        return self._engine
 
     def transform(self, data, *, lattice: bool = False,
                   chunk: int | None = None) -> torch.Tensor:
         """BMU projection. Returns (B,) flat unit indices, or (B, 2) lattice
-        (row, col) coordinates when ``lattice=True``."""
+        (row, col) coordinates when ``lattice=True``. ``chunk`` optionally
+        caps the engine's largest chunk (a memory ceiling); it is clamped
+        to the bucket ladder, so no ``chunk`` value can add a signature or
+        an oversized dispatch."""
         self._check_fitted()
-        flat, _ = self._bmu(data, chunk)
+        flat, _ = self.engine.bmu(self.state_.w, self._tensor(data),
+                                  cap=chunk)
         if not lattice:
             return flat
         return torch.stack([flat // self.cfg.side, flat % self.cfg.side],
@@ -174,7 +220,7 @@ class TopoMap:
     def quantization_error(self, data, chunk: int | None = None) -> float:
         """Q: mean Euclidean distance of samples to their BMU weight."""
         self._check_fitted()
-        _, q2 = self._bmu(data, chunk)
+        _, q2 = self.engine.bmu(self.state_.w, self._tensor(data), cap=chunk)
         return float(torch.mean(torch.sqrt(q2)))
 
     def topographic_error(self, data) -> float:

@@ -7,14 +7,19 @@ The seed is ``zlib.crc32(name) + seed``, stable across processes (Python's
 ``hash`` of a string is salted per process). The numbers are not the JAX
 package's: the two generators differ, so no test compares datasets across
 the packages.
+
+``repro_torch.data.idx`` overrides these with the real files where they
+exist under ``$REPRO_DATA_DIR``.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
 
+import numpy as np
 import torch
 
+from repro_torch.data import idx
 from repro_torch.device import resolve_device
 
 
@@ -53,13 +58,25 @@ def _class_mixture(gen: torch.Generator, n: int, spec: DatasetSpec,
 
 
 def make_dataset(name: str, seed: int = 0, train_size: int | None = None,
-                 test_size: int | None = None,
+                 test_size: int | None = None, real_data_ok: bool = True,
                  device: torch.device | str | None = None):
     """Returns (x_train, y_train, x_test, y_test) on ``device`` (CUDA unless
-    asked otherwise). Generated on the CPU, so every device gets the same
-    numbers; sizes may be cut with ``train_size`` / ``test_size``."""
+    asked otherwise): the real files when ``real_data_ok`` and
+    ``repro_torch.data.idx`` finds them, else the stand-in, generated on
+    the CPU so that every device gets the same numbers. Sizes may be cut
+    with ``train_size`` / ``test_size``."""
     spec = DATASETS[name]
     device = resolve_device(device)
+    if real_data_ok:
+        real = idx.try_load(name)
+        if real is not None:
+            xtr, ytr, xte, yte = (torch.from_numpy(np.ascontiguousarray(a))
+                                  .to(device) for a in real)
+            if train_size:
+                xtr, ytr = xtr[:train_size], ytr[:train_size]
+            if test_size:
+                xte, yte = xte[:test_size], yte[:test_size]
+            return xtr, ytr, xte, yte
     n_tr = train_size or spec.train
     n_te = test_size or spec.test
     gen = torch.Generator().manual_seed(zlib.crc32(name.encode()) + seed)

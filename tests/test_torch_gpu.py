@@ -749,3 +749,121 @@ def test_run_events_on_the_card_equals_the_cpu(cuda, name):
     eps = torch.finfo(torch.float32).eps
     assert float((sg.w.cpu() - sc.w).abs().max()) <= \
         64 * eps * float(sc.w.abs().max())
+
+
+# ------------------------------------------------ the map-serving engine
+
+
+def _served_map(cuda, side=30, d=784, seed=0):
+    from repro_torch.core import afm
+    from repro_torch.draws import GeneratorDraws
+    cfg = AFMConfig(side=side, dim=d, batch=16)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    data = torch.rand(512, d, generator=gen, device=cuda)
+    return cfg, afm.init(GeneratorDraws(seed, cuda), cfg, data), data
+
+
+def _assert_bmu(idx, q2, w, s):
+    idx_r, q2_r = bmu_ref.bmu_ref(w, s)
+    bound = bmu_ref.tie_bound(w, s)
+    differ = idx != idx_r
+    assert bool((bmu_ref.top2_gap(w, s)[differ] <= bound[differ]).all())
+    assert bool(((q2 - q2_r).abs() <= bound).all())
+
+
+def test_engines_share_one_signature_per_bucket(cuda):
+    """Four engines on one cache record each bucket once; each chunk is one
+    ``bmu`` launch on exactly its rows, and its answer is the kernel's."""
+    from repro_torch.serving import BmuEngine, CompileCache
+    cfg, state, data = _served_map(cuda)
+    cache = CompileCache()
+    engines = [BmuEngine(cache=cache) for _ in range(4)]
+    before = bmu_ops.launches
+    for engine in engines:
+        for n in (1, 8, 40, 64, 100, 5000):
+            s = data.repeat(10, 1)[:n]
+            idx, q2 = engine.bmu(state.w, s)
+            _assert_bmu(idx, q2, state.w, s)
+    assert cache.trace_count == 4        # buckets 8, 64, 512, 4096
+    assert engines[0].trace_count == 4
+    assert all(e.trace_count == 0 for e in engines[1:])
+    # 5,000 = 4,096 + 904: seven chunks an engine
+    assert bmu_ops.launches - before == sum(cache.dispatches.values()) \
+        == 4 * 7
+
+
+def test_swap_then_serve_returns_the_new_weights_bmus(cuda):
+    """The engine reads the served weights at each dispatch: after a swap
+    the same request gets the new map's units, with no new signature."""
+    from repro_torch.serving import MapService
+    cfg, state, data = _served_map(cuda)
+    svc = MapService(cfg, state, device=cuda)
+    s = data[:37]
+    before = svc.transform(s)
+    compiles = svc.engine.cache.trace_count
+    flipped = state._replace(w=torch.flip(state.w, [0]).contiguous())
+    svc.swap(flipped)
+    after = svc.transform(s)
+    assert svc.engine.cache.trace_count == compiles
+    assert torch.equal(after, cfg.n_units - 1 - before)
+    idx, q2, _ = svc.serve_bmu(s)
+    _assert_bmu(idx, q2, flipped.w, s)
+    # identical requests are bitwise identical
+    idx2, q22, _ = svc.serve_bmu(s)
+    assert torch.equal(idx, idx2) and torch.equal(q2, q22)
+
+
+def test_threads_serve_mixed_sizes_from_a_cold_cache(cuda):
+    """Eight threads, each its own engine on one cold cache: signatures are
+    recorded while other threads dispatch, and every answer is the
+    kernel's."""
+    import threading
+    from repro_torch.serving import BmuEngine, CompileCache
+    cfg, state, data = _served_map(cuda)
+    big = data.repeat(10, 1)
+    cache = CompileCache()
+    sizes = [1, 7, 64, 300, 5000, 3, 512, 4096]
+    failures = []
+
+    def client(k):
+        engine = BmuEngine(cache=cache)
+        try:
+            for j in range(len(sizes)):
+                n = sizes[(j + k) % len(sizes)]
+                s = big[k:k + n]
+                idx, q2 = engine.bmu(state.w, s)
+                torch.cuda.current_stream().synchronize()
+                _assert_bmu(idx, q2, state.w, s)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            failures.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not failures, failures[:1]
+    assert cache.trace_count == 4
+
+
+def test_update_on_the_kernel_backend_equals_partial_fit(cuda):
+    from repro_torch.serving import MapService
+    cfg, state, data = _served_map(cuda)
+    svc = MapService(cfg, state, update_backend="kernel", seed=3,
+                     device=cuda)
+    svc.transform(data)                  # record the bucket of 512
+    compiles = svc.engine.cache.trace_count
+    mirror = TopoMap.from_state(state, cfg, backend="kernel", seed=3,
+                                device=cuda)
+    for k in range(4):
+        batch = data[16 * k:16 * (k + 1)]
+        aux = svc.update(batch)
+        mirror.partial_fit(batch)
+        got, _ = svc.snapshot()
+        for f in ("gmu", "cascade_size", "waves"):
+            assert torch.equal(getattr(aux, f), getattr(mirror.fit_aux_, f))
+        assert torch.equal(got.c, mirror.state_.c) and got.i == mirror.state_.i
+        assert torch.equal(got.w.view(torch.int32),
+                           mirror.state_.w.view(torch.int32))
+    assert torch.equal(svc.transform(data), mirror.transform(data))
+    assert svc.engine.cache.trace_count == compiles
