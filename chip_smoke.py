@@ -72,6 +72,19 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     against the CPU; then ``drive_cascade`` after a one-sample merge, and
     the B = 1 rows of the kernel table (``bmu``, ``fused_step`` searching
     and given its GMU, ``drive_cascade``);
+11F. faults (``async_faults``): the same map through
+    ``backend_options={"faults": ...}``, ``engine='event'``, constant
+    latency 1.0, exact search, 2,000 events under no plan, 10 % broadcast
+    loss and a quarter of the units dead for [500, 1500): message
+    conservation, fault drops and dead samples counted, QE finite, events/s,
+    rounds/s and the QE ratio at 10 % loss beside JAX ``fault_bench``'s
+    budget; a whole-run dropout window leaves the dead units' weights
+    bitwise; then a small faulty run on the card against the CPU;
+11G. the train-and-serve loop (``launch/stream_train.run_stream``): 4,096
+    events on the fused fast path while 2 client threads read QE through a
+    ``MapGateway``, swapped in memory; then store backed, uninterrupted
+    against killed by SIGTERM at half the events and resumed, the final
+    artifacts bitwise;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -1683,6 +1696,258 @@ def async_rows(device, tmf, tms, xtr, fused_launches, staged_launches,
     return rows
 
 
+#: events of phase F (the faulty engine, constant latency 1.0, exact)
+FAULT_EVENTS = 2000
+#: phase F's plans: none, 10 % broadcast loss, a quarter of the units dead
+#: for the middle half of the run
+FAULT_PLANS = {
+    "no plan": None,
+    "p_loss 0.1": {"seed": 11, "p_loss": 0.1},
+    "dropout 0.25 [500, 1500)": {"seed": 11, "dropout_frac": 0.25,
+                                 "dropout_start": 500, "dropout_len": 1000},
+}
+#: events of phase F's whole-run dropout window (dead weights frozen)
+FAULT_FROZEN_EVENTS = 500
+#: events of phase F's profiled windows (launches and host syncs a round)
+FAULT_PROFILED = 50
+#: ``benchmarks/fault_bench.py``'s DEGRADATION_BUDGET, copied: the QE at 10 %
+#: broadcast loss over the fault-free QE that the JAX benchmark allows
+DEGRADATION_BUDGET = 1.5
+
+
+def _conserved(rep):
+    return rep.sent == (rep.deliveries + rep.dropped_overflow
+                        + rep.dropped_fault + rep.stranded)
+
+
+def async_faults(device, xtr, xte):
+    """Phase F: ``TopoMap(backend="async", backend_options={"faults": ...})``
+    at 30x30x784, B = 1, seed 0, ``engine='event'``, constant latency 1.0,
+    exact search (one ``bmu`` launch a sample round), ``FAULT_EVENTS``
+    events under each of ``FAULT_PLANS``: message conservation, fault
+    drops under the faulty plans, dead samples under dropout, QE finite;
+    events/s, rounds/s and the QE ratio at 10 % loss. Then a whole-run
+    dropout window through ``run_events``: the dead units keep their
+    initial weights bitwise; then launches and host syncs a round over a
+    profiled window of ``FAULT_PROFILED`` events from the trained state,
+    with no plan, loss 0.1 and the whole-run window. Returns the ``bmu``
+    launches of the three timed runs."""
+    from repro_torch.api import TopoMap
+    from repro_torch.core import afm
+    from repro_torch.core import events
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.faults import FaultPlan
+    cfg = _async_cfg()
+    qe, bmu_launches = {}, 0
+    for label, plan in FAULT_PLANS.items():
+        opts = {"engine": "event", "latency": "constant", "delay": 1.0,
+                "search": "exact", "faults": plan}
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tm = TopoMap(cfg, backend="async", backend_options=opts,
+                     device=device, seed=SEED).fit(xtr,
+                                                   num_steps=FAULT_EVENTS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        rep = tm.backend.last_report
+        what = f"faults, {label}"
+        if not (_conserved(rep) and rep.stranded == 0
+                and rep.samples == FAULT_EVENTS):
+            raise AssertionError(f"{what}: accounting fails: {rep}")
+        if launches["bmu"] != FAULT_EVENTS:
+            raise AssertionError(f"{what}: {launches['bmu']} bmu launches "
+                                 f"for {FAULT_EVENTS} sample rounds")
+        if plan is not None and rep.dropped_fault == 0:
+            raise AssertionError(f"{what}: no message dropped by the fault")
+        if plan and plan.get("dropout_frac") and rep.samples_dead == 0:
+            raise AssertionError(f"{what}: no sample met a dead unit")
+        if rep.deliveries == 0:
+            raise AssertionError(f"{what}: no broadcast delivered")
+        qe[label] = tm.quantization_error(xte)
+        if not np.isfinite(qe[label]):
+            raise AssertionError(f"{what}: QE {qe[label]}")
+        bmu_launches += launches["bmu"]
+        print(f"{what}: {FAULT_EVENTS} events at 30x30x784, constant "
+              f"latency 1.0, exact search: {FAULT_EVENTS / fit_s:.1f} "
+              f"events/s, {rep.rounds / fit_s:.1f} rounds/s ({fit_s:.3f} s, "
+              f"init included); {rep.rounds} rounds, sent {rep.sent}, "
+              f"delivered {rep.deliveries}, dropped_fault "
+              f"{rep.dropped_fault}, dropped_overflow {rep.dropped_overflow},"
+              f" samples_dead {rep.samples_dead}; QE {qe[label]:.4f}; "
+              f"launches {launches}")
+    ratio = qe["p_loss 0.1"] / qe["no plan"]
+    print(f"faults: QE at p_loss 0.1 / QE with no plan = {ratio:.4f} "
+          f"(fault_bench's DEGRADATION_BUDGET {DEGRADATION_BUDGET})")
+
+    plan = FaultPlan(seed=11, dropout_frac=0.25, dropout_len=1e9)
+    state = afm.init(GeneratorDraws(SEED, device), cfg, xtr)
+    w0 = state.w.clone()
+    idx = GeneratorDraws(SEED + 3, device).randint(0, xtr.shape[0],
+                                                   (FAULT_FROZEN_EVENTS,))
+    out, _, rep = events.run_events(
+        state, xtr[idx].contiguous(), GeneratorDraws(SEED, device), cfg,
+        events.EventConfig(latency="constant", delay=1.0, engine="event",
+                           faults=plan), search=events.search_exact)
+    dead = plan.dead_units(cfg.n_units).to(device)
+    if not torch.equal(out.w[dead], w0[dead]):
+        raise AssertionError("whole-run dropout: a dead unit's weights moved")
+    if torch.equal(out.w[~dead], w0[~dead]) or rep.samples_dead == 0:
+        raise AssertionError("whole-run dropout: the live units did not "
+                             "train, or no sample met a dead unit")
+    if not _conserved(rep):
+        raise AssertionError(f"whole-run dropout: accounting fails: {rep}")
+    print(f"faults, whole-run dropout window ({int(dead.sum())} of "
+          f"{cfg.n_units} units dead), {FAULT_FROZEN_EVENTS} events: dead "
+          f"weights bitwise their initial ones, {rep.samples_dead} samples "
+          f"met a dead unit, dropped_fault {rep.dropped_fault}")
+    samples = xtr[idx[:FAULT_PROFILED]].contiguous()
+    for label, prof_plan in (("no plan", None),
+                             ("p_loss 0.1", FaultPlan(seed=11, p_loss=0.1)),
+                             ("whole-run dropout 0.25", plan)):
+        ecfg = events.EventConfig(latency="constant", delay=1.0,
+                                  engine="event", faults=prof_plan)
+        box = []
+        n_launch, n_sync, wall = _profile_counts(
+            lambda: box.append(events.run_events(
+                out, samples, GeneratorDraws(SEED + 1, device), cfg, ecfg,
+                search=events.search_exact)))
+        rounds = box[0][2].rounds
+        print(f"faults, profiled {FAULT_PROFILED} events, {label}: "
+              f"{rounds} rounds, {n_launch / rounds:.2f} kernel launches "
+              f"and {n_sync / rounds:.3f} host syncs a round, "
+              f"{wall * 1e3 / rounds:.3f} ms a round under the profiler")
+    return bmu_launches
+
+
+def faults_card_vs_cpu(device):
+    """Phase F, small: the faulty engine (8x8, D 16, 64 events, constant
+    latency, exact search, p = 0.8) under broadcast loss 0.3 and a dropout
+    window, on the card and on the CPU from the same host draws (training,
+    latency and fault draws): integers, report and fault counts bitwise,
+    w within 64 ulps of max |w| (phase E's bound)."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import afm
+    from repro_torch.core import events
+    from repro_torch.faults import FaultPlan
+    cfg = afm.AFMConfig(side=8, dim=16, theta=3, i_max=96, e_factor=0.5)
+    data = torch.randn(64, 16, generator=torch.Generator().manual_seed(4))
+    base = state_to_numpy(afm.init(HostDraws(1, "cpu"), cfg, data))
+    plan = FaultPlan(seed=11, p_loss=0.3, dropout_frac=0.25,
+                     dropout_start=10.0, dropout_len=30.0)
+    outs = [events.run_events(
+        state_from_numpy(base, dev), data.to(dev), HostDraws(2, dev), cfg,
+        events.EventConfig(latency="constant", delay=1.0, faults=plan),
+        search=events.search_exact, p_fn=lambda i, c: 0.8,
+        fault_draws=HostDraws(5, dev))
+        for dev in (device, torch.device("cpu"))]
+    card = tuple(outs[0])
+    card = (card[0]._replace(w=card[0].w.cpu(), c=card[0].c.cpu()),
+            type(card[1])(*(x.cpu() for x in card[1])),
+            card[2]._replace(clock=card[2].clock.cpu(),
+                             nevents=card[2].nevents.cpu()))
+    cpu = outs[1]
+    _ints_equal(card, cpu, "faults, card vs CPU")
+    eps = torch.finfo(torch.float32).eps
+    dw = float((card[0].w - cpu[0].w).abs().max())
+    if dw > 64 * eps * float(cpu[0].w.abs().max()):
+        raise AssertionError(f"faults, card vs CPU: |dw| {dw}")
+    rep = cpu[2]
+    if not (_conserved(rep) and rep.dropped_fault and rep.samples_dead):
+        raise AssertionError(f"faults, card vs CPU: {rep}")
+    print(f"faults, card vs CPU, 8x8 D 16, 64 events, p_loss 0.3 and a "
+          f"dropout window: {rep.rounds} rounds, dropped_fault "
+          f"{rep.dropped_fault}, samples_dead {rep.samples_dead}; integers,"
+          f" report and fault counts bitwise, max|dw| {dw:.3g}")
+
+
+#: phase G: events of each stream run, samples a step, samples a swap
+STREAM_EVENTS = 4096
+STREAM_CHUNK = 64
+STREAM_SWAP = 1024
+
+
+def stream_phase(device, xtr, xte):
+    """Phase G: ``launch/stream_train.run_stream`` at 30x30x784 (async
+    backend, zero latency, exact search, ``kernel='fused'``: one
+    ``fused_step`` launch an event), ``STREAM_EVENTS`` events in chunks of
+    ``STREAM_CHUNK``, a swap every ``STREAM_SWAP``, 2 client threads of
+    batch 8 reading QE through a ``MapGateway`` (``bmu`` at bucket 8, or
+    64 for two coalesced reads; the final QE of the 10,000 test samples at
+    bucket 4,096). In memory first
+    (no client error, a read at least, >= 4 swaps, QE finite); then store
+    backed, uninterrupted, against a run killed by SIGTERM (its real
+    handler) at half the events with a checkpoint every ``STREAM_SWAP``
+    and resumed: the final artifacts' ``w`` and ``i`` bitwise. Returns
+    the in-memory run's launches."""
+    import tempfile
+    from repro_torch.api import MapStore
+    from repro_torch.core import afm
+    from repro_torch.launch.stream_train import run_stream
+    cfg = afm.AFMConfig(side=30, dim=784, i_max=STREAM_EVENTS)
+    common = dict(backend="async",
+                  backend_options={"search": "exact", "kernel": "fused"},
+                  events=STREAM_EVENTS, chunk=STREAM_CHUNK,
+                  swap_every=STREAM_SWAP, clients=2, client_batch=8,
+                  name="stream", seed=SEED, device=device)
+    _reset_launch_counts()
+    rep = run_stream(cfg, xtr, xte, **common)
+    launches = _launch_counts()
+    if (rep.client_errors or rep.client_requests < 1 or rep.swaps < 4
+            or not rep.qe_finite or rep.qe.shape != (len(xte),)):
+        raise AssertionError(f"stream: errors {rep.client_errors}, "
+                             f"{rep.client_requests} reads, {rep.swaps} "
+                             f"swaps, QE finite {rep.qe_finite}")
+    reads = launches.get("bmu@8", 0) + launches.get("bmu@64", 0)
+    if launches["fused_step"] != STREAM_EVENTS or not reads:
+        raise AssertionError(f"stream: launched {launches}")
+    print(f"stream (in memory): {rep.events} events at 30x30x784, "
+          f"{rep.events_per_sec:.1f} events/s ({rep.seconds:.3f} s), "
+          f"{rep.swaps} swaps, {rep.client_requests} client reads, "
+          f"{rep.gateway.dispatches} coalesced dispatches; QE "
+          f"{float(rep.qe.mean()):.4f} over {len(rep.qe)} samples; "
+          f"launches {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        full = run_stream(cfg, xtr, xte, store_root=f"{tmp}/a", **common)
+        cut = run_stream(cfg, xtr, xte, store_root=f"{tmp}/b",
+                         checkpoint_dir=f"{tmp}/ck",
+                         checkpoint_every=STREAM_SWAP,
+                         die_after=STREAM_EVENTS // 2, **common)
+        logs = []
+        res = run_stream(cfg, xtr, xte, store_root=f"{tmp}/b",
+                         checkpoint_dir=f"{tmp}/ck", resume=True,
+                         log=lambda *a: logs.append(" ".join(map(str, a))),
+                         **common)
+        arts = [MapStore(f"{tmp}/{r}").load_artifact("stream", device="cpu")
+                for r in "ab"]
+    if not (cut.interrupted and cut.events == STREAM_EVENTS // 2
+            and not res.interrupted
+            and any("checksum verified" in line for line in logs)):
+        raise AssertionError(f"stream resume: interrupted {cut.interrupted}"
+                             f" at {cut.events}; logs {logs}")
+    for r in (full, cut, res):
+        if r.client_errors or not r.qe_finite:
+            raise AssertionError(f"stream (store): {r.client_errors}")
+    if not (arts[0].state.i == arts[1].state.i == STREAM_EVENTS
+            and torch.equal(arts[0].state.w, arts[1].state.w)):
+        raise AssertionError("stream resume: the resumed map is not the "
+                             "uninterrupted run's bitwise")
+    print(f"stream (store backed): uninterrupted {full.events_per_sec:.1f} "
+          f"events/s, {full.swaps} swaps, {full.client_requests} reads; "
+          f"killed by SIGTERM at {cut.events} events and resumed "
+          f"({res.events_per_sec:.1f} events/s): final w and i bitwise the "
+          f"uninterrupted run's")
+    return launches
+
+
+def _row_as(rows, prefix, name, launches):
+    """A kernel row measured above at the same shape, under this phase's
+    name and launches."""
+    row = next(r for r in rows if r["name"].startswith(prefix))
+    return {**row, "name": name, "launches": launches}
+
+
 LM_ARCH = "llama3.2-1b"
 #: tolerances of the swa kernel against its plain version on the same card:
 #: f32 within 2e-4 relative and absolute (the sums run in another order);
@@ -2029,7 +2294,25 @@ def main() -> int:
           f"race: {rounds_rate:.1f} rounds/s")
     rows += async_rows(device, tmaf, tmas, xtr, af_launches, as_launches,
                        given_launches, worst, fused_worst)
-    del tmaf, tmas, xtr, ytr, xte, yte
+    del tmaf, tmas
+    fault_bmu = async_faults(device, xtr, xte)
+    faults_card_vs_cpu(device)
+    st = stream_phase(device, xtr, xte)
+    rows += [
+        _row_as(rows, "bmu (async search, B=1)", "bmu (faulty engine, B=1)",
+                fault_bmu),
+        _row_as(rows, "fused_step (B=1, ", "fused_step (stream, B=1)",
+                st["fused_step"]),
+        _row_as(rows, "cascade_wave (side 30)",
+                "cascade_wave (stream tail waves)", st["cascade_wave"]),
+        _row_as(rows, "bmu (serving, bucket 8)",
+                "bmu (stream reads, bucket 8)", st.get("bmu@8", 0)),
+        _row_as(rows, "bmu (training search, B=16)",
+                "bmu (stream reads, bucket 64: 9..16 coalesced samples)",
+                st.get("bmu@64", 0)),
+        _row_as(rows, "bmu (serving, bucket 4096)",
+                "bmu (stream final QE, bucket 4096)", st.get("bmu@4096", 0))]
+    del xtr, ytr, xte, yte
     swa_worst = check_swa_kernel(device)
     check_decode_card_vs_cpu(device)
     runs, long_inputs = serve_full_width(device, swa_worst)

@@ -42,6 +42,15 @@ count with what fires. A sample round reads it once (what fires). Times are
 float32 throughout (numpy ``float32`` on the host), so rounds come in the
 order JAX's float32 times give.
 
+Faults (``EventConfig(faults=FaultPlan(...))``, ``repro_torch.faults``)
+are a sidecar of the rounds; each axis is a plain Python branch, so a run
+without an active plan runs the fault-free code. Broadcast loss takes one
+``uniform((4N,))`` from the plan's own source at every fire that sends
+(one more host read, to count the kept messages); a dead unit is masked on
+the card, and whether the dropout window is open is decided on the host
+from the round's time, so dropout adds no host read. An active plan always
+runs the sample-scan engine (or the budgeted loop), never the fast path.
+
 Randomness (``repro_torch.draws``): per sample event the search's draws
 from the run's source, then ``spawn()``: a child source per cascade (JAX's
 ``k_cascade``) that hands out the drive, one block for the first
@@ -52,8 +61,7 @@ cascade's numbers identically, so from one seed the three agree.
 Under zero latency a round is one cascade wave and every runner reproduces
 ``reference``'s dynamics; avalanche sizes count firing incidents per
 originating sample, as ``core.cascade`` and ``core.sandpile`` do (equal to
-the sandpile's at p = 1). Fault injection (an active ``FaultPlan``) is
-ROADMAP queue 1, item 4, and raises ``NotImplementedError``.
+the sandpile's at p = 1).
 """
 from __future__ import annotations
 
@@ -106,8 +114,11 @@ class EventConfig:
     kernel:         the fast path's step: 'staged' or 'fused' (the fused
                     kernel needs latency='zero', engine='auto',
                     max_rounds=None).
-    faults:         ``None`` or a ``FaultPlan`` with no active axis; an
-                    active plan raises ``NotImplementedError``.
+    faults:         ``None``, ``FaultPlan.none()`` or a plan to inject
+                    (broadcast loss, dropout windows, pool pressure); an
+                    active plan leaves the fast path for the engine and
+                    rejects ``kernel='fused'``. ``shard_latency_mult``
+                    needs the mesh placement (ROADMAP queue 1, item 5).
     """
     latency: str = "zero"
     delay: float = 0.0
@@ -139,21 +150,27 @@ class EventConfig:
             raise ValueError(
                 "kernel='fused' runs only in the zero-latency fast-path "
                 "regime: latency='zero', engine='auto', max_rounds=None")
+        if self.kernel != "staged" and self.fault_active:
+            raise ValueError(
+                "kernel='fused' runs only in the zero-latency fast-path "
+                "regime, which an active FaultPlan disqualifies (faults are "
+                "simulated by the discrete-event engine)")
         if self.delay < 0:
             raise ValueError(f"delay must be >= 0, got {self.delay}")
         if self.latency == "zero" and self.delay:
             raise ValueError("latency='zero' takes no delay; use 'constant'")
         if self.sample_spacing <= 0:
             raise ValueError("sample_spacing must be > 0")
-        if self.fault_active:
-            raise NotImplementedError(
-                "fault injection in the event engine (an active FaultPlan) "
-                "is not ported yet: ROADMAP queue 1, item 4")
 
     @property
     def fault_active(self) -> bool:
         """True when a fault plan with at least one active axis is set."""
         return self.faults is not None and not self.faults.is_none()
+
+    @property
+    def plan(self) -> FaultPlan:
+        """The effective plan (``faults`` or the fault-free default)."""
+        return self.faults if self.faults is not None else FaultPlan.none()
 
 
 @dataclasses.dataclass
@@ -198,6 +215,10 @@ class EventState:
     dropped: int             # messages lost to pool overflow
     sent: int                # broadcast candidates attempted
     lat: object              # the exponential-latency draw source
+    # the fault sidecar (0 and None without an active plan)
+    dropped_fault: int = 0   # messages lost or addressed to a dead unit
+    samples_dead: int = 0    # samples routed to a dead GMU
+    faults: object = None    # the plan's draw source (message loss)
 
 
 class EventReport(NamedTuple):
@@ -213,9 +234,9 @@ class EventReport(NamedTuple):
     clock: torch.Tensor      # (N,) f32 per-unit logical clocks
     nevents: torch.Tensor    # (N,) int32 per-unit event counts
     sent: int = 0            # broadcast candidates attempted
-    dropped_fault: int = 0   # always 0 here (no fault injection)
+    dropped_fault: int = 0   # injected losses + messages to dead units
     stranded: int = 0        # in flight at exit (also in ``dropped``)
-    samples_dead: int = 0    # always 0 here
+    samples_dead: int = 0    # samples routed to a dead GMU
     shard_counts: tuple = ((0, 0, 0, 0, 0),)  # per shard [sent, delivered,
     #                          dropped_overflow, dropped_fault, stranded]
 
@@ -241,12 +262,15 @@ def _resolve(cfg: AFMConfig, ecfg: EventConfig, num_events: int):
 
 
 def init_events(state: AFMState, cfg: AFMConfig, ecfg: EventConfig,
-                num_events: int, lat_draws, donate: bool = False
-                ) -> EventState:
+                num_events: int, lat_draws, donate: bool = False,
+                fault_draws=None) -> EventState:
     """Fresh simulation state around an ``AFMState`` for ``num_events``
     sample arrivals. Simulated time restarts at 0; ``state.i`` keeps
     driving the schedules. The run updates its own copies of ``w`` and
-    ``c``, or, with ``donate``, the caller's tensors in place."""
+    ``c``, or, with ``donate``, the caller's tensors in place. An active
+    plan's draw source is ``fault_draws`` or a new
+    ``GeneratorDraws(plan.seed)``: the fault stream restarts with every
+    run, as JAX's ``PRNGKey(plan.seed)`` does."""
     n, d, e = cfg.n_units, cfg.dim, num_events
     m = _resolve(cfg, ecfg, num_events)[0]
     dev = state.w.device
@@ -270,7 +294,10 @@ def init_events(state: AFMState, cfg: AFMConfig, ecfg: EventConfig,
         wcount=np.zeros(e, np.int32), sizes=np.zeros(e, np.int32),
         gmu=z(e), q2=z(e, dtype=torch.float32), greedy=z(e),
         ev=0, t=np.float32(0.0), rounds=0, deliveries=0, dropped=0, sent=0,
-        lat=lat_draws)
+        lat=lat_draws,
+        faults=(fault_draws if fault_draws is not None
+                else GeneratorDraws(ecfg.plan.seed, dev))
+        if ecfg.fault_active else None)
 
 
 def _default_p(i, cfg: AFMConfig) -> float:
@@ -321,12 +348,14 @@ def _group_rank(keys: torch.Tensor) -> torch.Tensor:
 
 def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
                     search: Callable, p_fn: Callable, l_c_fn: Callable,
-                    i0: int, far, near, placement=None):
+                    i0: int, far, near, placement=None, dead=None):
     """(sample_round, delivery_round, pool_min, read_round) as closures.
 
     Cascade ``cid`` uses the schedules at ``i0 + cid`` throughout, the
     values its own sample round saw. ``read_round(es)`` is ``pool_min`` read
     back in one host sync: ``(tmin, gmin, cmin, sel, nsel, have)``.
+    ``dead`` (N,) bool replaces the plan's ``dead_units`` (a test seam: the
+    JAX package draws its set with another sampler).
     """
     placement = placement_base.resolve_placement(placement)
     n, side, theta = cfg.n_units, cfg.side, cfg.theta
@@ -337,6 +366,22 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
     near_ok = near >= 0
     dev = near.device
     delay = np.float32(ecfg.delay)
+    # the fault sidecar: each axis a plain branch, so an inactive plan runs
+    # the fault-free code and consumes the fault-free draws
+    plan = ecfg.plan
+    loss_on = ecfg.fault_active and plan.p_loss > 0.0
+    p_loss = float(np.float32(plan.p_loss))
+    dead_on = ecfg.fault_active and plan.dropout_active
+    if dead_on:
+        dead_sel = (plan.dead_units(n) if dead is None
+                    else torch.as_tensor(dead, dtype=torch.bool)).to(dev)
+        d_lo = np.float32(plan.dropout_start)
+        d_hi = np.float32(plan.dropout_start + plan.dropout_len)
+
+    def dead_at(t):
+        """The (N,) dead mask at simulated time ``t`` (a float32), ``None``
+        outside the window: decided on the host, no device read."""
+        return dead_sel if dead_on and d_lo <= t < d_hi else None
 
     def pool_min(es: EventState):
         return selector(es.msg_t, es.msg_key, es.msg_gen, es.msg_cid)
@@ -349,23 +394,32 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
         tmin = np.array(bits, np.int32).view(np.float32)[()]
         return tmin, g, ci, sel, nsel, bits != placement_single.INF_BITS
 
-    def fire_counts(fired):
-        """[units firing, messages they send], one host sync."""
-        return torch.stack([fired.sum(), (fired[:, None] & near_ok).sum()]
-                           ).tolist()
+    def fire_counts(fired, *extra):
+        """[units firing, messages they send, *extra], one host sync."""
+        return torch.stack([fired.sum(), (fired[:, None] & near_ok).sum(),
+                            *extra]).tolist()
 
     def fire(es: EventState, fired, cid: int, t, gen: int, nfired: int,
              nvalid: int):
         """Broadcast after theta: ``fired`` units reset their counters and
         enqueue their weights to their near neighbours, timed by the latency
         model. The r-th message takes the r-th free slot of the ring;
-        messages past the free count are dropped (counted)."""
+        messages past the free count are dropped (counted). ``fired``
+        excludes dead units (the callers mask it). Broadcast loss: every
+        message counts in ``sent``, then one ``uniform((4N,))`` of the
+        plan's source decides which are lost (``dropped_fault``), and the
+        kept ones are counted in one more host read."""
         es.sizes[cid] += nfired
         if not nfired:
             return
         es.c.masked_fill_(fired, 0)
         valid = (fired[:, None] & near_ok).reshape(-1)          # (4N,)
         es.sent += nvalid
+        if loss_on:
+            valid &= es.faults.uniform((4 * n,)) >= p_loss
+            nkept = int(valid.sum())
+            es.dropped_fault += nvalid - nkept
+            nvalid = nkept
         if ecfg.latency == "exponential":
             delays = es.lat.exponential((4 * n,)) * float(delay)
         cand = _compact(valid, nvalid)
@@ -402,7 +456,9 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
     def sample_round(es: EventState, sample, draws):
         """Deliver the next sample: the search routes it, the GMU adapts
         (Eq. 3) and is driven w.p. p_i; a threshold crossing fires. Draws:
-        the search's, then the cascade's child and its drive."""
+        the search's, then the cascade's child and its drive. A dead GMU is
+        still searched and its drive drawn, but it neither adapts nor is
+        driven nor stamped; the sample counts in ``samples_dead``."""
         ev = es.ev
         t_s = np.float32(ev) * np.float32(ecfg.sample_spacing)
         p_i = p_fn(es.i, cfg)
@@ -412,11 +468,22 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
         drive = child.uniform((8, side, side)) < p_i
         g = res.gmu[:1].long()
         row = es.w[g]
-        es.w.index_copy_(0, g, row + cfg.l_s * (sample[None, :] - row))
+        new = row + cfg.l_s * (sample[None, :] - row)
         # B = 1: the GMU made one adaptation, so only drive slot 0 counts
-        es.c.index_add_(0, g, drive.reshape(8, n)[0][g].to(torch.int32))
-        es.clock.index_fill_(0, g, float(t_s))
-        es.nevents.index_add_(0, g, torch.ones_like(g, dtype=torch.int32))
+        inc = drive.reshape(8, n)[0][g].to(torch.int32)
+        dead = dead_at(t_s)
+        if dead is None:
+            es.w.index_copy_(0, g, new)
+            es.c.index_add_(0, g, inc)
+            es.clock.index_fill_(0, g, float(t_s))
+            es.nevents.index_add_(0, g, torch.ones_like(inc))
+        else:
+            alive = ~dead[g]
+            es.w.index_copy_(0, g, torch.where(alive[:, None], new, row))
+            es.c.index_add_(0, g, inc * alive)
+            es.clock.index_copy_(0, g, torch.where(alive, float(t_s),
+                                                   es.clock[g]))
+            es.nevents.index_add_(0, g, alive.to(torch.int32))
         es.casc[ev] = child
         es.gmu[ev:ev + 1] = res.gmu[:1]
         es.q2[ev:ev + 1] = res.q2[:1]
@@ -425,7 +492,15 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
         es.ev += 1
         es.t = t_s
         es.rounds += 1
-        if max_waves >= 1:
+        if dead is not None:
+            # dead units do not fire; the dead count rides on the fire
+            # counts' host read
+            fired0 = (es.c >= theta) & ~dead
+            nfired, nvalid, ndead = fire_counts(fired0, dead[g].sum())
+            es.samples_dead += ndead
+            if max_waves >= 1:
+                fire(es, fired0, ev, t_s, 1, nfired, nvalid)
+        elif max_waves >= 1:
             fired0 = es.c >= theta
             fire(es, fired0, ev, t_s, 1, *fire_counts(fired0))
         release(es, ev)
@@ -454,7 +529,10 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
         are gathered, their payloads summed per receiver in direction-slot
         order, then slot order (JAX's scatter order; each pass of the sum
         has unique receivers, so it is deterministic on the card too), and
-        the update is a row scatter over the receivers."""
+        the update is a row scatter over the receivers. A message to a dead
+        unit is consumed and its slot freed, but not delivered (no drive,
+        adapt or stamp): it counts in ``dropped_fault``, its count read
+        with the round's other counts."""
         cid, tmin = int(cmin), np.float32(tmin)
         sched_i = i0 + cid
         l_c = l_c_fn(sched_i, cfg)
@@ -465,20 +543,31 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
             nsel = int(sel.sum())
         idx = _compact(sel, nsel)
         dsts, dirs, ws = es.msg_dst[idx], es.msg_dir[idx], es.msg_w[idx]
-        # counter drive: one Bernoulli per received message
-        es.c.index_add_(0, dsts, bern[dirs, dsts].to(torch.int32))
+        dead = dead_at(tmin)
+        # counter drive: one Bernoulli per received message; ``ones`` marks
+        # the delivered messages (those to a live unit)
+        if dead is None:
+            ok, drive = None, bern[dirs, dsts]
+            ones = torch.ones_like(dsts, dtype=torch.int32)
+        else:
+            ok = ~dead[dsts]
+            drive, ones = bern[dirs, dsts] & ok, ok.to(torch.int32)
+        es.c.index_add_(0, dsts, drive.to(torch.int32))
         n_recv = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-            0, dsts, torch.ones_like(dsts, dtype=torch.int32))
+            0, dsts, ones)
         received = n_recv > 0
         allowed = (es.c >= theta) & received
         if k_wave >= max_waves:
             allowed = torch.zeros_like(allowed)
         pair = dsts * 4 + dirs
         reps = torch.zeros(4 * n, dtype=torch.int32, device=dev).index_add_(
-            0, pair, torch.ones_like(pair, dtype=torch.int32)).max()
-        nrecv, reps, nfired, nvalid = torch.stack([
-            received.sum(), reps.long(), allowed.sum(),
-            (allowed[:, None] & near_ok).sum()]).tolist()
+            0, pair, ones).max()
+        counts = [received.sum(), reps.long(), allowed.sum(),
+                  (allowed[:, None] & near_ok).sum()]
+        if ok is not None:
+            counts.append(ones.sum())
+        nrecv, reps, nfired, nvalid, *ndeliv = torch.stack(counts).tolist()
+        ndeliv = ndeliv[0] if ndeliv else nsel
         ridx = _compact(received, nrecv)
         pos = (torch.cumsum(received, 0) - 1)[dsts]
         rank = _group_rank(pair) if reps > 1 else None
@@ -487,6 +576,8 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
             for r in range(reps):
                 take = dirs == s4 if rank is None else (dirs == s4) & (
                     rank == r)
+                if ok is not None:
+                    take &= ok
                 acc.index_add_(0, torch.where(take, pos, nrecv), ws)
         wr = es.w[ridx]
         nf = n_recv[ridx].to(wr.dtype)
@@ -500,7 +591,8 @@ def _make_round_fns(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
         es.free_n += nsel
         es.inflight[cid] -= nsel
         es.wcount[cid] = k_wave
-        es.deliveries += nsel
+        es.deliveries += ndeliv
+        es.dropped_fault += nsel - ndeliv
         es.rounds += 1
         es.t = tmin
         fire(es, allowed, cid, tmin, int(gmin) + 1, nfired, nvalid)
@@ -524,8 +616,10 @@ def _finish(es: EventState, far, near):
     report = EventReport(
         rounds=es.rounds, samples=es.ev, deliveries=es.deliveries,
         dropped=es.dropped + stranded, t_end=float(es.t), clock=es.clock,
-        nevents=es.nevents, sent=es.sent, stranded=stranded,
-        shard_counts=((es.sent, es.deliveries, es.dropped, 0, stranded),))
+        nevents=es.nevents, sent=es.sent, dropped_fault=es.dropped_fault,
+        stranded=stranded, samples_dead=es.samples_dead,
+        shard_counts=((es.sent, es.deliveries, es.dropped, es.dropped_fault,
+                       stranded),))
     return final, aux, report
 
 
@@ -584,8 +678,10 @@ def _make_fused_zero(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
         ys = (res.gmu, res.q2, res.greedy_steps, size, waves)
         return w.reshape(n, d), c2.reshape(-1), nev + recv, clock, ys
 
-    def go(state: AFMState, samples, draws, lat_draws, donate=False):
-        del lat_draws, donate   # no delays; the kernels write out of place
+    def go(state: AFMState, samples, draws, lat_draws, donate=False,
+           fault_draws=None, dead=None):
+        # no delays and no faults here; the kernels write out of place
+        del lat_draws, donate, fault_draws, dead
         far, near, i0 = state.far, state.near, int(state.i)
         dev = state.w.device
         w, c = state.w, state.c.to(torch.int32)
@@ -638,11 +734,12 @@ def _make_engine(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
     e, spacing = num_events, np.float32(ecfg.sample_spacing)
     m, _, round_cap = _resolve(cfg, ecfg, num_events)
 
-    def go(state: AFMState, samples, draws, lat_draws, donate=False):
-        es = init_events(state, cfg, ecfg, e, lat_draws, donate)
+    def go(state: AFMState, samples, draws, lat_draws, donate=False,
+           fault_draws=None, dead=None):
+        es = init_events(state, cfg, ecfg, e, lat_draws, donate, fault_draws)
         sample_round, delivery_round, _, read_round = _make_round_fns(
             cfg, ecfg, e, search, p_fn, l_c_fn, i0=es.i, far=state.far,
-            near=state.near, placement=placement)
+            near=state.near, placement=placement, dead=dead)
 
         def drain(t_limit):
             # round_cap is a safety net against engine faults, not a
@@ -671,11 +768,12 @@ def _make_budgeted(cfg: AFMConfig, ecfg: EventConfig, num_events: int,
     e, spacing = num_events, np.float32(ecfg.sample_spacing)
     m, _, max_rounds = _resolve(cfg, ecfg, num_events)
 
-    def go(state: AFMState, samples, draws, lat_draws, donate=False):
-        es = init_events(state, cfg, ecfg, e, lat_draws, donate)
+    def go(state: AFMState, samples, draws, lat_draws, donate=False,
+           fault_draws=None, dead=None):
+        es = init_events(state, cfg, ecfg, e, lat_draws, donate, fault_draws)
         sample_round, delivery_round, _, read_round = _make_round_fns(
             cfg, ecfg, e, search, p_fn, l_c_fn, i0=es.i, far=state.far,
-            near=state.near, placement=placement)
+            near=state.near, placement=placement, dead=dead)
         while (es.ev < e or es.free_n < m) and es.rounds < max_rounds:
             have = False
             if es.free_n < m:
@@ -707,8 +805,8 @@ def run_events(state: AFMState, samples: torch.Tensor, draws,
                search: Callable = afm_lib.search_heuristic,
                p_fn: Callable = _default_p, l_c_fn: Callable = _default_l_c,
                lat_draws=None, lat_seed: int = 0, donate: bool = False,
-               placement=None, shards: int | None = None,
-               ) -> tuple[AFMState, afm_lib.StepAux, EventReport]:
+               placement=None, shards: int | None = None, fault_draws=None,
+               dead=None) -> tuple[AFMState, afm_lib.StepAux, EventReport]:
     """Simulate E sample-delivery events (and their cascades) to
     quiescence, so the result is a plain dense ``AFMState`` with nothing in
     flight; a ``max_rounds`` exit counts its stranded messages into
@@ -732,7 +830,13 @@ def run_events(state: AFMState, samples: torch.Tensor, draws,
       donate:    let the run update ``state.w`` and ``state.c`` in place
                  (the engine runners; the fast path writes out of place).
       placement: ``None`` / ``'single'`` or a ``Placement``; ``'mesh'``
-                 raises ``NotImplementedError``.
+                 raises ``NotImplementedError`` (ROADMAP queue 1, item 5),
+                 and with it a plan's ``shard_latency_mult``.
+      fault_draws: an active plan's draw source (one ``uniform((4N,))``
+                 per broadcast that sends, under ``p_loss``); ``None``
+                 makes ``GeneratorDraws(plan.seed)`` for this run.
+      dead:      (N,) bool, the dead set in place of the plan's
+                 ``dead_units`` (a test seam).
     """
     e = int(samples.shape[0])
     if e == 0:
@@ -743,7 +847,8 @@ def run_events(state: AFMState, samples: torch.Tensor, draws,
         lat_draws = GeneratorDraws(lat_seed, state.w.device)
     pl = placement_base.resolve_placement(placement, shards=shards)
     go = pl.build_runner(cfg, ecfg, e, search, p_fn, l_c_fn)
-    out = go(state, samples.to(torch.float32), draws, lat_draws, donate)
+    out = go(state, samples.to(torch.float32), draws, lat_draws, donate,
+             fault_draws=fault_draws, dead=dead)
     if ecfg.max_rounds is None and ecfg.latency != "zero":
         # quiescence watchdog: with no round budget the engine must drain
         # completely; its internal round cap is a safety net, and a run it

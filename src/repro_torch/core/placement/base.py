@@ -14,7 +14,8 @@ asks it four things:
 - **message routing**: ``routing(near)``, the (source, destination,
   receiver-side direction) tables of a fire's outgoing broadcasts;
 - **execution**: ``build_runner(...)``, the run itself,
-  ``go(state, samples, draws, lat_draws) -> (state, aux, report)``.
+  ``go(state, samples, draws, lat_draws, donate, fault_draws=, dead=)
+  -> (state, aux, report)``.
 """
 from __future__ import annotations
 

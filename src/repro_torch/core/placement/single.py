@@ -32,8 +32,12 @@ def wave_cap(cfg) -> int:
 
 
 def pool_capacity(cfg, ecfg) -> int:
-    """Pool slots for one dense pool: ``capacity`` or 8·N, at least 4."""
+    """Pool slots for one dense pool: ``capacity`` or 8·N, at least 4. An
+    active fault plan's ``pool_reserve`` withholds slots: the drops it
+    forces count as ``dropped_overflow``, never as fault drops."""
     m = ecfg.capacity if ecfg.capacity is not None else 8 * cfg.n_units
+    if ecfg.fault_active:
+        m = int(m) - ecfg.faults.pool_reserve
     return max(int(m), 4)
 
 
@@ -130,6 +134,11 @@ class SinglePool:
         # late import: events imports this module for its selectors
         from repro_torch.core import events
 
+        if ecfg.fault_active and ecfg.faults.shard_latency_mult:
+            raise ValueError(
+                "FaultPlan.shard_latency_mult injects per-shard stragglers "
+                "and needs placement='mesh' with shards == len(mult) >= 2; "
+                "the single-pool placement has no shards to slow down")
         if events._zero_fast_ok(cfg, ecfg, num_events):
             return events._make_fused_zero(cfg, ecfg, num_events,
                                            search, p_fn, l_c_fn)

@@ -49,7 +49,17 @@ path draws a child's block at its sample round and the engine at its first
 delivery round. ``AsyncBackend.run`` first draws ``randint(0, num_samples,
 (E,))`` sample indices for the whole run (JAX's ``_select_run_samples``).
 The exponential latency model draws ``exponential((4 N,))`` delays from a
-latency source of its own, once per broadcast that enqueues messages.
+latency source of its own, once per broadcast that enqueues messages; an
+active fault plan's broadcast loss draws ``uniform((4 N,))`` from a source
+of its own (``GeneratorDraws(plan.seed)``, anew every run), once per
+broadcast that sends.
+
+A training stream that must resume bitwise after a crash
+(``launch/stream_train.py``) takes each step's draws from
+``GeneratorDraws.for_step(seed, step)``, a source that depends on the seed
+and the step's index alone, the counterpart of JAX's
+``fold_in(PRNGKey(seed), step)``: a resumed run consumes exactly the draws
+the uninterrupted run would have.
 """
 from __future__ import annotations
 
@@ -75,6 +85,8 @@ class Draws(Protocol):
 
 
 _MASK64 = (1 << 64) - 1
+#: mixed into the seed of ``GeneratorDraws.for_step``
+_STEP_TAG = 0x5354455053545245
 
 
 def _mix64(x: int) -> int:
@@ -94,6 +106,16 @@ class GeneratorDraws:
         self.spawned = 0
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
+
+    @classmethod
+    def for_step(cls, seed: int, step: int,
+                 device: torch.device | str | None = None
+                 ) -> "GeneratorDraws":
+        """The draw source of step ``step`` of a stream seeded with
+        ``seed``: its seed is mixed on the host from both (a tag keeps it
+        apart from the seeds ``spawn`` hands out), so it does not depend
+        on the steps before it."""
+        return cls(_mix64(_mix64(int(seed) ^ _STEP_TAG) + int(step)), device)
 
     def spawn(self) -> "GeneratorDraws":
         """The next child source, seeded on the host from (seed, the count

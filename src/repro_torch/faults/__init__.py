@@ -1,25 +1,60 @@
-"""Fault plans for the event engine, port of ``repro.faults``.
+"""Deterministic fault injection for the event engine (``FaultPlan``), port
+of ``repro.faults``.
 
-A ``FaultPlan`` describes faults to inject into ``core.events``: broadcast
-loss (``p_loss``), unit dropout windows (``dropout_frac`` /
-``dropout_start`` / ``dropout_len``), shard stragglers
-(``shard_latency_mult``) and pool pressure (``pool_reserve``), seeded by a
-stream of its own. The port has the plan and its validation; the engine
-accepts ``None`` or a plan with no active axis and raises
-``NotImplementedError`` for an active one (fault injection is ROADMAP
-queue 1, item 4).
+The paper's claim is robustness by construction: units adapt on their own
+through sparse local messages, so the map should degrade gracefully when
+messages are lost or units die. A ``FaultPlan`` is a frozen, hashable
+description of the faults to inject, seeded by a stream of its own, so a
+faulty run replays bitwise for a given ``(plan, draws)`` and a run without
+an active axis consumes exactly the fault-free engine's draws.
+
+Fault axes, composable and each counted in ``EventReport``:
+
+- **broadcast loss** (``p_loss``): each weight-broadcast message is lost
+  with probability ``p_loss``, drawn from the plan's own source
+  (``GeneratorDraws(seed)``, made anew for every run). Lost messages count
+  as ``dropped_fault``, so ``sent == deliveries + dropped_overflow +
+  dropped_fault + stranded`` always holds.
+- **unit dropout windows** (``dropout_frac`` / ``dropout_start`` /
+  ``dropout_len``): ``dead_units`` is dead for the simulated time window
+  ``[dropout_start, dropout_start + dropout_len)``. Dead units neither
+  adapt nor broadcast; messages to a dead unit are consumed as
+  ``dropped_fault``; samples routed to a dead GMU count in
+  ``samples_dead``. After the window a unit rejoins with its counter.
+- **shard stragglers** (``shard_latency_mult``): per-shard latency
+  multipliers of the mesh placement, which the port does not have yet
+  (ROADMAP queue 1, item 5): the single pool refuses them.
+- **pool pressure** (``pool_reserve``): slots withheld from the pool,
+  forcing overflow drops, which count as ``dropped_overflow``, never as
+  fault drops.
+
+``EventConfig(faults=plan)`` (or ``backend_options={"faults": {...}}`` on
+the ``async`` backend) threads a plan into the engine. ``None``,
+``FaultPlan.none()`` and a seed-only plan run the fault-free engine.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Mapping
 
+import torch
+
 __all__ = ["FaultPlan", "resolve_plan"]
 
 
 @dataclasses.dataclass(frozen=True)
 class FaultPlan:
-    """Seeded, hashable fault-injection plan (fields as ``repro.faults``)."""
+    """Seeded, hashable fault-injection plan (fields as ``repro.faults``).
+
+    seed:               root of the plan's draws (message loss, the dead
+                        set), apart from the training and latency streams.
+    p_loss:             per-message broadcast loss probability in [0, 1].
+    dropout_frac:       fraction of units dead during the window, in [0, 1].
+    dropout_start:      simulated time the window opens (sample periods).
+    dropout_len:        window length; 0 disables dropout.
+    shard_latency_mult: per-shard latency multipliers (mesh only).
+    pool_reserve:       pool slots withheld to force overflow (>= 0).
+    """
     seed: int = 0
     p_loss: float = 0.0
     dropout_frac: float = 0.0
@@ -49,6 +84,11 @@ class FaultPlan:
             raise ValueError(
                 f"pool_reserve must be >= 0, got {self.pool_reserve}")
 
+    @classmethod
+    def none(cls) -> "FaultPlan":
+        """The fault-free plan: the same engine as ``faults=None``."""
+        return cls()
+
     def is_none(self) -> bool:
         """True when no fault axis is active (a seed alone activates
         nothing)."""
@@ -58,6 +98,20 @@ class FaultPlan:
     @property
     def dropout_active(self) -> bool:
         return self.dropout_frac > 0.0 and self.dropout_len > 0.0
+
+    def dead_units(self, n: int) -> torch.Tensor:
+        """(N,) bool CPU tensor: exactly ``round(dropout_frac * n)`` units,
+        the head of ``torch.randperm(n)`` from a CPU generator seeded with
+        ``seed``, so the set is the same whichever device the run is on.
+        (JAX draws its set with ``jax.random.permutation``: the two
+        packages' sets differ, as their link tables do.)"""
+        dead = torch.zeros(n, dtype=torch.bool)
+        k = int(round(self.dropout_frac * n))
+        if k == 0 or not self.dropout_active:
+            return dead
+        gen = torch.Generator().manual_seed(self.seed)
+        dead[torch.randperm(n, generator=gen)[:k]] = True
+        return dead
 
 
 def resolve_plan(spec) -> FaultPlan | None:

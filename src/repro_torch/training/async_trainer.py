@@ -59,8 +59,10 @@ class AsyncBackend:
       lat_seed:  seed of the exponential-latency draw source
                  (``lat_draws``), kept apart from the training draws.
       faults:    ``None``, a ``repro_torch.faults.FaultPlan`` or a mapping
-                 of its fields; an active plan raises ``NotImplementedError``
-                 (ROADMAP queue 1, item 4).
+                 of its fields (broadcast loss, dropout windows, pool
+                 pressure); an active plan runs the discrete-event engine.
+                 ``shard_latency_mult`` needs the mesh placement (ROADMAP
+                 queue 1, item 5).
       donate_run: let each ``run()`` update its input state's tensors in
                  place (the engine's runners), saving a copy of the dense
                  state per run; only for callers that drop the state they

@@ -157,10 +157,15 @@ def test_async_rejects_bad_options():
         get_backend("async", cfg, shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         get_backend("async", cfg, placement="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        get_backend("async", cfg, faults={"p_loss": 0.1}, device="cpu")
+    with pytest.raises(ValueError, match="FaultPlan disqualifies"):
+        get_backend("async", cfg, faults={"p_loss": 0.1}, kernel="fused",
+                    device="cpu")
+    with pytest.raises(ValueError, match="faults must be"):
+        get_backend("async", cfg, faults="p_loss=0.1", device="cpu")
     be = get_backend("async", cfg, faults={"seed": 3}, device="cpu")
     assert not be.ecfg.fault_active          # a seed alone injects nothing
+    be = get_backend("async", cfg, faults={"p_loss": 0.1}, device="cpu")
+    assert be.ecfg.fault_active
 
 
 def test_async_defaults_to_cuda():

@@ -436,15 +436,27 @@ def test_quiescence_watchdog_raises_like_jax():
 
 
 def test_active_fault_plan_is_not_ported():
+    """Of an active plan's axes only the stragglers wait for the mesh
+    placement (ROADMAP queue 1, item 5), which still raises; loss and
+    dropout run in the engine, with every message accounted for."""
     from repro_torch.faults import FaultPlan
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tev.EventConfig(faults=FaultPlan(p_loss=0.1))
     assert not tev.EventConfig(faults=FaultPlan(seed=9)).fault_active
     cfg = torch_cfg(**HOT)
     state = tafm.init(GeneratorDraws(0, "cpu"), cfg)
+    data = t(_data(HOT["dim"]))[:64]
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         tev.run_events(state, torch.zeros((2, cfg.dim)),
                        GeneratorDraws(0, "cpu"), cfg, placement="mesh")
+    with pytest.raises(ValueError, match="placement='mesh'"):
+        tev.run_events(state, data, GeneratorDraws(0, "cpu"), cfg,
+                       tev.EventConfig(faults=FaultPlan(
+                           shard_latency_mult=(1.0, 2.0))))
+    plan = FaultPlan(seed=9, p_loss=0.5, dropout_frac=0.25, dropout_len=8)
+    _, _, rep = tev.run_events(state, data, GeneratorDraws(0, "cpu"), cfg,
+                               tev.EventConfig(faults=plan), p_fn=_p_hot_t)
+    assert rep.dropped_fault > 0
+    assert rep.sent == (rep.deliveries + rep.dropped_overflow
+                        + rep.dropped_fault + rep.stranded)
 
 
 @pytest.mark.parametrize("search", ["exact", "heuristic"])

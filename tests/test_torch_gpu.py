@@ -751,6 +751,128 @@ def test_run_events_on_the_card_equals_the_cpu(cuda, name):
         64 * eps * float(sc.w.abs().max())
 
 
+FAULT_CASES = {
+    "loss": dict(latency="constant", delay=1.0,
+                 faults=dict(seed=11, p_loss=0.3)),
+    "dropout": dict(latency="constant", delay=1.0,
+                    faults=dict(seed=11, dropout_frac=0.25,
+                                dropout_start=10.0, dropout_len=30.0)),
+    "both-exponential": dict(latency="exponential", delay=1.5,
+                             faults=dict(seed=11, p_loss=0.3,
+                                         dropout_frac=0.25,
+                                         dropout_start=10.0,
+                                         dropout_len=30.0)),
+    "zero-pool": dict(faults=dict(seed=11, p_loss=0.3,
+                                  pool_reserve=8 * 64 - 8)),   # 8 slots
+}
+
+
+def _faulty_run(dev, name, base, data, cfg, fault_seed=5):
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import events
+    from repro_torch.faults import FaultPlan
+    opts = dict(FAULT_CASES[name])
+    plan = FaultPlan(**opts.pop("faults"))
+    return events.run_events(
+        state_from_numpy(base, dev), data.to(dev), _HostDraws(2, dev), cfg,
+        events.EventConfig(faults=plan, **opts), search=events.search_exact,
+        p_fn=lambda i, c: 0.8, lat_draws=_HostDraws(3, dev),
+        fault_draws=_HostDraws(fault_seed, dev))
+
+
+def _conserved(rep):
+    return rep.sent == (rep.deliveries + rep.dropped_overflow
+                        + rep.dropped_fault + rep.stranded)
+
+
+@pytest.mark.parametrize("name", sorted(FAULT_CASES))
+def test_faulty_engine_on_the_card_equals_the_cpu(cuda, name):
+    """The faulty engine (8x8, D 16, 64 events, exact search on the
+    ``bmu`` kernel) on the card and on the CPU from the same host draws,
+    fault draws included: integers, the report and the fault counts
+    bitwise, w within 64 ulps of max |w|; every message accounted for."""
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import afm
+    cfg = AFMConfig(side=8, dim=16, theta=3, i_max=96, e_factor=0.5)
+    data = torch.randn(64, 16, generator=torch.Generator().manual_seed(4))
+    base = state_to_numpy(afm.init(_HostDraws(1, "cpu"), cfg, data))
+    launches = bmu_ops.launches
+    (sg, ag, rg), (sc, ac, rc) = (_faulty_run(dev, name, base, data, cfg)
+                                  for dev in (cuda, torch.device("cpu")))
+    assert bmu_ops.launches - launches == 64        # the search, a sample
+    assert rc.deliveries > 0 and _conserved(rc)
+    assert rc.dropped_fault > 0 or rc.dropped_overflow > 0
+    assert torch.equal(sg.c.cpu(), sc.c)
+    for a, r in zip(ag, ac):
+        if a.is_floating_point():
+            assert float((a.cpu() - r).abs().max()) <= 1e-4 * float(
+                r.abs().max())
+        else:
+            assert torch.equal(a.cpu(), r)
+    for f in rc._fields:
+        a, r = getattr(rg, f), getattr(rc, f)
+        assert torch.equal(a.cpu(), r) if torch.is_tensor(a) else a == r, f
+    eps = torch.finfo(torch.float32).eps
+    assert float((sg.w.cpu() - sc.w).abs().max()) <= \
+        64 * eps * float(sc.w.abs().max())
+
+
+def test_dead_units_stay_frozen_on_the_card(cuda):
+    """A whole-run dropout window at 30x30x784: the dead units keep their
+    initial weights bitwise, the live ones train, samples routed to dead
+    units are counted, and every message is accounted for."""
+    from repro_torch.core import afm
+    from repro_torch.core import events
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.faults import FaultPlan
+    cfg = AFMConfig(side=30, dim=784)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    # 16 tight clusters, so that GMUs repeat and cascades run
+    centers = torch.rand(16, 784, generator=gen, device=cuda)
+    data = centers[torch.arange(400, device=cuda) % 16] + 0.01 * torch.rand(
+        400, 784, generator=gen, device=cuda)
+    state = afm.init(GeneratorDraws(0, cuda), cfg, data)
+    plan = FaultPlan(seed=11, dropout_frac=0.25, dropout_len=1e9)
+    out, _, rep = events.run_events(
+        state, data, GeneratorDraws(1, cuda), cfg,
+        events.EventConfig(latency="constant", delay=1.0, faults=plan),
+        search=events.search_exact, p_fn=lambda i, c: 0.8)
+    dead = plan.dead_units(cfg.n_units).to(cuda)
+    assert torch.equal(out.w[dead], state.w[dead])
+    assert not torch.equal(out.w[~dead], state.w[~dead])
+    assert rep.samples_dead > 0 and rep.dropped_fault > 0 and \
+        _conserved(rep)
+
+
+def test_stream_kill_and_resume_on_the_card_is_bitwise(cuda, tmp_path):
+    """``run_stream`` on the card (async, zero latency, exact search, the
+    fused kernel): SIGTERM at half the events, then ``resume``, ends on the
+    uninterrupted run's published map bitwise."""
+    from repro_torch.api import MapStore
+    from repro_torch.launch.stream_train import run_stream
+    cfg = AFMConfig(side=8, dim=16, i_max=256)
+    gen = torch.Generator().manual_seed(0)
+    xtr, xte = torch.randn(300, 16, generator=gen), torch.randn(
+        32, 16, generator=gen)
+    common = dict(backend="async", events=256, chunk=32, swap_every=64,
+                  clients=1, client_batch=4, name="m", seed=3, device=cuda,
+                  backend_options={"search": "exact", "kernel": "fused"})
+    launches = fused_ops.launches
+    run_stream(cfg, xtr, xte, store_root=str(tmp_path / "a"), **common)
+    assert fused_ops.launches - launches == 256     # one an event
+    ck = str(tmp_path / "ck")
+    cut = run_stream(cfg, xtr, xte, store_root=str(tmp_path / "b"),
+                     checkpoint_dir=ck, die_after=128, **common)
+    assert cut.interrupted and cut.events == 128
+    rep = run_stream(cfg, xtr, xte, store_root=str(tmp_path / "b"),
+                     checkpoint_dir=ck, resume=True, **common)
+    assert rep.client_errors == [] and rep.qe_finite
+    arts = [MapStore(str(tmp_path / r)).load_artifact("m", device="cpu")
+            for r in "ab"]
+    assert arts[0].state.i == arts[1].state.i == 256
+    assert torch.equal(arts[0].state.w, arts[1].state.w)
+
+
 # ------------------------------------------------ the map-serving engine
 
 

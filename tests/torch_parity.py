@@ -197,3 +197,69 @@ def assert_same_run(jout, tout, w0, data, w_ulps: int):
     bound = bmu_ref.tie_bound(t(w0), t(samples)).numpy()
     assert np.all(np.abs(np.asarray(ja.q2)[:, 0] - ta.q2[:, 0].cpu().numpy())
                   <= 4 * bound)
+
+
+def fault_draws(seed: int, n: int, count: int) -> ReplayDraws:
+    """An active fault plan's loss draws in JAX's engine: from
+    ``PRNGKey(seed)``, per broadcast that sends, ``split`` then
+    ``uniform((4N,))``; ``count`` of them (any bound on the run's fires,
+    such as its round count), as the port's fault source."""
+    def body(k, _):
+        k, sub = jax.random.split(k)
+        return k, jax.random.uniform(sub, (4 * n,))
+    _, u = jax.lax.scan(body, jax.random.PRNGKey(seed), None, length=count)
+    return replay(list(np.asarray(u)))
+
+
+class _ChainChild:
+    """One cascade's draws from JAX's ``k_cascade`` chain, in the kernel
+    paths' layout (``event_draws``), computed as they are asked for."""
+
+    def __init__(self, key, side: int, wave_cap: int):
+        self.device = torch.device("cpu")
+        self._drive, self._key = jax.random.split(key)
+        self._side, self._cap = side, wave_cap
+
+    def _wave(self):
+        self._key, sub = jax.random.split(self._key)
+        return np.asarray(jax.random.uniform(sub, (4, self._side,
+                                                   self._side)))
+
+    def uniform(self, shape):
+        s = self._side
+        if tuple(shape) == (8, s, s) and self._drive is not None:
+            out, self._drive = jax.random.uniform(self._drive, shape), None
+        elif tuple(shape) == (self._cap, 4, s, s):
+            out = np.stack([self._wave() for _ in range(self._cap)])
+        elif tuple(shape) == (4, s, s):
+            out = self._wave()
+        else:
+            raise ValueError(f"unexpected cascade draw {tuple(shape)}")
+        return torch.from_numpy(np.array(out, np.float32))
+
+
+class JaxStepDraws:
+    """The draws of ``run_events`` for JAX's per-event ``step_keys``, as
+    ``event_draws`` lays them out but computed as they are asked for, so
+    no wave count has to be known first: per event the search's draws
+    (heuristic only), then ``spawn()``, the event's cascade child."""
+
+    def __init__(self, step_keys, cfg, wave_cap: int):
+        self.device = torch.device("cpu")
+        self._keys = list(step_keys)
+        self._cfg, self._cap = cfg, wave_cap
+        self._ev, self._search = 0, None
+
+    def randint(self, low, high, shape):
+        if self._search is None:
+            k_search, _ = jax.random.split(self._keys[self._ev])
+            self._search = search_draws(k_search, self._cfg.n_units,
+                                        self._cfg.phi, 1, self._cfg.e)
+        arr = np.asarray(self._search.pop(0))
+        assert arr.shape == tuple(shape), (arr.shape, shape)
+        return torch.from_numpy(arr.astype(np.int64))
+
+    def spawn(self):
+        _, k_cascade = jax.random.split(self._keys[self._ev])
+        self._ev, self._search = self._ev + 1, None
+        return _ChainChild(k_cascade, self._cfg.side, self._cap)
