@@ -85,6 +85,24 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     ``MapGateway``, swapped in memory; then store backed, uninterrupted
     against killed by SIGTERM at half the events and resumed, the final
     artifacts bitwise;
+11H. the mesh placement (``mesh_phase``): ``run_events(placement="mesh")``
+    at 30x30x784 on 2 gloo ranks on the one card (one process a shard),
+    exact search (a ``bmu`` launch on the shard's 450-unit band a sample
+    round, counted on every rank): 1,000 zero-latency events, 500 at
+    constant latency 1.0, 500 under 10 % loss and ``shard_latency_mult``
+    (1, 3) twice (bitwise the same), a profiled window (idle share), a
+    small run on the card against the CPU; then 300 events on 3 ranks. Per
+    shard ``sent == delivered + overflow + fault + stranded`` and the rows
+    summing to the totals, every rank's dense state alike, QE within the
+    single pool's band; events/s, rounds/s, collectives and device reads a
+    drain iteration, time in the exchange; the ``bmu`` row at the band's
+    shape;
+11I. the sharded backend (``sharded_phase``): ``TopoMap(backend=
+    "sharded")`` at 30x30x784, B = 16, 200 steps on (data 1, model 2) and
+    (data 2, model 2) meshes of gloo ranks on the card (QE falls, no NaN,
+    counters below theta, 3 steps on the card against the CPU), then a
+    1 x 1 mesh without a process group and the same over a 1-rank NCCL
+    group, bitwise equal;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -145,6 +163,12 @@ class HostDraws:
         this one's seed and its count of children."""
         self.spawned += 1
         return HostDraws(self.seed * 7919 + self.spawned, self.device)
+
+    def fold_in(self, data):
+        """A mesh shard's source, seeded from this one's seed and
+        ``data``."""
+        return HostDraws(self.seed * 1_000_003 + 104_729 * (data + 1),
+                         self.device)
 
 
 #: cycles of the sleep kernel that holds the card while the host queues a
@@ -1941,6 +1965,513 @@ def stream_phase(device, xtr, xte):
     return launches
 
 
+#: phase H (the mesh placement, 2 ranks on the card over gloo): events of
+#: the zero-latency run, the constant-latency run and the faulty run (run
+#: twice), of the profiled window and of the 3-rank run, at 30x30x784
+MESH_ZERO = 1000
+MESH_CONSTANT = 500
+MESH_FAULTY = 500
+MESH_PROFILED = 50
+MESH_THREE = 300
+#: phase H's faulty plan: 10 % broadcast loss, shard 1 three times slower
+MESH_FAULTS = {"seed": 11, "p_loss": 0.1, "shard_latency_mult": (1.0, 3.0)}
+#: phase I (the sharded backend): steps of each mesh's fit (B = 16), of the
+#: card-vs-CPU comparison, and of the 1 x 1 and 1-rank NCCL fits
+SHARDED_STEPS = 200
+SHARDED_PAIRED = 3
+SHARDED_ONE = 20
+#: seconds a set of ranks may take before its phase fails (the ranks are
+#: then stopped)
+RANK_TIMEOUT = 600.0
+
+
+def _profiled_busy(fn):
+    """``fn()`` under ``torch.profiler``: (its result, this process's device
+    busy microseconds, wall seconds)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0],
+            "self_device_time_total") else "self_cuda_time_total")
+    from torch.autograd import DeviceType
+    busy = sum(getattr(e, attr) for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation)
+    return out, busy, wall
+
+
+def _run_summary(out, seconds, launches=None):
+    """A mesh run's report as host values, with a checksum of its dense
+    state (every rank must hold the same)."""
+    import hashlib
+    st, aux, rep = out
+    digest = hashlib.sha256()
+    for x in (st.w, st.c, aux.gmu, aux.q2, aux.cascade_size, aux.waves,
+              rep.clock, rep.nevents):
+        digest.update(x.detach().cpu().numpy().tobytes())
+    from repro_torch.core.placement import mesh
+    return {"seconds": seconds, "rounds": rep.rounds, "samples": rep.samples,
+            "deliveries": rep.deliveries, "sent": rep.sent,
+            "dropped_overflow": rep.dropped_overflow,
+            "dropped_fault": rep.dropped_fault, "stranded": rep.stranded,
+            "rows": rep.shard_counts, "digest": digest.hexdigest(),
+            "finite": bool(torch.isfinite(st.w).all()),
+            "stats": dict(mesh.stats), "launches": launches}
+
+
+def _mesh_rank(rank, shards, full):
+    """Phase H on one of ``shards`` gloo ranks on the card: the mesh runs
+    of ``run_events(placement="mesh")`` at 30x30x784 (seed 0), exact
+    search (a ``bmu`` launch on the shard's band a sample round); with
+    ``full`` also constant latency, the faulty run twice, a profiled
+    window and a small run on the card against the CPU."""
+    from repro_torch.api import TopoMap
+    from repro_torch.core import afm, events
+    from repro_torch.data import make_dataset
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.faults import FaultPlan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    device = torch.device("cuda")
+    _build.load()
+    xtr, _, xte, _ = make_dataset("mnist", seed=SEED, device=device)
+    cfg = _async_cfg()
+    init = afm.init(GeneratorDraws(SEED, device), cfg, xtr)
+
+    def run(n_events, faults=None, **ekw):
+        idx = GeneratorDraws(SEED + 7, device).randint(0, xtr.shape[0],
+                                                       (n_events,))
+        ecfg = events.EventConfig(
+            **ekw, faults=FaultPlan(**faults) if faults else None)
+        return events.run_events(
+            init, xtr[idx].contiguous(),
+            GeneratorDraws(SEED + 1, device).fold_in(rank), cfg, ecfg,
+            search=events.search_exact, placement="mesh", shards=shards,
+            lat_seed=SEED + 2)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run(5, latency="zero")                   # warm-up
+    # the main path of the phase: counts set to 0 just before, read after
+    _reset_launch_counts()
+    out, sec = timed(lambda: run(MESH_ZERO if full else MESH_THREE,
+                                 latency="zero"))
+    res = {"zero": _run_summary(out, sec, _launch_counts())}
+    if rank == 0:
+        res["qe_zero"] = TopoMap.from_state(out[0], cfg, backend="async",
+                                            device=device
+                                            ).quantization_error(xte)
+    if not full:
+        return res
+    out, sec = timed(lambda: run(MESH_CONSTANT, latency="constant",
+                                 delay=1.0))
+    res["constant"] = _run_summary(out, sec)
+    for key in ("faulty", "faulty again"):
+        out, sec = timed(lambda: run(MESH_FAULTY, faults=MESH_FAULTS,
+                                     latency="constant", delay=1.0))
+        res[key] = _run_summary(out, sec)
+    _, busy, wall = _profiled_busy(lambda: run(MESH_PROFILED,
+                                               latency="zero"))
+    from repro_torch.core.placement import mesh
+    res["profiled"] = {"busy_us": busy, "wall": wall,
+                       "stats": dict(mesh.stats)}
+    res["card_vs_cpu"] = _mesh_card_vs_cpu(rank, shards, device)
+    res["latency"] = _sync_latencies(shards, device)
+    return res
+
+
+def _sync_latencies(shards, device, n=200):
+    """Mean microseconds of one host ``all_gather`` among the ranks, and
+    of one device read (a small kernel and its ``.item()``) while every
+    rank reads at once; ``shards`` 0 times the read alone, without a
+    group."""
+    x = torch.zeros(64, dtype=torch.int64)
+    y = torch.zeros(1, device=device)
+    out = {}
+    if shards:
+        from repro_torch.sharding import ShardMesh
+        mesh = ShardMesh((shards,), ("shards",))
+        mesh.all_gather(x, "shards")
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mesh.all_gather(x, "shards")
+        out["gather_us"] = (time.perf_counter() - t0) / n * 1e6
+        mesh.all_gather(x, "shards")             # the ranks start together
+    float((y + 1).item())
+    t0 = time.perf_counter()
+    for _ in range(n):
+        float((y + 1).item())
+    out["read_us"] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def _mesh_card_vs_cpu(rank, shards, device):
+    """A small mesh run (8x8, D 16, 64 events, constant latency, exact
+    search, p = 0.8, a 0.3 broadcast loss) on the card and on the CPU from
+    the same host draws: integers and report bitwise, w within 64 ulps of
+    max |w|. Returns max |dw|."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import afm, events
+    from repro_torch.faults import FaultPlan
+    cfg = afm.AFMConfig(side=8, dim=16, theta=3, i_max=96, e_factor=0.5)
+    data = torch.randn(64, 16, generator=torch.Generator().manual_seed(4))
+    base = state_to_numpy(afm.init(HostDraws(1, "cpu"), cfg, data))
+    ecfg = events.EventConfig(latency="constant", delay=1.0,
+                              faults=FaultPlan(seed=11, p_loss=0.3))
+    outs = [events.run_events(
+        state_from_numpy(base, dev), data.to(dev),
+        HostDraws(2, dev).fold_in(rank), cfg, ecfg,
+        search=events.search_exact, p_fn=lambda i, c: 0.8,
+        fault_draws=HostDraws(5, dev).fold_in(rank), placement="mesh",
+        shards=shards) for dev in (device, torch.device("cpu"))]
+    card = (outs[0][0]._replace(w=outs[0][0].w.cpu(), c=outs[0][0].c.cpu()),
+            type(outs[0][1])(*(x.cpu() for x in outs[0][1])),
+            outs[0][2]._replace(clock=outs[0][2].clock.cpu(),
+                                nevents=outs[0][2].nevents.cpu()))
+    cpu = outs[1]
+    _ints_equal(card, cpu, "mesh, card vs CPU")
+    eps = torch.finfo(torch.float32).eps
+    dw = float((card[0].w - cpu[0].w).abs().max())
+    if dw > 64 * eps * float(cpu[0].w.abs().max()):
+        raise AssertionError(f"mesh, card vs CPU: |dw| {dw}")
+    if cpu[2].deliveries == 0 or cpu[2].dropped_fault == 0:
+        raise AssertionError(f"mesh, card vs CPU: {cpu[2]}")
+    return {"dw": dw, "rounds": cpu[2].rounds,
+            "deliveries": cpu[2].deliveries}
+
+
+def _mesh_checks(res, shards, events, what):
+    """Every rank holds the same result; per shard ``sent == delivered +
+    overflow + fault + stranded``; the rows sum to the global counters;
+    every sample consumed, nothing stranded."""
+    first = res[0]
+    if any(r["digest"] != first["digest"] for r in res):
+        raise AssertionError(f"{what}: the ranks' results differ")
+    rows = np.asarray(first["rows"], np.int64)
+    if rows.shape != (shards, 5):
+        raise AssertionError(f"{what}: shard rows {rows.shape}")
+    if not (rows[:, 0] == rows[:, 1:].sum(axis=1)).all():
+        raise AssertionError(f"{what}: a shard's accounting fails: {rows}")
+    if not (rows[:, 0].sum() == first["sent"]
+            and rows[:, 1].sum() == first["deliveries"]
+            and rows[:, 3].sum() == first["dropped_fault"]):
+        raise AssertionError(f"{what}: shard rows do not sum to the totals")
+    if first["samples"] != events or first["stranded"] or \
+            not first["finite"]:
+        raise AssertionError(f"{what}: {first}")
+    if first["deliveries"] == 0:
+        raise AssertionError(f"{what}: no broadcast delivered")
+
+
+def _per_iteration(s, what, seconds):
+    it = max(s["drain_iterations"], 1)
+    return (f"{what}: {s['drain_iterations']} drain iterations, "
+            f"{s['collectives'] / it:.2f} collectives and "
+            f"{s['host_reads'] / it:.2f} device reads an iteration (sample "
+            f"rounds' included), {s['weight_gathers']} boundary-row "
+            f"gathers, {s['exchange_s']:.3f} s in the exchange "
+            f"({100 * s['exchange_s'] / seconds:.1f} % of the run)")
+
+
+def mesh_phase(device, xtr, xte, worst):
+    """Phase H: the mesh placement on the card. Two gloo ranks on the one
+    card run ``_mesh_rank`` (zero latency, exact, ``MESH_ZERO`` events;
+    constant latency 1.0, ``MESH_CONSTANT``; the faulty plan twice, which
+    must replay bitwise; a profiled window; a small run against the CPU),
+    then three ranks run ``MESH_THREE`` zero-latency events. Every rank
+    must launch ``bmu`` once a sample round on its band. QE must land in
+    the band of the single pool's run on the same data and draws' seed.
+    Returns the kernel row of ``bmu`` at the band's shape, B = 1."""
+    from repro_torch.api import TopoMap
+    from repro_torch.core import afm, events
+    from repro_torch.device import sm_count
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    from repro_torch.sharding import spawn_ranks
+    t_phase = time.perf_counter()
+    two = spawn_ranks(_mesh_rank, 2, (2, True), dist_backend="gloo",
+                      timeout=RANK_TIMEOUT)
+    t_two = time.perf_counter() - t_phase
+    three = spawn_ranks(_mesh_rank, 3, (3, False), dist_backend="gloo",
+                        timeout=RANK_TIMEOUT)
+    print(f"mesh phase: 2 ranks {t_two:.1f} s, 3 ranks "
+          f"{time.perf_counter() - t_phase - t_two:.1f} s (process start, "
+          f"data and kernel load included)")
+    for res, shards, key, n_ev in ((two, 2, "zero", MESH_ZERO),
+                                   (three, 3, "zero", MESH_THREE),
+                                   (two, 2, "constant", MESH_CONSTANT),
+                                   (two, 2, "faulty", MESH_FAULTY)):
+        _mesh_checks([r[key] for r in res], shards, n_ev,
+                     f"mesh {shards} ranks, {key}")
+    for res, shards, n_ev in ((two, 2, MESH_ZERO), (three, 3, MESH_THREE)):
+        for rank, r in enumerate(res):
+            got = r["zero"]["launches"]["bmu"]
+            if got != n_ev:
+                raise AssertionError(
+                    f"mesh {shards} ranks: rank {rank} launched bmu {got} "
+                    f"times for {n_ev} sample rounds")
+    faulty, again = two[0]["faulty"], two[0]["faulty again"]
+    if faulty["digest"] != again["digest"] or faulty["rows"] != again["rows"]:
+        raise AssertionError("mesh, faulty run: one seed did not replay "
+                             "bitwise")
+    if faulty["dropped_fault"] == 0:
+        raise AssertionError("mesh, faulty run: no message lost")
+    # the single pool on the same data, samples and seeds, for QE's band
+    cfg = _async_cfg()
+    init = afm.init(GeneratorDraws(SEED, device), cfg, xtr)
+    idx = GeneratorDraws(SEED + 7, device).randint(0, xtr.shape[0],
+                                                   (MESH_ZERO,))
+    single, _, _ = events.run_events(
+        init, xtr[idx].contiguous(), GeneratorDraws(SEED + 1, device), cfg,
+        events.EventConfig(latency="zero"), search=events.search_exact)
+    qe = {k: TopoMap.from_state(s, cfg, backend="async", device=device
+                                ).quantization_error(xte)
+          for k, s in (("init", init), ("single", single))}
+    qe["mesh"] = two[0]["qe_zero"]
+    if not (qe["single"] < 1.5 * qe["init"] and np.isfinite(qe["mesh"])
+            and qe["mesh"] < 1.3 * qe["single"]):
+        raise AssertionError(f"mesh: QE out of the single pool's band: {qe}")
+    print(f"mesh QE after {MESH_ZERO} zero-latency events: initial "
+          f"{qe['init']:.4f}, single pool {qe['single']:.4f}, 2-shard mesh "
+          f"{qe['mesh']:.4f} (3-shard ran {MESH_THREE} events)")
+    for res, shards, key, n_ev in ((two, 2, "zero", MESH_ZERO),
+                                   (three, 3, "zero", MESH_THREE),
+                                   (two, 2, "constant", MESH_CONSTANT),
+                                   (two, 2, "faulty", MESH_FAULTY)):
+        r = res[0][key]
+        sec = r["seconds"]
+        print(f"mesh {shards} ranks, {key}: {n_ev} events at 30x30x784, "
+              f"exact search: {n_ev / sec:.1f} events/s, "
+              f"{r['rounds'] / sec:.1f} rounds/s ({sec:.3f} s); "
+              f"{r['rounds']} rounds, sent {r['sent']}, delivered "
+              f"{r['deliveries']}, dropped_fault {r['dropped_fault']}, "
+              f"dropped_overflow {r['dropped_overflow']}; shard rows "
+              f"{r['rows']}")
+        print(_per_iteration(r["stats"], f"mesh {shards} ranks, {key}", sec))
+    prof = [r["profiled"] for r in two]
+    wall = max(p["wall"] for p in prof)
+    busy = sum(p["busy_us"] for p in prof)
+    print(f"mesh 2 ranks, profiled {MESH_PROFILED} zero-latency events: wall "
+          f"{wall * 1e3 / MESH_PROFILED:.3f} ms/event, both ranks' device "
+          f"busy {busy / 1e3 / MESH_PROFILED:.4f} ms/event, idle share "
+          f"{100 * (1 - busy / 1e6 / wall):.1f} %")
+    lat = [r["latency"] for r in two]
+    alone = _sync_latencies(0, device)["read_us"]
+    print(f"mesh 2 ranks: a host all_gather of the ranks "
+          f"{lat[0]['gather_us']:.1f} us; a device read (a small kernel and "
+          f"its .item()) {lat[0]['read_us']:.1f} / {lat[1]['read_us']:.1f} "
+          f"us on ranks 0 / 1 reading at once, {alone:.1f} us from this "
+          f"process alone")
+    cvc = two[0]["card_vs_cpu"]
+    print(f"mesh card vs CPU, 2 ranks, 8x8 D 16, 64 events, constant "
+          f"latency, loss 0.3: {cvc['rounds']} rounds, {cvc['deliveries']} "
+          f"deliveries; integers and report bitwise, max|dw| "
+          f"{cvc['dw']:.3g}")
+    # the kernel at the band's shape: 450 units of 784, one sample
+    f32_peak, bw = peaks_for(torch.cuda.get_device_name(0))
+    w = single.w[:cfg.n_units // 2].contiguous()
+    s = xtr[:1].contiguous()
+    idx_k, q2_k = bmu_ops.bmu(w, s)
+    idx_r, q2_r = bmu_ref.bmu_ref(w, s)
+    torch.cuda.synchronize()
+    err = float((q2_k - q2_r).abs().max())
+    if not (torch.equal(idx_k.long(), idx_r.long())
+            and err <= float(bmu_ref.tie_bound(w, s).max())):
+        raise AssertionError(f"bmu at the band's shape: {idx_k} {idx_r} "
+                             f"|dq2| {err}")
+    (n, d), b = w.shape, 1
+    plan = bmu_ops.plan(n, b, d, sm_count(w.device))
+    label = "bmu (mesh shard search, B=1, N=450)"
+    print(f"{label}: plan {plan.kernel}_kernel, grid {plan.grid} "
+          f"({plan.blocks} blocks, {plan.splits} splits of the units), then "
+          f"the merge")
+    t = time_both({
+        "plain": lambda: bmu_ref.bmu_ref(w, s),
+        "kernel": lambda: bmu_ops.bmu(w, s),
+        "library": lambda: torch.cdist(s, w).min(dim=1),
+    }, 500, label)
+    nbytes = 4 * (n * d + b * d) + 8 * b
+    flops = 2 * b * n * d + 2 * (n + b) * d
+    bound = max(nbytes / bw, flops / f32_peak) * 1e3
+    print(f"{label}: bound {bound:.6f} ms, kernel at "
+          f"{100 * bound / t['kernel']:.1f} % of it")
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"name": label, "route": "cuda",
+            "source": "src/repro_torch/kernels/bmu/bmu.cu",
+            "replaces": "src/repro/kernels/bmu/bmu.py:26",
+            "launches": two[0]["zero"]["launches"]["bmu"],
+            "max_abs_err": max(worst["bmu"], err),
+            "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / bw > flops / f32_peak
+            else "operations",
+            "library_ms": t["library"]}
+
+
+def _sharded_cfg():
+    from repro_torch.core import afm
+    return afm.AFMConfig(side=30, dim=784, batch=16)
+
+
+def _sharded_rank(rank, shape):
+    """Phase I on one rank of a ``shape`` (data, model) mesh, gloo on the
+    card: ``TopoMap(backend="sharded")`` for ``SHARDED_STEPS`` steps at
+    30x30x784, B = 16, seed 0; then ``SHARDED_PAIRED`` sharded steps on the
+    card against the same steps on the CPU from one state (host draws)."""
+    from repro_torch.api import TopoMap
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import afm, distributed
+    from repro_torch.data import make_dataset
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.kernels import _build
+    from repro_torch.sharding import ShardMesh
+    device = torch.device("cuda")
+    _build.load()
+    xtr, _, xte, _ = make_dataset("mnist", seed=SEED, device=device)
+    cfg = _sharded_cfg()
+    mesh = ShardMesh(shape, ("data", "model"))
+    res = {}
+    if rank == 0:
+        res["qe0"] = TopoMap.from_state(
+            afm.init(GeneratorDraws(SEED, device), cfg, xtr), cfg,
+            device=device).quantization_error(xte)
+    TopoMap(cfg, backend="sharded", backend_options={"mesh": mesh},
+            device=device).fit(xtr, num_steps=2)      # warm-up
+    calls0 = mesh.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tm = TopoMap(cfg, backend="sharded", backend_options={"mesh": mesh},
+                 device=device, seed=SEED).fit(xtr, num_steps=SHARDED_STEPS)
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    res["collectives"] = mesh.calls - calls0
+    res["waves"] = int(tm.fit_aux_.waves.sum())
+    res["size"] = int(tm.fit_aux_.cascade_size.sum())
+    res["finite"] = bool(torch.isfinite(tm.state_.w).all())
+    res["c_max"] = int(tm.state_.c.max())
+    res["w"] = tm.state_.w.cpu().numpy()
+    if rank == 0:
+        res["qe"] = tm.quantization_error(xte)
+    # the card against the CPU, one step at a time from the CPU's state
+    step = distributed.make_sharded_train_step(cfg, mesh)
+    didx = distributed.data_index(mesh)
+    me = mesh.axis_index("model")
+    b = cfg.batch // shape[0]
+    dense = state_to_numpy(tm.state_)
+    dense["i"] = np.int32(tm.state_.i)
+    worst, sizes = 0.0, []
+    for k in range(SHARDED_PAIRED):
+        batch = xtr[k * cfg.batch:(k + 1) * cfg.batch]
+        outs = []
+        for dev in (device, torch.device("cpu")):
+            src = HostDraws(100 + k, dev)
+            st = distributed.shard_state_for_mesh(
+                state_from_numpy(dense, dev), cfg, mesh)
+            new, aux = step(st, batch[didx * b:(didx + 1) * b].to(dev),
+                            src.fold_in(didx).fold_in(me),
+                            src.fold_in(distributed.CASCADE_FOLD).fold_in(me))
+            outs.append((distributed.gather_state(new, cfg, mesh), aux))
+        (gc, ac), (gp, ap) = outs
+        if not (torch.equal(gc.c.cpu(), gp.c) and int(ac.cascade_size) ==
+                int(ap.cascade_size) and int(ac.waves) == int(ap.waves)):
+            raise AssertionError(f"sharded {shape}, card vs CPU, step {k}: "
+                                 f"counters, size or waves differ")
+        dw = float((gc.w.cpu() - gp.w).abs().max())
+        if dw > 64 * torch.finfo(torch.float32).eps * float(gp.w.abs().max()):
+            raise AssertionError(f"sharded {shape}, card vs CPU: |dw| {dw}")
+        worst = max(worst, dw)
+        sizes.append((int(ap.cascade_size), int(ap.waves)))
+        dense = state_to_numpy(gp)
+        dense["i"] = np.int32(gp.i)
+    res["paired"] = {"dw": worst, "sizes": sizes}
+    return res
+
+
+def _nccl_rank(rank, steps):
+    """A 1-rank NCCL group: ``TopoMap(backend="sharded")`` on a 1 x 1 mesh
+    over it, so that the NCCL path of every collective runs."""
+    from repro_torch.api import TopoMap
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import _build
+    from repro_torch.sharding import ShardMesh, rank_device
+    device = rank_device("nccl", rank)
+    _build.load()
+    xtr, _, _, _ = make_dataset("mnist", seed=SEED, device=device)
+    mesh = ShardMesh((1, 1), ("data", "model"))
+    tm = TopoMap(_sharded_cfg(), backend="sharded",
+                 backend_options={"mesh": mesh}, device=device,
+                 seed=SEED).fit(xtr, num_steps=steps)
+    x = torch.tensor([-0.0, float("nan"), 1e-45], device=device)
+    same = torch.equal(mesh.all_gather(x, "model")[0].view(torch.int32),
+                       x.view(torch.int32))
+    return {"w": tm.state_.w.cpu().numpy(), "calls": mesh.calls,
+            "transport": mesh.dist_backend, "gather_bitwise": same}
+
+
+def sharded_phase(device, xtr, xte):
+    """Phase I: the sharded backend on the card. ``TopoMap(backend=
+    "sharded")`` on (data 1, model 2) and (data 2, model 2) meshes of gloo
+    ranks on the one card, ``SHARDED_STEPS`` steps at B = 16: QE falls, no
+    NaN, every counter below theta, every rank's state alike, and
+    ``SHARDED_PAIRED`` steps on the card against the CPU. Then a 1 x 1 mesh
+    with no process group in this process, and the same fit on a 1 x 1 mesh
+    over a 1-rank NCCL group, which must give it bitwise."""
+    from repro_torch.api import TopoMap
+    from repro_torch.sharding import spawn_ranks
+    t_phase = time.perf_counter()
+    cfg = _sharded_cfg()
+    for shape in ((1, 2), (2, 2)):
+        t0 = time.perf_counter()
+        res = spawn_ranks(_sharded_rank, shape[0] * shape[1], (shape,),
+                          dist_backend="gloo", timeout=RANK_TIMEOUT)
+        what = f"sharded {shape[0]}x{shape[1]}"
+        first = res[0]
+        if not all(np.array_equal(r["w"], first["w"]) for r in res):
+            raise AssertionError(f"{what}: the ranks' dense states differ")
+        if not (first["finite"] and first["c_max"] < cfg.theta
+                and first["qe"] < first["qe0"] and first["waves"] > 0):
+            raise AssertionError(f"{what}: {first['qe0']} -> {first['qe']}, "
+                                 f"finite {first['finite']}, c max "
+                                 f"{first['c_max']}, waves {first['waves']}")
+        sec = first["seconds"]
+        print(f"{what}: {SHARDED_STEPS} steps at 30x30x784, B=16: "
+              f"{SHARDED_STEPS / sec:.2f} steps/s, "
+              f"{SHARDED_STEPS * cfg.batch / sec:.1f} samples/s ({sec:.3f} "
+              f"s); {first['waves']} waves, {first['size']} firings; "
+              f"{first['collectives'] / SHARDED_STEPS:.1f} collectives a "
+              f"step on rank 0; QE {first['qe0']:.4f} -> {first['qe']:.4f}; "
+              f"card vs CPU, {SHARDED_PAIRED} steps (firings, waves) "
+              f"{first['paired']['sizes']}: counters bitwise, max|dw| "
+              f"{first['paired']['dw']:.3g}; phase "
+              f"{time.perf_counter() - t0:.1f} s with process start")
+    one = TopoMap(cfg, backend="sharded", device=device, seed=SEED)
+    one.fit(xtr, num_steps=SHARDED_ONE)
+    nccl = spawn_ranks(_nccl_rank, 1, (SHARDED_ONE,), dist_backend="nccl",
+                       timeout=RANK_TIMEOUT)[0]
+    if not (nccl["transport"] == "nccl" and nccl["calls"] > 0
+            and nccl["gather_bitwise"]
+            and np.array_equal(nccl["w"], one.state_.w.cpu().numpy())):
+        raise AssertionError(f"sharded 1x1 over a 1-rank NCCL group: "
+                             f"transport {nccl['transport']}, "
+                             f"{nccl['calls']} collectives, not bitwise the "
+                             f"run without a group")
+    print(f"sharded 1x1, {SHARDED_ONE} steps: no process group (QE "
+          f"{one.quantization_error(xte):.4f}) and over a 1-rank NCCL group "
+          f"({nccl['calls']} NCCL/gloo collectives) bitwise equal")
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _row_as(rows, prefix, name, launches):
     """A kernel row measured above at the same shape, under this phase's
     name and launches."""
@@ -2312,6 +2843,8 @@ def main() -> int:
                 st.get("bmu@64", 0)),
         _row_as(rows, "bmu (serving, bucket 4096)",
                 "bmu (stream final QE, bucket 4096)", st.get("bmu@4096", 0))]
+    rows.append(mesh_phase(device, xtr, xte, worst))
+    sharded_phase(device, xtr, xte)
     del xtr, ytr, xte, yte
     swa_worst = check_swa_kernel(device)
     check_decode_card_vs_cpu(device)

@@ -14,10 +14,14 @@ string key:
                (``kernel="staged"``), or the whole step as one CUDA kernel
                (``kernel="fused"``); on CPU tensors the wrappers run their
                plain versions.
+``sharded``    Mesh training over ``torch.distributed`` ranks
+               (``core.distributed``): lattice rows over the ``model`` axis,
+               samples over ``data``, one process a rank.
 ``async``      Event-driven: per-sample dynamics under a message-latency
                model (``repro_torch.training.async_trainer`` over
                ``core.events``), its zero-latency fast path on the
-               ``drive_cascade`` or fused kernel.
+               ``drive_cascade`` or fused kernel; ``placement='mesh'``
+               partitions it over ranks (``core.placement.mesh``).
 =============  ==============================================================
 
 Every backend implements the ``Backend`` protocol:
@@ -31,17 +35,19 @@ Every backend implements the ``Backend`` protocol:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.core import afm
+from repro_torch.core import afm, distributed
 from repro_torch.core import search as search_lib
 from repro_torch.core.afm import AFMConfig, AFMState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bmu import ops as bmu_ops
 from repro_torch.kernels.cascade import ops as cascade_ops
 from repro_torch.kernels.fused import ops as fused_ops
+from repro_torch.sharding import compat
 
 BACKENDS: dict[str, type] = {}
 
@@ -218,6 +224,84 @@ class KernelBackend(_DenseBackend):
         zeros = torch.zeros(samples.shape[:1], dtype=torch.int32,
                             device=samples.device)
         return search_lib.SearchResult(idx, q2, zeros, zeros)
+
+    def bmu(self, w, samples):
+        return bmu_ops.bmu(w, samples)
+
+
+@register_backend("sharded")
+class ShardedBackend:
+    """Mesh training via ``core.distributed``: lattice rows over ``model``,
+    samples over ``data``, one process a rank of ``mesh`` (a
+    ``repro_torch.sharding.ShardMesh``; default 1 x 1, which needs no
+    process group). The backend-native state is this rank's band
+    (``shard_state_for_mesh``); ``to_dense`` gathers the bands back into
+    the (N, D) form on every rank.
+
+    Every rank is handed the same draw source and the same data (as JAX's
+    replicated key): ``run`` draws each step's ``randint(0, num_samples,
+    (B,))`` indices from it alike on every rank, and a rank trains on its
+    data block of that batch. A step's own sources are ``spawn()`` of it
+    with the rank's indices folded in (``GeneratorDraws.fold_in``), JAX's
+    ``fold_in(fold_in(key, data index), model index)`` for the search and
+    ``fold_in(fold_in(key, 10_000_019), model index)`` for the cascade.
+    """
+
+    def __init__(self, cfg: AFMConfig, *, mesh=None, data_axes=("data",),
+                 model_axis: str = "model",
+                 device: torch.device | str | None = None):
+        if mesh is None:
+            mesh = compat.ShardMesh((1, 1), ("data", "model"))
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self.model_axis = model_axis
+        self.n_data = math.prod(mesh.axis_size(a) for a in self.data_axes)
+        if cfg.batch % self.n_data:
+            raise ValueError(f"batch={cfg.batch} must divide over the data "
+                             f"axes' {self.n_data} ranks")
+        self.step_fn = distributed.make_sharded_train_step(
+            cfg, mesh, data_axes=self.data_axes, model_axis=model_axis)
+
+    def init(self, draws, samples=None):
+        return self.from_dense(afm.init(draws, self.cfg, samples))
+
+    def from_dense(self, state: AFMState):
+        return distributed.shard_state_for_mesh(state, self.cfg, self.mesh,
+                                                self.model_axis)
+
+    def step(self, state, samples, draws):
+        """One step on the global (B, D) batch, of which this rank takes
+        its data block."""
+        child = draws.spawn()
+        didx = distributed.data_index(self.mesh, self.data_axes)
+        me = self.mesh.axis_index(self.model_axis)
+        b = samples.shape[0] // self.n_data
+        return self.step_fn(
+            state, samples[didx * b:(didx + 1) * b],
+            child.fold_in(didx).fold_in(me),
+            child.fold_in(distributed.CASCADE_FOLD).fold_in(me))
+
+    def run(self, state, data, draws, num_steps=None):
+        num_steps = self.cfg.num_steps if num_steps is None else num_steps
+        if num_steps < 0:
+            raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+        auxes = []
+        for _ in range(num_steps):
+            idx = draws.randint(0, data.shape[0], (self.cfg.batch,))
+            state, aux = self.step(state, data[idx], draws)
+            auxes.append(aux)
+        if not auxes:
+            empty = torch.zeros((0,), dtype=torch.int32)
+            return state, distributed.ShardedAux(
+                empty, empty, torch.zeros((0,), dtype=torch.float32))
+        return state, distributed.ShardedAux(
+            *(torch.stack(field) for field in zip(*auxes)))
+
+    def to_dense(self, state) -> AFMState:
+        return distributed.gather_state(state, self.cfg, self.mesh,
+                                        self.model_axis)
 
     def bmu(self, w, samples):
         return bmu_ops.bmu(w, samples)

@@ -37,10 +37,15 @@ class TopoMap:
 
     Args:
       cfg: an ``AFMConfig``; omit to build one from ``**overrides``.
-      backend: registry key ('reference', 'batched', 'kernel', 'async').
+      backend: registry key ('reference', 'batched', 'kernel', 'sharded',
+           'async').
       backend_options: forwarded to the backend constructor (e.g.
-           ``{"search": "heuristic"}``, ``{"precision": "bf16"}`` or, for
-           'async', ``{"latency": "constant", "delay": 1.0}``).
+           ``{"search": "heuristic"}``, ``{"precision": "bf16"}``, for
+           'sharded' ``{"mesh": ShardMesh((2, 2), ("data", "model"))}`` or,
+           for 'async', ``{"latency": "constant", "delay": 1.0}`` and
+           ``{"placement": "mesh", "shards": 2}``). A mesh runs one process
+           a rank; every rank makes the same calls and holds the whole
+           dense ``state_``, on which the queries run.
       seed: seed of the default draw source.
       labeling: unit-labelling rule for ``predict``: 'nearest' (Eq. 7) or
            'majority' (vote of the unit's basin, Eq.-7 fallback when empty).
@@ -162,16 +167,13 @@ class TopoMap:
         unless the caller asks for the CPU).
 
         The stored backend and labeling are used unless overridden; a JAX
-        artifact's ``"pallas"`` becomes the port's ``"kernel"``. The
+        artifact's ``"pallas"`` becomes the port's ``"kernel"``, and a
+        ``"sharded"`` map loads onto a 1 x 1 mesh, as JAX's does. The
         round-trip is bit-identical on ``transform`` and ``predict``.
         """
         from repro_torch.api import persistence
         art = persistence.load_artifact(path, device=device)
         if backend is None:
-            if art.backend == "sharded":
-                raise NotImplementedError(
-                    f"{path}: a 'sharded' map; the port has no sharded "
-                    f"backend yet (ROADMAP queue 1, item 5): pass backend=")
             backend = _JAX_BACKENDS.get(art.backend, art.backend)
         kwargs.setdefault("labeling", art.labeling)
         return cls.from_state(art.state, art.cfg,

@@ -76,6 +76,7 @@ from repro_torch.core import schedules
 from repro_torch.core import search as search_lib
 from repro_torch.core.afm import AFMConfig, AFMState
 from repro_torch.core.placement import base as placement_base
+from repro_torch.core.placement import mesh as placement_mesh
 from repro_torch.core.placement import single as placement_single
 from repro_torch.draws import GeneratorDraws
 from repro_torch.faults import FaultPlan
@@ -118,7 +119,7 @@ class EventConfig:
                     (broadcast loss, dropout windows, pool pressure); an
                     active plan leaves the fast path for the engine and
                     rejects ``kernel='fused'``. ``shard_latency_mult``
-                    needs the mesh placement (ROADMAP queue 1, item 5).
+                    needs the mesh placement (one multiplier a shard).
     """
     latency: str = "zero"
     delay: float = 0.0
@@ -826,26 +827,39 @@ def run_events(state: AFMState, samples: torch.Tensor, draws,
       p_fn/l_c_fn: schedule overrides ``(i, cfg) -> float``.
       lat_draws: the exponential latency's draw source (one
                  ``exponential((4N,))`` per broadcast that enqueues);
-                 ``None`` makes ``GeneratorDraws(lat_seed)``.
+                 ``None`` makes ``GeneratorDraws(lat_seed)``, and on a
+                 multi-shard mesh its ``fold_in(shard)``.
       donate:    let the run update ``state.w`` and ``state.c`` in place
                  (the engine runners; the fast path writes out of place).
-      placement: ``None`` / ``'single'`` or a ``Placement``; ``'mesh'``
-                 raises ``NotImplementedError`` (ROADMAP queue 1, item 5),
-                 and with it a plan's ``shard_latency_mult``.
+      placement: ``None`` / ``'single'`` (one pool, one device),
+                 ``'mesh'`` or a ``Placement`` (``core.placement``).
+      shards:    shard count for ``placement='mesh'`` (``None`` -> 1).
       fault_draws: an active plan's draw source (one ``uniform((4N,))``
                  per broadcast that sends, under ``p_loss``); ``None``
-                 makes ``GeneratorDraws(plan.seed)`` for this run.
+                 makes ``GeneratorDraws(plan.seed)`` for this run (on a
+                 multi-shard mesh its ``fold_in(shard)``).
       dead:      (N,) bool, the dead set in place of the plan's
                  ``dead_units`` (a test seam).
+
+    On a multi-shard mesh every rank of the process group calls
+    ``run_events`` with the same state and samples, and ``draws``,
+    ``lat_draws`` and ``fault_draws`` are that rank's own sources (JAX's
+    ``fold_in(key, shard)`` streams; see ``core.placement.mesh``); every
+    rank gets the whole dense result. The shard count is part of the
+    seeding contract: the same sources and shard count replay bitwise.
     """
     e = int(samples.shape[0])
     if e == 0:
         return _empty_run(state, cfg)
     if search is afm_lib.search_exact:      # exact search runs on the kernel
         search = search_exact
+    pl = placement_base.resolve_placement(placement, shards=shards)
     if lat_draws is None:
         lat_draws = GeneratorDraws(lat_seed, state.w.device)
-    pl = placement_base.resolve_placement(placement, shards=shards)
+        if pl.shards > 1:
+            lat_draws = lat_draws.fold_in(
+                placement_mesh.shard_mesh(pl.shards).axis_index(
+                    placement_mesh.AXIS))
     go = pl.build_runner(cfg, ecfg, e, search, p_fn, l_c_fn)
     out = go(state, samples.to(torch.float32), draws, lat_draws, donate,
              fault_draws=fault_draws, dead=dead)

@@ -44,10 +44,11 @@ class Placement(Protocol):
 
 
 def resolve_placement(spec=None, *, shards: int | None = None) -> Placement:
-    """Normalise a placement spec: ``None`` / ``'single'`` -> ``SinglePool``;
-    a ``Placement`` instance passes through (its shard count must agree
-    with ``shards`` when both are given); ``'mesh'`` raises
-    ``NotImplementedError``: the mesh placement is not ported yet."""
+    """Normalise a placement spec: ``None`` / ``'single'`` -> ``SinglePool``,
+    ``'mesh'`` -> ``MeshPlacement(shards)``, a ``Placement`` instance passes
+    through (its shard count must agree with ``shards`` when both are
+    given)."""
+    from repro_torch.core.placement.mesh import MeshPlacement
     from repro_torch.core.placement.single import SinglePool
 
     if spec is None or spec == "single":
@@ -57,9 +58,7 @@ def resolve_placement(spec=None, *, shards: int | None = None) -> Placement:
                 f"{shards} needs placement='mesh'")
         return SinglePool()
     if spec == "mesh":
-        raise NotImplementedError(
-            "placement='mesh' (units and the message pool partitioned across"
-            " devices) is not ported yet: ROADMAP queue 1, item 5")
+        return MeshPlacement(shards=1 if shards is None else int(shards))
     if isinstance(spec, Placement):
         if shards is not None and spec.shards != shards:
             raise ValueError(

@@ -60,6 +60,19 @@ A training stream that must resume bitwise after a crash
 and the step's index alone, the counterpart of JAX's
 ``fold_in(PRNGKey(seed), step)``: a resumed run consumes exactly the draws
 the uninterrupted run would have.
+
+A mesh (``core.placement.mesh``, ``core.distributed``) runs one rank a
+shard, and each rank draws from sources of its own, as JAX folds the shard
+index into every per-shard key: ``GeneratorDraws.fold_in(data)`` is the
+counterpart of ``jax.random.fold_in(key, data)``. The event engine's shard
+asks its source, per sample event, for the probe search's
+``randint(0, L, (e // K,))`` (heuristic only), then ``spawn()``: the
+cascade's child, which hands out the drive ``uniform(())``, then one
+``uniform((4, side // K, side))`` per delivery round of that cascade on
+the shard. Its latency and fault sources draw once at every fire
+(``(4 L,)``) and at every halo exchange (``(2 side,)``), so a replay of
+JAX's per-shard streams, whose shapes interleave as the run goes, gives
+``ReplayDraws`` a mapping of both shapes per draw site.
 """
 from __future__ import annotations
 
@@ -87,6 +100,8 @@ class Draws(Protocol):
 _MASK64 = (1 << 64) - 1
 #: mixed into the seed of ``GeneratorDraws.for_step``
 _STEP_TAG = 0x5354455053545245
+#: mixed into the seed of ``GeneratorDraws.fold_in``
+_FOLD_TAG = 0x464F4C44494E5F31
 
 
 def _mix64(x: int) -> int:
@@ -125,6 +140,15 @@ class GeneratorDraws:
         return GeneratorDraws(_mix64(_mix64(self.seed) + self.spawned),
                               self.device)
 
+    def fold_in(self, data: int) -> "GeneratorDraws":
+        """The source ``data`` (a shard's index) folded into this one, as
+        ``jax.random.fold_in``: seeded on the host from this source's seed
+        and ``data`` alone (a tag keeps it apart from ``spawn`` and
+        ``for_step``), so every rank derives it alike, whatever either
+        stream has drawn."""
+        return GeneratorDraws(_mix64(_mix64(self.seed ^ _FOLD_TAG)
+                                     + int(data)), self.device)
+
     def randint(self, low, high, shape):
         return torch.randint(int(low), int(high), tuple(shape),
                              generator=self.generator, device=self.device)
@@ -151,12 +175,16 @@ class ReplayDraws:
     """Hands out pre-drawn arrays in order; each request must match the
     next array's shape (and, for ``randint``, its range), else it raises.
     A nested list in the sequence is a child's draws, which ``spawn``
-    hands out as a ``ReplayDraws`` of its own."""
+    hands out as a ``ReplayDraws`` of its own. A mapping is one draw site
+    that JAX may draw at any of several shapes: ``{shape: array}``, of
+    which the request takes the array of its shape."""
 
     def __init__(self, arrays: Iterable, device: torch.device | str = "cpu"):
         self.device = torch.device(device)
         self._queue = collections.deque(
-            list(a) if isinstance(a, list) else np.asarray(a) for a in arrays)
+            list(a) if isinstance(a, list) else
+            {tuple(k): np.asarray(v) for k, v in a.items()}
+            if isinstance(a, dict) else np.asarray(a) for a in arrays)
 
     def __len__(self) -> int:
         return len(self._queue)
@@ -168,6 +196,12 @@ class ReplayDraws:
         if isinstance(arr, list):
             raise ValueError(f"replay mismatch: {kind}{tuple(shape)} requested,"
                              f" next item is a child's draws")
+        if isinstance(arr, dict):
+            if tuple(shape) not in arr:
+                raise ValueError(f"replay mismatch: {kind}{tuple(shape)} "
+                                 f"requested, the draw site has shapes "
+                                 f"{sorted(arr)}")
+            arr = arr[tuple(shape)]
         if arr.shape != tuple(shape):
             raise ValueError(f"replay mismatch: {kind}{tuple(shape)} requested,"
                              f" next array has shape {arr.shape}")
@@ -200,6 +234,6 @@ class ReplayDraws:
             raise IndexError("replay exhausted: spawn requested")
         item = self._queue.popleft()
         if not isinstance(item, list):
-            raise ValueError(f"replay mismatch: spawn requested, next array "
-                             f"has shape {item.shape}")
+            raise ValueError(f"replay mismatch: spawn requested, next item "
+                             f"is not a child's draws")
         return ReplayDraws(item, device=self.device)

@@ -14,7 +14,8 @@ Fault axes, composable and each counted in ``EventReport``:
   with probability ``p_loss``, drawn from the plan's own source
   (``GeneratorDraws(seed)``, made anew for every run). Lost messages count
   as ``dropped_fault``, so ``sent == deliveries + dropped_overflow +
-  dropped_fault + stranded`` always holds.
+  dropped_fault + stranded`` always holds (on a mesh, shard by shard: a
+  shard draws its loss from ``GeneratorDraws(seed).fold_in(shard)``).
 - **unit dropout windows** (``dropout_frac`` / ``dropout_start`` /
   ``dropout_len``): ``dead_units`` is dead for the simulated time window
   ``[dropout_start, dropout_start + dropout_len)``. Dead units neither
@@ -22,8 +23,9 @@ Fault axes, composable and each counted in ``EventReport``:
   ``dropped_fault``; samples routed to a dead GMU count in
   ``samples_dead``. After the window a unit rejoins with its counter.
 - **shard stragglers** (``shard_latency_mult``): per-shard latency
-  multipliers of the mesh placement, which the port does not have yet
-  (ROADMAP queue 1, item 5): the single pool refuses them.
+  multipliers of the mesh placement, one a shard: every message entering
+  shard k's pool (its own and the halo arrivals, whose delays the receiver
+  draws) takes ``mult[k]`` times longer. The single pool refuses them.
 - **pool pressure** (``pool_reserve``): slots withheld from the pool,
   forcing overflow drops, which count as ``dropped_overflow``, never as
   fault drops.

@@ -301,8 +301,9 @@ def build_backend_options(args) -> dict:
     """The backend options of the CLI's flags (JAX's ``stream_train``)."""
     if args.shards > 1:
         raise NotImplementedError(
-            f"--shards {args.shards}: the port has no mesh placement yet "
-            f"(ROADMAP queue 1, item 5)")
+            f"--shards {args.shards}: the train-and-serve loop runs one "
+            f"process; its gateway's client threads against a training "
+            f"mesh of several ranks are ROADMAP queue 1, item 9")
     faults = None
     if args.p_loss or (args.dropout_frac and args.dropout_len):
         faults = {"seed": args.fault_seed, "p_loss": args.p_loss,
@@ -356,8 +357,9 @@ def main(argv=None):
                          "to the fast path, 'event' always runs the "
                          "discrete-event simulation")
     ap.add_argument("--shards", type=int, default=1,
-                    help="async backend: mesh shards; only 1 until the port "
-                         "has a mesh placement")
+                    help="async backend: mesh shards; only 1 until the "
+                         "loop runs over several ranks (ROADMAP queue 1, "
+                         "item 9)")
     ap.add_argument("--search", default=None,
                     choices=(None, "heuristic", "exact"))
     ap.add_argument("--checkpoint-dir", default=None,

@@ -22,41 +22,110 @@ cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.train_map --dataset satimage \\
         --store /tmp/maps                           # versioned MapStore entry
 
-``--mesh`` other than ``1x1`` and ``--shards`` > 1 ask for the mesh
-placement, which the port does not have yet (ROADMAP queue 1, item 5).
+    # mesh training, one process a rank (rows over 'model', samples over
+    # 'data'); gloo puts every rank on one card (or, with --device cpu, on
+    # the CPU), nccl one rank on each card:
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train_map \\
+        --dataset satimage --backend sharded --mesh 2x2 --dist-backend gloo
+    # the event engine partitioned into row bands over 2 ranks:
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train_map \\
+        --dataset satimage --backend async --shards 2 --dist-backend gloo
+
+Under ``torchrun`` each rank joins the process group from its environment;
+ranks that a caller has already joined (``repro_torch.sharding.spawn_ranks``)
+train in their group, whose transport must be the one ``--dist-backend``
+names. Every rank trains; rank 0 prints and saves.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.api import AFMConfig, TopoMap, precision_recall
 from repro_torch.api.backends import add_backend_argument
 from repro_torch.data import DATASETS, make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.draws import GeneratorDraws
+from repro_torch.sharding import DIST_BACKENDS, compat
 
-_MESH_MISSING = ("the port has no mesh placement or sharded backend yet "
-                 "(ROADMAP queue 1, item 5)")
+
+def _mesh_shape(args) -> tuple[int, int]:
+    try:
+        n_data, n_model = (int(x) for x in args.mesh.split("x"))
+    except ValueError:
+        raise SystemExit(
+            f"--mesh must be 'DATAxMODEL' (e.g. 2x4), got {args.mesh!r}")
+    return n_data, n_model
 
 
 def build_backend_options(args) -> dict:
-    if args.mesh != "1x1":
-        raise NotImplementedError(f"--mesh {args.mesh}: {_MESH_MISSING}")
-    if args.shards > 1:
-        raise NotImplementedError(f"--shards {args.shards}: {_MESH_MISSING}")
+    """The backend options of the CLI's flags (JAX's ``train_map``); the
+    sharded backend's mesh comes from ``join_ranks``."""
     opts: dict = {}
+    if args.backend == "sharded":
+        if args.search:
+            raise SystemExit("--search is not supported by the sharded "
+                             "backend (it uses mesh probe-and-reduce search)")
+        _mesh_shape(args)
+    elif args.mesh != "1x1":
+        raise SystemExit("--mesh only applies to the sharded backend "
+                         "(async uses --shards)")
     if args.backend == "async":
         opts.update(latency=args.latency, delay=args.delay,
                     lat_seed=args.lat_seed)
+        if args.shards > 1:
+            opts.update(placement="mesh", shards=args.shards)
     elif args.latency != "zero" or args.delay or args.lat_seed:
         raise SystemExit("--latency/--delay/--lat-seed only apply to the "
                          "async backend")
+    elif args.shards > 1:
+        raise SystemExit("--shards only applies to the async backend "
+                         "(sharded uses --mesh)")
     if args.search:
         opts["search"] = args.search
     return opts
+
+
+def ranks_needed(args) -> int:
+    if args.backend == "sharded":
+        n_data, n_model = _mesh_shape(args)
+        return n_data * n_model
+    return args.shards if args.backend == "async" else 1
+
+
+def join_ranks(args, world: int) -> tuple[int, torch.device]:
+    """(this rank, its device). A run of several ranks joins the process
+    group from ``torchrun``'s environment unless the process is in one
+    already; the group's transport is ``--dist-backend``'s, never another."""
+    if world == 1 and not dist.is_initialized():
+        return 0, resolve_device(args.device)
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"this run needs {world} ranks, one process each: start it "
+                f"under torchrun --nproc-per-node {world} -m "
+                f"repro_torch.launch.train_map ... --dist-backend "
+                f"{args.dist_backend}")
+        compat.init_distributed(
+            int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+            dist_backend=args.dist_backend, init_method="env://",
+            local_rank=int(os.environ.get("LOCAL_RANK", 0)))
+    if compat.transport() != args.dist_backend:
+        raise SystemExit(f"the process group runs over "
+                         f"{compat.transport()}, not --dist-backend "
+                         f"{args.dist_backend}")
+    if dist.get_world_size() != world:
+        raise SystemExit(f"this run needs {world} ranks, but the process "
+                         f"group has {dist.get_world_size()}")
+    rank = dist.get_rank()
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    if args.dist_backend == "nccl":
+        return rank, compat.rank_device("nccl", local)
+    return rank, resolve_device(args.device)
 
 
 def main(argv=None):
@@ -72,8 +141,8 @@ def main(argv=None):
     ap.add_argument("--train-size", type=int, default=3000)
     ap.add_argument("--test-size", type=int, default=600)
     ap.add_argument("--mesh", default="1x1",
-                    help="sharded backend mesh, 'DATAxMODEL'; only 1x1 "
-                         "until the port has a mesh placement")
+                    help="sharded backend mesh, 'DATAxMODEL' (e.g. 2x2): "
+                         "DATA x MODEL ranks")
     ap.add_argument("--latency", default="zero",
                     choices=("zero", "constant", "exponential"),
                     help="async backend: message latency model")
@@ -83,8 +152,13 @@ def main(argv=None):
                     help="async backend: seed of the exponential-latency "
                          "stream (independent of --seed)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="async backend: mesh shards; only 1 until the port "
-                         "has a mesh placement")
+                    help="async backend: partition the event engine over "
+                         "this many ranks (placement='mesh'; must divide "
+                         "--side)")
+    ap.add_argument("--dist-backend", default="gloo", choices=DIST_BACKENDS,
+                    help="transport of a run of several ranks: gloo (any "
+                         "number of ranks on one card or the CPU) or nccl "
+                         "(one card a rank)")
     ap.add_argument("--search", default=None,
                     choices=(None, "heuristic", "exact"),
                     help="override the backend's search stage")
@@ -101,7 +175,11 @@ def main(argv=None):
                     help="store key name (default: DATASET-SIDExSIDE)")
     args = ap.parse_args(argv)
     opts = build_backend_options(args)
-    device = resolve_device(args.device)
+    world = ranks_needed(args)
+    rank, device = join_ranks(args, world)
+    if args.backend == "sharded":
+        opts["mesh"] = compat.ShardMesh(_mesh_shape(args), ("data", "model"))
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     spec = DATASETS[args.dataset]
     xtr, ytr, xte, yte = make_dataset(
@@ -117,9 +195,11 @@ def main(argv=None):
     # the backend may rewrite the config (reference forces batch=1)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"dataset={args.dataset} map={args.side}x{args.side} "
-          f"backend={tm.backend.name} steps={tm.backend.cfg.num_steps} "
-          f"device={device} ({name})")
+    ranks = (f" ranks={world} over {compat.transport()}"
+             if dist.is_initialized() else "")
+    say(f"dataset={args.dataset} map={args.side}x{args.side} "
+        f"backend={tm.backend.name} steps={tm.backend.cfg.num_steps} "
+        f"device={device} ({name}){ranks}")
 
     t0 = time.time()
     tm.fit(xtr, ytr)
@@ -127,9 +207,11 @@ def main(argv=None):
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     rate = cfg.total_samples / dt
-    print(f"trained {cfg.total_samples} samples in {dt:.1f}s "
-          f"({rate:.0f} samples/s); largest cascade "
-          f"a_i = {int(tm.fit_aux_.cascade_size.max())}")
+    say(f"trained {cfg.total_samples} samples in {dt:.1f}s "
+        f"({rate:.0f} samples/s); largest cascade "
+        f"a_i = {int(tm.fit_aux_.cascade_size.max())}")
+    if rank:
+        return tm
 
     print(f"quantization error  Q: {tm.quantization_error(xte):.4f}")
     print(f"topological error   T: {tm.topographic_error(xte):.4f}")
@@ -156,4 +238,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -26,6 +26,7 @@ from repro_torch.core import events as events_lib
 from repro_torch.core import placement as placement_lib
 from repro_torch.core.afm import AFMConfig, AFMState
 from repro_torch.core.events import EventConfig, EventReport  # noqa: F401
+from repro_torch.core.placement import mesh as mesh_lib
 from repro_torch.device import resolve_device
 from repro_torch.draws import GeneratorDraws
 from repro_torch.faults import resolve_plan
@@ -53,16 +54,21 @@ class AsyncBackend:
       kernel:    the zero-latency fast path's step, 'staged' (the search,
                  the plain merge and one ``drive_cascade`` launch) or
                  'fused' (one ``fused_step`` launch).
-      placement: 'single' (one pool, one device); 'mesh' raises
-                 ``NotImplementedError`` (ROADMAP queue 1, item 5).
-      shards:    1 (the single pool).
+      placement: 'single' (one pool, one device) or 'mesh' (row bands
+                 of the lattice over ``shards`` ranks of a
+                 ``torch.distributed`` group, one process a shard:
+                 ``core.placement.mesh``; every rank runs the same calls).
+      shards:    ranks of the mesh; must divide ``cfg.side``. ``shards=1``
+                 runs the single-pool engine.
       lat_seed:  seed of the exponential-latency draw source
-                 (``lat_draws``), kept apart from the training draws.
+                 (``lat_draws``), kept apart from the training draws; on a
+                 multi-shard mesh each shard draws from its
+                 ``fold_in(shard)``.
       faults:    ``None``, a ``repro_torch.faults.FaultPlan`` or a mapping
                  of its fields (broadcast loss, dropout windows, pool
-                 pressure); an active plan runs the discrete-event engine.
-                 ``shard_latency_mult`` needs the mesh placement (ROADMAP
-                 queue 1, item 5).
+                 pressure, per-shard stragglers); an active plan runs the
+                 discrete-event engine. ``shard_latency_mult`` needs the
+                 mesh placement, one multiplier a shard.
       donate_run: let each ``run()`` update its input state's tensors in
                  place (the engine's runners), saving a copy of the dense
                  state per run; only for callers that drop the state they
@@ -76,6 +82,11 @@ class AsyncBackend:
     is the latency stream (the counterpart of JAX's ``lat_key``); its
     position, ``lat_draws.generator.get_state()``, is what a checkpoint
     keeps to replay an exponential-latency run's delays on resume.
+
+    On a multi-shard mesh a run's events draw from ``draws.spawn()`` with
+    the shard's index folded in (``GeneratorDraws.fold_in``), the
+    counterpart of JAX's ``fold_in(step_key, shard)``, after the sample
+    indices, which every rank draws alike from ``draws``.
     """
 
     def __init__(self, cfg: AFMConfig, *, latency: str = "zero",
@@ -95,11 +106,22 @@ class AsyncBackend:
                                 capacity=capacity, max_rounds=max_rounds,
                                 engine=engine, kernel=kernel,
                                 faults=resolve_plan(faults))
+        # fail fast: a bad placement spec or an indivisible shard count
+        # surfaces at construction, not on the first training call
         self.placement = placement_lib.resolve_placement(
             placement, shards=int(shards))
+        if self.placement.shards > 1:
+            if cfg.side % self.placement.shards:
+                raise ValueError(
+                    f"side={cfg.side} must divide into shards="
+                    f"{self.placement.shards} contiguous row bands")
+            if max_rounds is not None:
+                raise ValueError("max_rounds is single-pool only; drop it "
+                                 "or use placement='single'")
         self.device = resolve_device(device)
         self.search = _SEARCHES[search]
         self.lat_draws = GeneratorDraws(lat_seed, self.device)
+        self._shard_lat = None          # a mesh shard's latency stream
         self.last_report: EventReport | None = None
         self._donate_run = bool(donate_run)
 
@@ -107,10 +129,16 @@ class AsyncBackend:
         return afm.init(draws, self.cfg, samples)
 
     def _run(self, state, samples, draws, donate=False):
+        lat_draws = self.lat_draws
+        if self.placement.shards > 1:
+            shard = mesh_lib.shard_mesh(self.placement.shards).axis_index(
+                mesh_lib.AXIS)
+            if self._shard_lat is None:
+                self._shard_lat = self.lat_draws.fold_in(shard)
+            draws, lat_draws = draws.spawn().fold_in(shard), self._shard_lat
         state, aux, report = events_lib.run_events(
             state, samples, draws, self.cfg, self.ecfg, search=self.search,
-            lat_draws=self.lat_draws, donate=donate,
-            placement=self.placement)
+            lat_draws=lat_draws, donate=donate, placement=self.placement)
         self.last_report = report
         return state, aux
 

@@ -155,8 +155,12 @@ def test_async_rejects_bad_options():
         get_backend("async", cfg, kernel="fused-interpret", device="cpu")
     with pytest.raises(ValueError, match="shards"):
         get_backend("async", cfg, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        get_backend("async", cfg, placement="mesh", device="cpu")
+    # 'mesh' resolves (one shard: the single-pool runner); more shards than
+    # the side divides into row bands are refused at construction
+    assert get_backend("async", cfg, placement="mesh",
+                       device="cpu").placement.shards == 1
+    with pytest.raises(ValueError, match="contiguous row bands"):
+        get_backend("async", cfg, placement="mesh", shards=5, device="cpu")
     with pytest.raises(ValueError, match="FaultPlan disqualifies"):
         get_backend("async", cfg, faults={"p_loss": 0.1}, kernel="fused",
                     device="cpu")

@@ -436,17 +436,19 @@ def test_quiescence_watchdog_raises_like_jax():
 
 
 def test_active_fault_plan_is_not_ported():
-    """Of an active plan's axes only the stragglers wait for the mesh
-    placement (ROADMAP queue 1, item 5), which still raises; loss and
-    dropout run in the engine, with every message accounted for."""
+    """The stragglers need the mesh placement: the single pool refuses
+    them, and a mesh run asks for its ranks (``test_torch_mesh.py`` runs
+    them on gloo ranks); loss and dropout run in the engine, with every
+    message accounted for."""
     from repro_torch.faults import FaultPlan
     assert not tev.EventConfig(faults=FaultPlan(seed=9)).fault_active
     cfg = torch_cfg(**HOT)
     state = tafm.init(GeneratorDraws(0, "cpu"), cfg)
     data = t(_data(HOT["dim"]))[:64]
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         tev.run_events(state, torch.zeros((2, cfg.dim)),
-                       GeneratorDraws(0, "cpu"), cfg, placement="mesh")
+                       GeneratorDraws(0, "cpu"), cfg, placement="mesh",
+                       shards=2)
     with pytest.raises(ValueError, match="placement='mesh'"):
         tev.run_events(state, data, GeneratorDraws(0, "cpu"), cfg,
                        tev.EventConfig(faults=FaultPlan(

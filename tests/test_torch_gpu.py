@@ -27,6 +27,8 @@ from repro_torch.kernels.swa import ops as swa_ops
 from repro_torch.kernels.swa import ref as swa_ref
 from repro_torch.models import transformer
 from repro_torch.serving import serve_step
+from repro_torch.sharding import spawn_ranks
+import torch_ranks  # the ranks' bodies, JAX-free
 
 pytestmark = pytest.mark.gpu
 
@@ -989,3 +991,43 @@ def test_update_on_the_kernel_backend_equals_partial_fit(cuda):
                            mirror.state_.w.view(torch.int32))
     assert torch.equal(svc.transform(data), mirror.transform(data))
     assert svc.engine.cache.trace_count == compiles
+
+
+# ------------------------------------------- meshes of ranks on one card
+
+
+def test_gloo_gathers_cuda_tensors_bitwise(cuda):
+    """Two gloo ranks on the card: ``all_gather`` of a CUDA tensor (an
+    all_reduce of one slot a rank) returns every rank's bits on the card."""
+    ranks = spawn_ranks(torch_ranks.cuda_collectives, 2, timeout=300.0)
+    want = torch.tensor([[-0.0, float("nan"), 1e-45, 0.0],
+                         [-0.0, float("nan"), 1e-45, 1.0]]).view(torch.int32)
+    for r in ranks:
+        assert r["device"].startswith("cuda")
+        np.testing.assert_array_equal(r["bits"], want.numpy())
+        np.testing.assert_array_equal(r["psum"], [4.0])
+
+
+@pytest.mark.parametrize("latency", ["constant", "exponential"])
+def test_mesh_on_the_card_equals_the_cpu(cuda, latency):
+    """The mesh engine on 2 ranks on the card and on the CPU, same host
+    draws: integers and clocks bitwise, w within 64 ulps of max |w|."""
+    for card, cpu in spawn_ranks(torch_ranks.mesh_card_and_cpu, 2,
+                                 (latency,), timeout=300.0):
+        for f in ("c", "gmu", "sizes", "clock"):
+            np.testing.assert_array_equal(card[f], cpu[f], err_msg=f)
+        assert card["rows"] == cpu["rows"]
+        assert card["rounds"] == cpu["rounds"] and cpu["deliveries"] > 0
+        eps = np.finfo(np.float32).eps
+        assert np.abs(card["w"] - cpu["w"]).max() <= 64 * eps * np.abs(
+            cpu["w"]).max()
+
+
+def test_sharded_step_on_the_card_equals_the_cpu(cuda):
+    for card, cpu in spawn_ranks(torch_ranks.sharded_card_and_cpu, 2,
+                                 timeout=300.0):
+        np.testing.assert_array_equal(card["c"], cpu["c"])
+        assert (card["size"], card["waves"]) == (cpu["size"], cpu["waves"])
+        eps = np.finfo(np.float32).eps
+        assert np.abs(card["w"] - cpu["w"]).max() <= 64 * eps * np.abs(
+            cpu["w"]).max()

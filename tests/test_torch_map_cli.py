@@ -28,7 +28,8 @@ from repro_torch.data import idx as tidx
 from repro_torch.data import make_dataset
 from repro_torch.launch import serve_map, train_map
 from repro_torch.serving import MapService
-from torch_parity import jax_cfg
+from torch_parity import jax_cfg, run_ranks
+import torch_ranks
 
 KW = dict(side=6, dim=12, i_max=48, batch=4, e_factor=0.5)
 X = np.random.default_rng(3).standard_normal((256, 12)).astype(np.float32)
@@ -74,11 +75,48 @@ def test_train_map_saves_artifact_and_store(tmp_path, capsys):
     assert "satimage-5x5@2" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--shards", "2"],
-                                   ["--backend", "async", "--shards", "2"]])
-def test_train_map_mesh_names_the_roadmap_item(flags):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+@pytest.mark.parametrize("flags,message", [
+    (["--mesh", "2x2"], "only applies to the sharded backend"),
+    (["--shards", "2"], "only applies to the async backend"),
+    (["--backend", "async", "--shards", "2"], "torchrun --nproc-per-node 2"),
+    (["--backend", "sharded", "--mesh", "2x2"],
+     "torchrun --nproc-per-node 4"),
+    (["--backend", "sharded", "--mesh", "2by2"], "DATAxMODEL")])
+def test_train_map_mesh_names_the_roadmap_item(flags, message):
+    """A mesh run without its ranks says how to start them; mesh flags on
+    another backend are refused."""
+    with pytest.raises(SystemExit, match=message):
         train_map.main(["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backend", "sharded", "--mesh", "1x2", "--batch", "4"],
+    ["--backend", "async", "--shards", "2", "--search", "exact"]])
+def test_train_map_on_two_ranks(tmp_path, monkeypatch, flags):
+    """``train_map`` on 2 gloo ranks on the CPU over a small IDX file:
+    every rank ends with the same dense map, rank 0 saves it, and the
+    saved map is the one trained."""
+    d = tmp_path / "mnist"
+    d.mkdir()
+    rng = np.random.default_rng(1)
+    _write_idx(str(d / "train-images-idx3-ubyte"),
+               rng.integers(0, 256, (64, 28, 28)).astype(np.uint8))
+    _write_idx(str(d / "train-labels-idx1-ubyte"),
+               rng.integers(0, 10, 64).astype(np.uint8))
+    _write_idx(str(d / "t10k-images-idx3-ubyte"),
+               rng.integers(0, 256, (16, 28, 28)).astype(np.uint8))
+    _write_idx(str(d / "t10k-labels-idx1-ubyte"),
+               rng.integers(0, 10, 16).astype(np.uint8))
+    monkeypatch.setenv("REPRO_DATA_DIR", str(tmp_path))
+    art = str(tmp_path / "art")
+    argv = ["--device", "cpu", "--dataset", "mnist", "--side", "4",
+            "--i-max", "32", "--train-size", "64", "--test-size", "16",
+            "--dist-backend", "gloo", "--save-artifact", art] + flags
+    ranks = run_ranks(torch_ranks.train_map_cli, 2, 240.0, argv)
+    np.testing.assert_array_equal(ranks[0]["w"], ranks[1]["w"])
+    loaded = TopoMap.load(art, device="cpu")
+    assert loaded.backend.name == ranks[0]["backend"]
+    np.testing.assert_array_equal(loaded.state_.w.numpy(), ranks[0]["w"])
 
 
 def test_train_map_rejects_latency_flags_for_other_backends():

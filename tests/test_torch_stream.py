@@ -251,7 +251,7 @@ def test_stream_cli_die_after_then_resume(tmp_path):
 
 
 def test_stream_cli_shards_need_the_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         stream_train.main(["--device", "cpu", "--shards", "2"])
     with pytest.raises(SystemExit, match="only apply to the async"):
         stream_train.main(["--device", "cpu", "--backend", "batched",

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.draws import ReplayDraws
 from repro_torch.kernels.bmu import ref as bmu_ref
+from repro_torch.sharding import spawn_ranks
 
 F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -263,3 +264,13 @@ class JaxStepDraws:
         _, k_cascade = jax.random.split(self._keys[self._ev])
         self._ev, self._search = self._ev + 1, None
         return _ChainChild(k_cascade, self._cfg.side, self._cap)
+
+
+def run_ranks(fn, k: int, timeout: float, *args) -> list:
+    """``fn(rank, *args)`` on ``k`` gloo ranks on the CPU (spawned
+    processes, ``repro_torch.sharding.spawn_ranks``), each rank's result
+    in rank order. Every rank is stopped and the call fails when one
+    raises or the ranks outlast ``timeout`` seconds, so a deadlocked
+    collective fails the test instead of hanging the suite. ``fn`` lives in
+    ``torch_ranks``, which imports no JAX, so the ranks start quickly."""
+    return spawn_ranks(fn, k, args, dist_backend="gloo", timeout=timeout)

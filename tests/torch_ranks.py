@@ -1,0 +1,258 @@
+"""Rank bodies of the port's multi-process tests (``tests/test_torch_mesh.py``,
+``test_torch_distributed.py``, ``test_torch_map_cli.py``), run by
+``torch_parity.run_ranks`` on gloo ranks on the CPU. This module imports no
+JAX, so a spawned rank starts in the time PyTorch takes to import.
+
+Each body rebuilds the port's inputs from an ``.npz`` that the JAX side
+wrote (the same states, samples and every shard's draws) and returns plain
+numpy values.
+"""
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+def _t(x, dtype=None):
+    return torch.as_tensor(np.asarray(x), dtype=dtype)
+
+
+def mesh_draws(z, me: int, events: int, heuristic: bool):
+    """Shard ``me``'s replayed draw sources from the JAX side's arrays:
+    the run's (per event the probes, heuristic only, then the cascade
+    child: drive, then one (4, rows, side) draw a delivery round), the
+    latency's and the fault's (one ``{shape: draw}`` site each)."""
+    from repro_torch.draws import ReplayDraws
+    items = []
+    rounds, off = z[f"rounds{me}"], z[f"roff{me}"]
+    for ev in range(events):
+        if heuristic:
+            items.append(z[f"probes{me}"][ev])
+        items.append([z[f"drive{me}"][ev]]
+                     + list(rounds[off[ev]:off[ev + 1]]))
+
+    def sites(prefix):
+        if f"{prefix}4_{me}" not in z:
+            return None
+        a, b = z[f"{prefix}4_{me}"], z[f"{prefix}2_{me}"]
+        return ReplayDraws([{x.shape: x, y.shape: y} for x, y in zip(a, b)])
+    return ReplayDraws(items), sites("lat"), sites("flt")
+
+
+def mesh_cases(rank, cases, shards):
+    """``mesh_case`` for each ``(path, spec)`` of ``cases``, in one set of
+    ranks."""
+    return [mesh_case(rank, path, spec, shards) for path, spec in cases]
+
+
+def mesh_case(rank, path, spec, shards):
+    """One mesh run of the port on replayed JAX draws; the whole result
+    (every rank returns the dense state)."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import afm, events
+    from repro_torch.core.placement import mesh
+    from repro_torch.faults import FaultPlan
+    z = dict(np.load(path))
+    cfg = afm.AFMConfig(side=6, dim=3, i_max=spec["i_max"], e_factor=1.0)
+    heuristic = spec["search"] == "heuristic"
+    e = spec["events"]
+    draws, lat, flt = mesh_draws(z, rank, e, heuristic)
+    plan = FaultPlan(**spec["faults"]) if spec.get("faults") else None
+    ecfg = events.EventConfig(latency=spec["latency"], delay=spec["delay"],
+                              engine="event", faults=plan)
+    kw = {"p_fn": lambda i, c: 1.0} if spec.get("hot") else {}
+    state = state_from_numpy({"w": z["w0"], "c": z["c0"], "far": z["far"],
+                              "near": z["near"], "i": 0}, "cpu")
+    st, aux, rep = events.run_events(
+        state, _t(z["samples"]), draws, cfg, ecfg,
+        search=afm.search_heuristic if heuristic else afm.search_exact,
+        lat_draws=lat, placement="mesh", shards=shards, fault_draws=flt,
+        dead=z.get("dead"), **kw)
+    out = {"w": st.w.numpy(), "c": st.c.numpy(), "i": st.i,
+           **{f: getattr(aux, f).numpy() for f in aux._fields},
+           **{f: getattr(rep, f) for f in rep._fields
+              if f not in ("clock", "nevents")},
+           "clock": rep.clock.numpy(), "nevents": rep.nevents.numpy(),
+           "stats": dict(mesh.stats)}
+    return out
+
+
+def sharded_steps(rank, path, shape):
+    """The port's sharded step on replayed JAX draws, each step from JAX's
+    input state (re-injected): this rank's dense outputs a step."""
+    from repro_torch.core import afm, distributed
+    from repro_torch.draws import ReplayDraws
+    from repro_torch.sharding import ShardMesh
+    z = dict(np.load(path))
+    cfg = afm.AFMConfig(side=8, dim=36, batch=int(z["batch"]),
+                        i_max=int(z["i_max"]), e_factor=0.5,
+                        theta=int(z["theta"]))
+    mesh = ShardMesh(shape, ("data", "model"))
+    step = distributed.make_sharded_train_step(cfg, mesh)
+    didx = distributed.data_index(mesh)
+    me = mesh.axis_index("model")
+    b = cfg.batch // shape[0]
+    out = []
+    for s in range(int(z["steps"])):
+        dense = afm.AFMState(_t(z[f"w_in{s}"]), _t(z[f"c_in{s}"]),
+                             _t(z["far"]), _t(z["near"]), int(z[f"i_in{s}"]))
+        state = distributed.shard_state_for_mesh(dense, cfg, mesh)
+        samples = _t(z[f"samples{s}"])[didx * b:(didx + 1) * b]
+        waves = int(z[f"waves{s}"])
+        casc = ReplayDraws([z[f"drive{s}_{me}"]]
+                           + list(z[f"wave{s}_{me}"][:waves]))
+        new, aux = step(state, samples,
+                        ReplayDraws([z[f"probes{s}_{didx}_{me}"]]), casc)
+        full = distributed.gather_state(new, cfg, mesh)
+        out.append({"w": full.w.numpy(), "c": full.c.numpy(), "i": full.i,
+                    "size": int(aux.cascade_size), "waves": int(aux.waves),
+                    "mean_q2": float(aux.mean_q2), "left": len(casc)})
+    return out
+
+
+def collectives(rank):
+    """``ShardMesh``'s collectives on a 2 x 2 mesh and its sub-groups."""
+    from repro_torch.sharding import ShardMesh
+    m = ShardMesh((2, 2), ("data", "model"))
+    x = torch.tensor([-0.0, float(rank), float("nan"), 1e-45])
+    return {
+        "coords": m.coords,
+        "gather_model": m.all_gather(x, "model").view(torch.int32).numpy(),
+        "gather_bool": m.all_gather(torch.tensor([rank % 2 == 0]),
+                                    "data").numpy(),
+        "psum_data": m.psum(torch.tensor([rank, 1]), "data").numpy(),
+        "pmax_model": m.pmax(torch.tensor([float(rank)]), "model").numpy(),
+        "ppermute": m.ppermute(torch.tensor([rank + 10]), "model",
+                               [(0, 1)]).numpy(),
+        "calls": m.calls}
+
+
+def async_mesh_fit(rank, faults):
+    """``TopoMap(backend="async", placement="mesh")`` from one seed on every
+    rank, twice, and a run with a fault plan: results and reports."""
+    from repro_torch.api import TopoMap
+    from repro_torch.core import afm
+    x = np.random.default_rng(5).random((256, 3), dtype=np.float32)
+    cfg = afm.AFMConfig(side=6, dim=3, i_max=192, e_factor=1.0, theta=2)
+    out = []
+    for opts in ({}, {}, {"latency": "constant", "delay": 0.5,
+                          "faults": faults}):
+        tm = TopoMap(cfg, backend="async", device="cpu", seed=3,
+                     backend_options={"placement": "mesh", "shards": 2,
+                                      "search": "exact", **opts}).fit(x)
+        rep = tm.backend.last_report
+        out.append({"w": tm.state_.w.numpy(), "qe": tm.quantization_error(x),
+                    "rows": rep.shard_counts, "sent": rep.sent,
+                    "deliveries": rep.deliveries,
+                    "dropped_fault": rep.dropped_fault,
+                    "stranded": rep.stranded,
+                    "overflow": rep.dropped_overflow})
+    return out
+
+
+def train_map_cli(rank, argv):
+    """``repro_torch.launch.train_map.main`` on every rank of the group."""
+    from repro_torch.launch import train_map
+    tm = train_map.main(argv)
+    return {"w": tm.state_.w.numpy(), "backend": tm.backend.name}
+
+
+# ------------------------------------------------ on the card (gpu marker)
+
+
+class HostDraws:
+    """Draws made on the CPU by a seeded generator and moved to
+    ``device``, so a run on the card and one on the CPU consume the very
+    same numbers; ``spawn`` and ``fold_in`` seed new sources from this
+    one's seed."""
+
+    def __init__(self, seed, device):
+        self.device = torch.device(device)
+        self.seed, self.spawned = seed, 0
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def randint(self, low, high, shape):
+        return torch.randint(low, high, tuple(shape),
+                             generator=self.gen).to(self.device)
+
+    def uniform(self, shape):
+        return torch.rand(tuple(shape), generator=self.gen).to(self.device)
+
+    def exponential(self, shape):
+        return -torch.log1p(-self.uniform(shape))
+
+    def spawn(self):
+        self.spawned += 1
+        return HostDraws(self.seed * 7919 + self.spawned, self.device)
+
+    def fold_in(self, data):
+        return HostDraws(self.seed * 1_000_003 + 104_729 * (data + 1),
+                         self.device)
+
+
+def cuda_collectives(rank):
+    """``ShardMesh``'s gloo collectives on CUDA tensors (the all_reduce of
+    one slot a rank)."""
+    from repro_torch.sharding import ShardMesh
+    m = ShardMesh((2,), ("shards",))
+    x = torch.tensor([-0.0, float("nan"), 1e-45, float(rank)],
+                     device="cuda")
+    g = m.all_gather(x, "shards")
+    return {"bits": g.view(torch.int32).cpu().numpy(),
+            "device": str(g.device),
+            "psum": m.psum(torch.tensor([rank + 1.5], device="cuda"),
+                           "shards").cpu().numpy()}
+
+
+def mesh_card_and_cpu(rank, latency):
+    """A small mesh run on the card and on the CPU from the same host
+    draws (exponential delays and a broadcast loss included)."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import afm, events
+    from repro_torch.faults import FaultPlan
+    cfg = afm.AFMConfig(side=8, dim=16, theta=3, i_max=96, e_factor=0.5)
+    data = torch.randn(64, 16, generator=torch.Generator().manual_seed(4))
+    base = state_to_numpy(afm.init(HostDraws(1, "cpu"), cfg, data))
+    ecfg = events.EventConfig(latency=latency, delay=1.0,
+                              faults=FaultPlan(seed=11, p_loss=0.3))
+    out = []
+    for dev in ("cuda", "cpu"):
+        st, aux, rep = events.run_events(
+            state_from_numpy(base, dev), data.to(dev),
+            HostDraws(2, dev).fold_in(rank), cfg, ecfg,
+            search=afm.search_heuristic, p_fn=lambda i, c: 0.8,
+            lat_draws=HostDraws(3, dev).fold_in(rank),
+            fault_draws=HostDraws(5, dev).fold_in(rank), placement="mesh",
+            shards=2)
+        out.append({"w": st.w.cpu().numpy(), "c": st.c.cpu().numpy(),
+                    "gmu": aux.gmu.cpu().numpy(),
+                    "sizes": aux.cascade_size.cpu().numpy(),
+                    "clock": rep.clock.cpu().numpy(),
+                    "rows": rep.shard_counts, "rounds": rep.rounds,
+                    "deliveries": rep.deliveries})
+    return out
+
+
+def sharded_card_and_cpu(rank):
+    """One sharded step on a (1, 2) mesh on the card and on the CPU from
+    one state and the same host draws."""
+    from repro_torch.core import afm, distributed
+    from repro_torch.sharding import ShardMesh
+    cfg = afm.AFMConfig(side=8, dim=36, batch=8, theta=2, i_max=320,
+                        e_factor=0.5)
+    mesh = ShardMesh((1, 2), ("data", "model"))
+    step = distributed.make_sharded_train_step(cfg, mesh)
+    data = torch.rand(64, 36, generator=torch.Generator().manual_seed(6))
+    dense = afm.init(HostDraws(1, "cpu"), cfg, data)
+    out = []
+    for dev in ("cuda", "cpu"):
+        src = HostDraws(9, dev)
+        moved = afm.AFMState(dense.w.to(dev), dense.c.to(dev),
+                             dense.far.to(dev), dense.near.to(dev), 0)
+        new, aux = step(distributed.shard_state_for_mesh(moved, cfg, mesh),
+                        data[:8].to(dev), src.fold_in(0).fold_in(rank),
+                        src.fold_in(distributed.CASCADE_FOLD).fold_in(rank))
+        full = distributed.gather_state(new, cfg, mesh)
+        out.append({"w": full.w.cpu().numpy(), "c": full.c.cpu().numpy(),
+                    "size": int(aux.cascade_size), "waves": int(aux.waves)})
+    return out
