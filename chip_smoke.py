@@ -103,6 +103,17 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     counters below theta, 3 steps on the card against the CPU), then a
     1 x 1 mesh without a process group and the same over a 1-rank NCCL
     group, bitwise equal;
+11J. the train-and-serve loop on the mesh (``stream_mesh_phase``):
+    ``launch/stream_train.run_stream`` with ``placement="mesh", shards=2``
+    at 30x30x784 on 2 gloo ranks on the card, exact search, zero latency,
+    chunks of 64, a publication every 256, rank 0 serving 2 client
+    threads of batch 8: 1,024 events in memory (the phase's main path:
+    1,024 ``bmu`` shard searches on each rank, rank 0's reads besides);
+    then store backed, uninterrupted against killed by SIGTERM at 512 and
+    resumed; then exponential latency (delay 0.5), 256 events killed at
+    128 and resumed: the final artifacts bitwise, every rank's dense
+    state alike, rank 0's QE finite and below the initial QE, its
+    readers at least one read and no error;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -2472,6 +2483,177 @@ def sharded_phase(device, xtr, xte):
     print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+#: phase J (the train-and-serve loop on the mesh, 2 gloo ranks on the card):
+#: events of the in-memory and store-backed runs (the latter killed at
+#: half), of the exponential-latency runs (killed at half), samples a
+#: step, samples a publication
+STREAM_MESH_EVENTS = 1024
+STREAM_MESH_EXPO = 256
+STREAM_MESH_CHUNK = 64
+STREAM_MESH_SWAP = 256
+
+
+def _stream_mesh_rank(rank, root):
+    """Phase J on one of 2 gloo ranks on the card: ``run_stream`` with
+    ``placement="mesh", shards=2`` at 30x30x784 (seed 0, exact search, a
+    ``bmu`` launch on the shard's 450-unit band a sample round), rank 0
+    serving 2 client threads of batch 8. In memory at zero latency (the
+    phase's main path, its launches counted); then store backed,
+    uninterrupted against killed by SIGTERM (its real handler, on every
+    rank) at half the events and resumed; then the same at exponential
+    latency (delay 0.5). Every run's report and a checksum of this rank's
+    dense state; on rank 0 the initial QE and the artifacts compared."""
+    import hashlib
+    from repro_torch.api import MapStore, TopoMap
+    from repro_torch.core import afm
+    from repro_torch.data import make_dataset
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.kernels import _build
+    from repro_torch.launch.stream_train import run_stream
+    device = torch.device("cuda")
+    _build.load()
+    xtr, _, xte, _ = make_dataset("mnist", seed=SEED, device=device)
+
+    def summary(rep):
+        digest = hashlib.sha256()
+        for x in (rep.state.w, rep.state.c):
+            digest.update(x.detach().cpu().numpy().tobytes())
+        return {"events": rep.events, "swaps": rep.swaps,
+                "seconds": rep.seconds, "interrupted": rep.interrupted,
+                "reads": rep.client_requests,
+                "errors": [repr(e) for e in rep.client_errors],
+                "dispatches": rep.gateway.dispatches,
+                "qe_shape": rep.qe.shape,
+                "qe_finite": rep.qe_finite,
+                "qe": float(rep.qe.mean()) if rep.qe.size else None,
+                "i": rep.state.i, "digest": digest.hexdigest()}
+
+    def opts(**kw):
+        return {"placement": "mesh", "shards": 2, "search": "exact", **kw}
+
+    cfg = afm.AFMConfig(side=30, dim=784, i_max=STREAM_MESH_EVENTS)
+    common = dict(backend="async", chunk=STREAM_MESH_CHUNK,
+                  swap_every=STREAM_MESH_SWAP, clients=2, client_batch=8,
+                  name="stream", seed=SEED, device=device)
+    res = {}
+    if rank == 0:
+        init = afm.init(GeneratorDraws.for_step(SEED, 0, device), cfg,
+                        xtr[:STREAM_MESH_CHUNK])
+        res["qe0"] = TopoMap.from_state(init, cfg, backend="async",
+                                        device=device).quantization_error(xte)
+    # the main path of the phase: counts set to 0 just before, read after
+    _reset_launch_counts()
+    mem = run_stream(cfg, xtr, xte, backend_options=opts(),
+                     events=STREAM_MESH_EVENTS, **common)
+    res["launches"] = _launch_counts()
+    res["memory"] = summary(mem)
+    for key, n_ev, ekw in (("zero", STREAM_MESH_EVENTS, {}),
+                           ("exponential", STREAM_MESH_EXPO,
+                            {"latency": "exponential", "delay": 0.5})):
+        kcfg = afm.AFMConfig(side=30, dim=784, i_max=n_ev)
+        run = dict(common, backend_options=opts(**ekw), events=n_ev)
+        a, b, ck = (f"{root}/{key}-{x}" for x in ("a", "b", "ck"))
+        full = run_stream(kcfg, xtr, xte, store_root=a, **run)
+        cut = run_stream(kcfg, xtr, xte, store_root=b, checkpoint_dir=ck,
+                         checkpoint_every=STREAM_MESH_SWAP,
+                         die_after=n_ev // 2, **run)
+        logs = []
+        back = run_stream(kcfg, xtr, xte, store_root=b, checkpoint_dir=ck,
+                          resume=True, log=logs.append, **run)
+        res[key] = {"full": summary(full), "cut": summary(cut),
+                    "back": summary(back),
+                    "verified": any("checksum verified" in x for x in logs)}
+        if rank == 0:
+            arts = [MapStore(r).load_artifact("stream", device="cpu")
+                    for r in (a, b)]
+            res[key]["same_artifact"] = (
+                arts[0].state.i == arts[1].state.i == n_ev
+                and torch.equal(arts[0].state.w, arts[1].state.w)
+                and torch.equal(arts[0].state.c, arts[1].state.c))
+    return res
+
+
+def stream_mesh_phase(rows):
+    """Phase J: the train-and-serve loop on the mesh, 2 gloo ranks on the
+    one card (``_stream_mesh_rank``). Every rank's dense state alike after
+    every run; rank 0's reads (at least one, no error) and QE (finite,
+    below the initial QE); every rank launched ``bmu`` once a sample round
+    on its band in the main path, rank 0 also for the gateway's reads;
+    the killed-and-resumed runs bitwise the uninterrupted ones, at zero
+    and at exponential latency. Returns the phase's kernel rows."""
+    import tempfile
+    from repro_torch.sharding import spawn_ranks
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = spawn_ranks(_stream_mesh_rank, 2, (tmp,), dist_backend="gloo",
+                          timeout=RANK_TIMEOUT)
+    first = res[0]
+    runs = [("memory", lambda r: r["memory"])] + [
+        (f"{k} {x}", lambda r, k=k, x=x: r[k][x])
+        for k in ("zero", "exponential") for x in ("full", "cut", "back")]
+    for what, get in runs:
+        a, b = (get(r) for r in res)
+        if a["digest"] != b["digest"] or (a["events"], a["swaps"],
+                                          a["seconds"]) != (
+                b["events"], b["swaps"], b["seconds"]):
+            raise AssertionError(f"stream mesh, {what}: the ranks differ: "
+                                 f"{a} / {b}")
+        if b["reads"] or b["qe_shape"] != (0,) or a["errors"]:
+            raise AssertionError(f"stream mesh, {what}: rank 1 served or "
+                                 f"rank 0's clients failed: {a} / {b}")
+    mem = first["memory"]
+    if not (mem["reads"] >= 1 and mem["qe_finite"]
+            and mem["qe"] < first["qe0"] and mem["swaps"] == 4
+            and mem["events"] == STREAM_MESH_EVENTS):
+        raise AssertionError(f"stream mesh, in memory: {mem}, initial QE "
+                             f"{first['qe0']}")
+    search = []
+    for rank, r in enumerate(res):
+        n = r["launches"]
+        reads = sum(v for k, v in n.items() if k.startswith("bmu@"))
+        search.append(n["bmu"] - reads)
+        if n["bmu"] - reads != STREAM_MESH_EVENTS or (rank == 0) != (
+                reads > 0):
+            raise AssertionError(f"stream mesh, rank {rank}: launched {n} "
+                                 f"for {STREAM_MESH_EVENTS} sample rounds")
+    for key, n_ev in (("zero", STREAM_MESH_EVENTS),
+                      ("exponential", STREAM_MESH_EXPO)):
+        r = first[key]
+        if not (r["verified"] and r["same_artifact"]
+                and r["cut"]["interrupted"] and r["cut"]["events"] == n_ev // 2
+                and r["back"]["digest"] == r["full"]["digest"]
+                and r["full"]["qe_finite"] and r["back"]["qe_finite"]):
+            raise AssertionError(f"stream mesh, {key}: the resumed run is "
+                                 f"not the uninterrupted one: {r}")
+    n = first["launches"]
+    buckets = {k: v for k, v in n.items() if k.startswith("bmu@")}
+    print(f"stream mesh (in memory, 2 ranks): {mem['events']} events at "
+          f"30x30x784, exact search, zero latency: "
+          f"{mem['events'] / mem['seconds']:.1f} events/s "
+          f"({mem['seconds']:.3f} s), {mem['swaps']} swaps, {mem['reads']} "
+          f"client reads, {mem['dispatches']} coalesced dispatches; QE "
+          f"{first['qe0']:.4f} -> {mem['qe']:.4f}; bmu launches on rank 0 "
+          f"{n['bmu']} ({search[0]} shard searches, reads {buckets}), on "
+          f"rank 1 {res[1]['launches']['bmu']} ({search[1]} shard searches)")
+    for key, n_ev in (("zero", STREAM_MESH_EVENTS),
+                      ("exponential", STREAM_MESH_EXPO)):
+        r = first[key]
+        rest = r["back"]["events"] - r["cut"]["events"]
+        print(f"stream mesh (store backed, {key} latency): {n_ev} events, "
+              f"uninterrupted {n_ev / r['full']['seconds']:.1f} events/s, "
+              f"{r['full']['reads']} reads; killed by SIGTERM at "
+              f"{r['cut']['events']} and resumed ({rest} events at "
+              f"{rest / r['back']['seconds']:.1f} events/s): final artifact "
+              f"bitwise the uninterrupted run's")
+    print(f"stream mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return [
+        _row_as(rows, "bmu (mesh shard search, B=1, N=450)",
+                "bmu (mesh stream shard search, B=1, N=450)", search[0]),
+        _row_as(rows, "bmu (training search, B=16)",
+                "bmu (mesh stream reads on rank 0, bucket 64: 9..16 "
+                "coalesced samples)", n.get("bmu@64", 0))]
+
+
 def _row_as(rows, prefix, name, launches):
     """A kernel row measured above at the same shape, under this phase's
     name and launches."""
@@ -2845,6 +3027,7 @@ def main() -> int:
                 "bmu (stream final QE, bucket 4096)", st.get("bmu@4096", 0))]
     rows.append(mesh_phase(device, xtr, xte, worst))
     sharded_phase(device, xtr, xte)
+    rows += stream_mesh_phase(rows)
     del xtr, ytr, xte, yte
     swa_worst = check_swa_kernel(device)
     check_decode_card_vs_cpu(device)

@@ -69,10 +69,14 @@ asks its source, per sample event, for the probe search's
 ``randint(0, L, (e // K,))`` (heuristic only), then ``spawn()``: the
 cascade's child, which hands out the drive ``uniform(())``, then one
 ``uniform((4, side // K, side))`` per delivery round of that cascade on
-the shard. Its latency and fault sources draw once at every fire
-(``(4 L,)``) and at every halo exchange (``(2 side,)``), so a replay of
-JAX's per-shard streams, whose shapes interleave as the run goes, gives
-``ReplayDraws`` a mapping of both shapes per draw site.
+the shard. The ``async`` backend splits each run's latency source off
+its own (``GeneratorDraws.split``, as JAX splits ``lat_key`` once a run)
+and folds the shard in, so the backend's one generator state is every
+shard's latency position, as JAX's one ``lat_key`` is. The latency and
+fault sources draw once at every fire (``(4 L,)``) and at every halo
+exchange (``(2 side,)``), so a replay of JAX's per-shard streams, whose
+shapes interleave as the run goes, gives ``ReplayDraws`` a mapping of both
+shapes per draw site.
 """
 from __future__ import annotations
 
@@ -148,6 +152,15 @@ class GeneratorDraws:
         stream has drawn."""
         return GeneratorDraws(_mix64(_mix64(self.seed ^ _FOLD_TAG)
                                      + int(data)), self.device)
+
+    def split(self) -> "GeneratorDraws":
+        """A new source seeded by this one's next draw, as
+        ``jax.random.split`` advances a key chain: this source's generator
+        moves by one draw, so its state alone is the position of every
+        source split from it (one device read on the card)."""
+        seed = torch.randint(0, 2 ** 62, (1,), generator=self.generator,
+                             device=self.device)
+        return GeneratorDraws(int(seed.item()), self.device)
 
     def randint(self, low, high, shape):
         return torch.randint(int(low), int(high), tuple(shape),

@@ -37,6 +37,23 @@ Each step's draws come from ``GeneratorDraws.for_step(seed, step)``, which
 depends on the step's index alone (JAX's ``fold_in(PRNGKey(seed),
 step)``), and an active fault plan's draws restart with every step, so the
 resumed run ends on the uninterrupted run's weights bitwise.
+
+**On the mesh** (``--backend async --shards K``): the event engine's row
+bands over K ``torch.distributed`` ranks, one process a shard, started by
+``torchrun`` (or ranks a caller has joined, ``repro_torch.sharding.
+spawn_ranks``). Every rank runs the same ``partial_fit`` chunks on the
+same data and draws in lockstep, and each run leaves the dense state on
+every rank, so publication needs no collective: rank 0 alone serves (the
+gateway, its service or store, the client threads, the final QE) and
+writes (artifacts and checkpoints). SIGTERM and ``--die-after`` set a
+flag that the ranks reduce (max) at every chunk boundary, so every rank
+stops after the same chunk. Rank 0's checkpoint is every rank's: the
+dense state is the same on each, and the latency stream's one generator
+state is every shard's position (``AsyncBackend``):
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 \\
+        -m repro_torch.launch.stream_train --device cpu --dist-backend gloo \\
+        --dataset satimage --side 6 --shards 2 --search exact
 """
 from __future__ import annotations
 
@@ -49,15 +66,20 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.api import AFMConfig, MapStore, TopoMap
 from repro_torch.api.backends import add_backend_argument
 from repro_torch.api.persistence import _state_like
+from repro_torch.core.afm import AFMState
+from repro_torch.core.placement import mesh as mesh_lib
 from repro_torch.data import DATASETS, make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.draws import GeneratorDraws
+from repro_torch.launch._ranks import join_ranks, ranks_needed
 from repro_torch.serving import GatewayStats, MapGateway, MapService
 from repro_torch.serving.maps import to_numpy
+from repro_torch.sharding import DIST_BACKENDS, compat
 from repro_torch.training.checkpoint import (load_train_checkpoint,
                                              save_train_checkpoint)
 
@@ -65,7 +87,10 @@ from repro_torch.training.checkpoint import (load_train_checkpoint,
 @dataclasses.dataclass
 class StreamReport:
     """Outcome of one ``run_stream``, returned to callers and printed by the
-    CLI."""
+    CLI. On a mesh every rank returns one, with the same ``events``,
+    ``swaps``, ``seconds`` (the slowest rank's) and ``state``; a rank other
+    than 0 serves nothing, so its ``client_requests`` is 0, its ``qe`` empty
+    and its ``gateway`` a zero ``GatewayStats``."""
     events: int                 # training samples consumed
     seconds: float              # trainer wall time
     swaps: int                  # publications into the serving stack
@@ -76,6 +101,7 @@ class StreamReport:
     interrupted: bool = False   # stopped early on SIGTERM / die_after
     checkpoint_path: str | None = None   # last checkpoint written (if any)
     resumed_from: dict | None = None     # resumed cursor (if resume hit)
+    state: AFMState | None = None        # this rank's final dense state
 
     @property
     def events_per_sec(self) -> float:
@@ -90,6 +116,13 @@ def _lat_state(tm):
     """The async backend's latency-stream position, or ``None``."""
     lat = getattr(tm.backend, "lat_draws", None)
     return None if lat is None else lat.generator.get_state()
+
+
+def _rank_mesh(tm):
+    """The ranks' mesh of a backend that trains over several processes
+    (the async backend's multi-shard mesh placement), or ``None``."""
+    shards = getattr(getattr(tm.backend, "placement", None), "shards", 1)
+    return mesh_lib.shard_mesh(shards) if shards > 1 else None
 
 
 def run_stream(cfg: AFMConfig, train_data, eval_data, *,
@@ -119,6 +152,13 @@ def run_stream(cfg: AFMConfig, train_data, eval_data, *,
     drained: the dense state, the latency stream's position and the cursor
     are the whole in-flight state. ``die_after=N`` raises SIGTERM from
     inside the loop once N samples are consumed.
+
+    On a multi-shard mesh (``backend_options`` ``placement="mesh"``,
+    ``shards=K``) every rank of the process group calls this with the same
+    arguments; see the module docstring. Rank 0 alone serves and writes
+    (the store, the checkpoints), the stop flag is reduced over the ranks
+    at every chunk boundary, and the ranks meet after a checkpoint is
+    written, so a rank that resumes reads it whole.
 
     ``device``: where the map trains and serves (CUDA unless the caller
     asks for the CPU). ``draws_for_step``: ``step -> Draws``, the draw
@@ -168,27 +208,38 @@ def run_stream(cfg: AFMConfig, train_data, eval_data, *,
         tm.partial_fit(first, draws=draws_for_step(0))
         consumed += len(first)
 
+    mesh = _rank_mesh(tm)
+    serving = mesh is None or mesh.rank == 0
     last_ckpt = consumed
     checkpoint_path = None
 
     def save_ckpt() -> None:
         nonlocal last_ckpt, checkpoint_path
-        save_train_checkpoint(
-            checkpoint_dir, config=dataclasses.asdict(cfg),
-            state=tm.state_, cursor={"consumed": consumed, **cursor},
-            lat_state=_lat_state(tm),
-            meta={"name": name, "events_target": events, "seed": seed})
+        if serving:
+            save_train_checkpoint(
+                checkpoint_dir, config=dataclasses.asdict(cfg),
+                state=tm.state_, cursor={"consumed": consumed, **cursor},
+                lat_state=_lat_state(tm),
+                meta={"name": name, "events_target": events, "seed": seed})
+            log(f"  checkpoint at {consumed} events -> {checkpoint_dir}")
         last_ckpt = consumed
         checkpoint_path = checkpoint_dir
-        log(f"  checkpoint at {consumed} events -> {checkpoint_dir}")
 
-    store = MapStore(store_root) if store_root else None
-    svc = None
-    if store is not None:
+    def reduce_max(x):
+        """The max of a host value over the ranks: one collective, which no
+        rank leaves before every rank has reached it."""
+        if mesh is None:
+            return x
+        t = torch.tensor([x], dtype=torch.float64)
+        return type(x)(mesh.pmax(t, mesh_lib.AXIS).item())
+
+    store = gw = svc = None
+    if serving and store_root:
+        store = MapStore(store_root)
         store.save(tm, name)
         gw = MapGateway(store=store, max_delay=max_delay, device=device)
         gw.open(name)
-    else:
+    elif serving:
         gw = MapGateway(max_delay=max_delay, device=device)
         svc = MapService.from_estimator(tm)
         gw.attach(name, svc)
@@ -210,13 +261,13 @@ def run_stream(cfg: AFMConfig, train_data, eval_data, *,
             errors.append(e)
 
     threads = [threading.Thread(target=client, args=(w,), daemon=True)
-               for w in range(clients)]
+               for w in range(clients if serving else 0)]
 
     def publish() -> None:
         if store is not None:
             store.save(tm, name)
             gw.reload(name)
-        else:
+        elif svc is not None:
             svc.swap(tm.state_)
 
     # SIGTERM sets a stop flag checked at chunk boundaries; the previous
@@ -230,6 +281,7 @@ def run_stream(cfg: AFMConfig, train_data, eval_data, *,
                                      lambda *_: interrupt.set())
         handler_installed = True
     interrupted = False
+    qe, stats = np.zeros((0,), np.float32), GatewayStats()
     t0 = time.perf_counter()
     try:
         for t in threads:
@@ -250,9 +302,9 @@ def run_stream(cfg: AFMConfig, train_data, eval_data, *,
                 publish()
                 cursor["swaps"] += 1
                 cursor["since_swap"] = 0
-                log(f"  published after {consumed} events "
-                    f"(swap {cursor['swaps']}, {sum(requests)} reads "
-                    f"served)")
+                if serving:
+                    log(f"  published after {consumed} events (swap "
+                        f"{cursor['swaps']}, {sum(requests)} reads served)")
             if checkpoint_dir and consumed - last_ckpt >= checkpoint_every:
                 save_ckpt()
             if die_after is not None and consumed >= die_after:
@@ -261,9 +313,13 @@ def run_stream(cfg: AFMConfig, train_data, eval_data, *,
                     signal.raise_signal(signal.SIGTERM)
                 else:
                     interrupt.set()
-            if interrupt.is_set():
+            # on a mesh every rank stops on the reduced flag, after the same
+            # chunk; the reduction is also the ranks' meeting after a
+            # checkpoint written in this chunk
+            if reduce_max(int(interrupt.is_set())):
                 interrupted = True
                 save_ckpt()             # the state the resume picks up
+                reduce_max(0)           # the ranks meet after the write
                 log(f"  interrupted at {consumed} events — checkpoint "
                     f"saved, resume with --resume")
                 break
@@ -272,21 +328,24 @@ def run_stream(cfg: AFMConfig, train_data, eval_data, *,
             cursor["swaps"] += 1
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        seconds = time.perf_counter() - t0
-        if clients > 0 and not interrupted:
-            deadline = time.perf_counter() + 30.0
-            while (sum(requests) < min_client_reads and not errors
-                   and time.perf_counter() < deadline):
-                time.sleep(0.002)
-        stop.set()
-        for t in threads:
-            t.join(timeout=10)
-        # the served map answers the final QE, through the clients' gateway
-        qe = np.asarray(gw.quantization_errors(name, eval_data))
-        stats = dataclasses.replace(gw.stats)
+        seconds = reduce_max(time.perf_counter() - t0)
+        if serving:
+            if clients > 0 and not interrupted:
+                deadline = time.perf_counter() + 30.0
+                while (sum(requests) < min_client_reads and not errors
+                       and time.perf_counter() < deadline):
+                    time.sleep(0.002)
+            stop.set()
+            for t in threads:
+                t.join(timeout=10)
+            # the served map answers the final QE, through the clients'
+            # gateway
+            qe = np.asarray(gw.quantization_errors(name, eval_data))
+            stats = dataclasses.replace(gw.stats)
     finally:
         stop.set()
-        gw.close()
+        if gw is not None:
+            gw.close()
         if handler_installed:
             signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
     return StreamReport(events=consumed, seconds=seconds,
@@ -294,16 +353,13 @@ def run_stream(cfg: AFMConfig, train_data, eval_data, *,
                         client_requests=sum(requests), client_errors=errors,
                         qe=qe, gateway=stats, interrupted=interrupted,
                         checkpoint_path=checkpoint_path,
-                        resumed_from=resumed_from)
+                        resumed_from=resumed_from, state=tm.state_)
 
 
 def build_backend_options(args) -> dict:
-    """The backend options of the CLI's flags (JAX's ``stream_train``)."""
-    if args.shards > 1:
-        raise NotImplementedError(
-            f"--shards {args.shards}: the train-and-serve loop runs one "
-            f"process; its gateway's client threads against a training "
-            f"mesh of several ranks are ROADMAP queue 1, item 9")
+    """The backend options of the CLI's flags, with JAX's ``stream_train``'s
+    refusals and messages; ``--shards K`` is the mesh placement over K
+    ranks (``main`` joins them)."""
     faults = None
     if args.p_loss or (args.dropout_frac and args.dropout_len):
         faults = {"seed": args.fault_seed, "p_loss": args.p_loss,
@@ -314,13 +370,19 @@ def build_backend_options(args) -> dict:
     if args.backend == "async":
         opts.update(latency=args.latency, delay=args.delay,
                     engine=args.engine, lat_seed=args.lat_seed)
+        if args.shards > 1:
+            opts.update(placement="mesh", shards=args.shards)
         if faults:
             opts["faults"] = faults
     elif (args.latency != "zero" or args.delay or args.engine != "auto"
-          or args.lat_seed or faults):
-        raise SystemExit("--latency/--delay/--engine/--lat-seed/--p-loss/"
-                         "--dropout-* only apply to the async backend")
+          or args.lat_seed or args.shards > 1 or faults):
+        raise SystemExit("--latency/--delay/--engine/--lat-seed/--shards/"
+                         "--p-loss/--dropout-* only apply to the async "
+                         "backend")
     if args.search:
+        if args.backend == "sharded":
+            raise SystemExit("--search is not supported by the sharded "
+                             "backend")
         opts["search"] = args.search
     return opts
 
@@ -357,9 +419,13 @@ def main(argv=None):
                          "to the fast path, 'event' always runs the "
                          "discrete-event simulation")
     ap.add_argument("--shards", type=int, default=1,
-                    help="async backend: mesh shards; only 1 until the "
-                         "loop runs over several ranks (ROADMAP queue 1, "
-                         "item 9)")
+                    help="async backend: partition the event engine over "
+                         "this many ranks, one process each under torchrun "
+                         "(placement='mesh'; must divide --side)")
+    ap.add_argument("--dist-backend", default="gloo", choices=DIST_BACKENDS,
+                    help="transport of a run of several ranks: gloo (any "
+                         "number of ranks on one card or the CPU) or nccl "
+                         "(one card a rank)")
     ap.add_argument("--search", default=None,
                     choices=(None, "heuristic", "exact"))
     ap.add_argument("--checkpoint-dir", default=None,
@@ -393,7 +459,9 @@ def main(argv=None):
                     help="where to train and serve (default: cuda)")
     args = ap.parse_args(argv)
     opts = build_backend_options(args)
-    device = resolve_device(args.device)
+    world = ranks_needed(args)
+    rank, device = join_ranks(args, world, "repro_torch.launch.stream_train")
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     spec = DATASETS[args.dataset]
     xtr, _, xte, _ = make_dataset(args.dataset,
@@ -405,10 +473,12 @@ def main(argv=None):
     name = args.name or f"{args.dataset}-{args.side}x{args.side}"
     card = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"streaming {args.events} events into a {args.side}x{args.side} "
-          f"map (backend={args.backend}, latency={args.latency}), serving "
-          f"{args.clients} clients, publish every {args.swap_every}, "
-          f"device={device} ({card})")
+    ranks = (f", {world} ranks over {compat.transport()} (rank 0 serves)"
+             if dist.is_initialized() else "")
+    say(f"streaming {args.events} events into a {args.side}x{args.side} "
+        f"map (backend={args.backend}, latency={args.latency}), serving "
+        f"{args.clients} clients, publish every {args.swap_every}, "
+        f"device={device} ({card}){ranks}")
     rep = run_stream(cfg, xtr, xte, backend=args.backend,
                      backend_options=opts, events=args.events,
                      chunk=args.chunk, swap_every=args.swap_every,
@@ -418,7 +488,9 @@ def main(argv=None):
                      checkpoint_dir=args.checkpoint_dir,
                      checkpoint_every=args.checkpoint_every,
                      resume=args.resume, die_after=args.die_after,
-                     log=print, device=device)
+                     log=say, device=device)
+    if rank:
+        return rep
     if rep.interrupted:
         print(f"stream interrupted at {rep.events} events — checkpoint "
               f"saved to {rep.checkpoint_path}; rerun with --resume to "
@@ -435,4 +507,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

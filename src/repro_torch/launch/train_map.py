@@ -39,7 +39,6 @@ names. Every rank trains; rank 0 prints and saves.
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import torch
@@ -48,8 +47,8 @@ import torch.distributed as dist
 from repro_torch.api import AFMConfig, TopoMap, precision_recall
 from repro_torch.api.backends import add_backend_argument
 from repro_torch.data import DATASETS, make_dataset
-from repro_torch.device import resolve_device
 from repro_torch.draws import GeneratorDraws
+from repro_torch.launch._ranks import join_ranks, ranks_needed
 from repro_torch.sharding import DIST_BACKENDS, compat
 
 
@@ -88,44 +87,6 @@ def build_backend_options(args) -> dict:
     if args.search:
         opts["search"] = args.search
     return opts
-
-
-def ranks_needed(args) -> int:
-    if args.backend == "sharded":
-        n_data, n_model = _mesh_shape(args)
-        return n_data * n_model
-    return args.shards if args.backend == "async" else 1
-
-
-def join_ranks(args, world: int) -> tuple[int, torch.device]:
-    """(this rank, its device). A run of several ranks joins the process
-    group from ``torchrun``'s environment unless the process is in one
-    already; the group's transport is ``--dist-backend``'s, never another."""
-    if world == 1 and not dist.is_initialized():
-        return 0, resolve_device(args.device)
-    if not dist.is_initialized():
-        if "WORLD_SIZE" not in os.environ:
-            raise SystemExit(
-                f"this run needs {world} ranks, one process each: start it "
-                f"under torchrun --nproc-per-node {world} -m "
-                f"repro_torch.launch.train_map ... --dist-backend "
-                f"{args.dist_backend}")
-        compat.init_distributed(
-            int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
-            dist_backend=args.dist_backend, init_method="env://",
-            local_rank=int(os.environ.get("LOCAL_RANK", 0)))
-    if compat.transport() != args.dist_backend:
-        raise SystemExit(f"the process group runs over "
-                         f"{compat.transport()}, not --dist-backend "
-                         f"{args.dist_backend}")
-    if dist.get_world_size() != world:
-        raise SystemExit(f"this run needs {world} ranks, but the process "
-                         f"group has {dist.get_world_size()}")
-    rank = dist.get_rank()
-    local = int(os.environ.get("LOCAL_RANK", rank))
-    if args.dist_backend == "nccl":
-        return rank, compat.rank_device("nccl", local)
-    return rank, resolve_device(args.device)
 
 
 def main(argv=None):
@@ -175,8 +136,8 @@ def main(argv=None):
                     help="store key name (default: DATASET-SIDExSIDE)")
     args = ap.parse_args(argv)
     opts = build_backend_options(args)
-    world = ranks_needed(args)
-    rank, device = join_ranks(args, world)
+    world = ranks_needed(args, _mesh_shape(args))
+    rank, device = join_ranks(args, world, "repro_torch.launch.train_map")
     if args.backend == "sharded":
         opts["mesh"] = compat.ShardMesh(_mesh_shape(args), ("data", "model"))
     say = print if rank == 0 else (lambda *a, **k: None)

@@ -62,8 +62,9 @@ class AsyncBackend:
                  runs the single-pool engine.
       lat_seed:  seed of the exponential-latency draw source
                  (``lat_draws``), kept apart from the training draws; on a
-                 multi-shard mesh each shard draws from its
-                 ``fold_in(shard)``.
+                 multi-shard mesh each run splits a source off it
+                 (``GeneratorDraws.split``) and each shard draws from that
+                 source's ``fold_in(shard)``.
       faults:    ``None``, a ``repro_torch.faults.FaultPlan`` or a mapping
                  of its fields (broadcast loss, dropout windows, pool
                  pressure, per-shard stragglers); an active plan runs the
@@ -81,7 +82,10 @@ class AsyncBackend:
     ``last_report`` holds the latest run's ``EventReport``. ``lat_draws``
     is the latency stream (the counterpart of JAX's ``lat_key``); its
     position, ``lat_draws.generator.get_state()``, is what a checkpoint
-    keeps to replay an exponential-latency run's delays on resume.
+    keeps to replay an exponential-latency run's delays on resume. On a
+    multi-shard mesh that one state is every shard's position too: a run
+    moves it by one draw, whose value seeds the run's shard streams, as
+    JAX splits ``lat_key`` once a run and folds the shard in.
 
     On a multi-shard mesh a run's events draw from ``draws.spawn()`` with
     the shard's index folded in (``GeneratorDraws.fold_in``), the
@@ -121,7 +125,6 @@ class AsyncBackend:
         self.device = resolve_device(device)
         self.search = _SEARCHES[search]
         self.lat_draws = GeneratorDraws(lat_seed, self.device)
-        self._shard_lat = None          # a mesh shard's latency stream
         self.last_report: EventReport | None = None
         self._donate_run = bool(donate_run)
 
@@ -133,9 +136,8 @@ class AsyncBackend:
         if self.placement.shards > 1:
             shard = mesh_lib.shard_mesh(self.placement.shards).axis_index(
                 mesh_lib.AXIS)
-            if self._shard_lat is None:
-                self._shard_lat = self.lat_draws.fold_in(shard)
-            draws, lat_draws = draws.spawn().fold_in(shard), self._shard_lat
+            draws = draws.spawn().fold_in(shard)
+            lat_draws = self.lat_draws.split().fold_in(shard)
         state, aux, report = events_lib.run_events(
             state, samples, draws, self.cfg, self.ecfg, search=self.search,
             lat_draws=lat_draws, donate=donate, placement=self.placement)

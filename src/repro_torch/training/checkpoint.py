@@ -22,7 +22,10 @@ manifest with a SHA-256 per payload file. The latency stream of the port is
 a ``torch.Generator`` (``AsyncBackend.lat_draws.generator``), not a
 threefry key: the checkpoint stores its ``get_state()`` bytes and names the
 kind of stream in ``meta["lat_stream"]``. A JAX checkpoint's ``(2,)
-uint32`` key is refused, not used as a seed.
+uint32`` key is refused, not used as a seed. On a mesh of several ranks
+that one state is every shard's latency position (``AsyncBackend`` splits
+each run's shard streams off it) and every rank holds the same dense
+state, so the one checkpoint that rank 0 writes restores every rank.
 """
 from __future__ import annotations
 

@@ -251,7 +251,17 @@ def test_stream_cli_die_after_then_resume(tmp_path):
 
 
 def test_stream_cli_shards_need_the_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    """``--shards`` is the async backend's mesh: with another backend the
+    CLI exits with JAX's message; with it, one process outside a process
+    group is told how to start the ranks."""
+    with pytest.raises(SystemExit) as err:
+        stream_train.main(["--device", "cpu", "--backend", "batched",
+                           "--shards", "2"])
+    assert str(err.value) == ("--latency/--delay/--engine/--lat-seed/"
+                              "--shards/--p-loss/--dropout-* only apply to "
+                              "the async backend")
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2 -m "
+                       "repro_torch.launch.stream_train"):
         stream_train.main(["--device", "cpu", "--shards", "2"])
     with pytest.raises(SystemExit, match="only apply to the async"):
         stream_train.main(["--device", "cpu", "--backend", "batched",

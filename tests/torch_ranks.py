@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-process tests (``tests/test_torch_mesh.py``,
-``test_torch_distributed.py``, ``test_torch_map_cli.py``), run by
+``test_torch_distributed.py``, ``test_torch_map_cli.py``,
+``test_torch_stream_mesh.py``), run by
 ``torch_parity.run_ranks`` on gloo ranks on the CPU. This module imports no
 JAX, so a spawned rank starts in the time PyTorch takes to import.
 
@@ -155,6 +156,157 @@ def train_map_cli(rank, argv):
     from repro_torch.launch import train_map
     tm = train_map.main(argv)
     return {"w": tm.state_.w.numpy(), "backend": tm.backend.name}
+
+
+# ------------------------------------------ the train-and-serve loop's mesh
+
+
+#: ``tests/test_torch_stream_mesh.py``'s map and stream: 96 events in
+#: chunks of 24 (the warm start is step 0), a publication every 48; a hot
+#: cascade schedule (c_m 4, c_d 1), so that every chunk after the warm
+#: start cascades across the shard boundary (the defaults fire nothing in
+#: 96 events at side 4)
+STREAM_MESH = dict(side=4, dim=3, i_max=96, e_factor=0.5, c_m=4.0, c_d=1.0)
+STREAM_RUN = dict(events=96, chunk=24, swap_every=48, name="m", seed=7)
+
+
+class ShardSteps:
+    """One step's draw source as the async backend asks a mesh for it:
+    ``spawn().fold_in(shard)`` is that shard's replayed draws."""
+
+    def __init__(self, by_shard):
+        self.device = torch.device("cpu")
+        self._by_shard = by_shard
+
+    def spawn(self):
+        return self
+
+    def fold_in(self, shard):
+        return self._by_shard[shard]
+
+
+def stream_step_draws(z, step: int, shards: int, heuristic: bool):
+    """``ShardSteps`` of step ``step`` from the JAX side's arrays, which
+    hold each step's per-shard draws under the prefix ``s<step>_``, as
+    ``mesh_draws`` reads one run's."""
+    prefix = f"s{step}_"
+    zs = {k[len(prefix):]: v for k, v in z.items() if k.startswith(prefix)}
+    events = len(zs["roff0"]) - 1
+    return ShardSteps([mesh_draws(zs, me, events, heuristic)[0]
+                       for me in range(shards)])
+
+
+def _artifact(root):
+    from repro_torch.api import MapStore
+    art = MapStore(root).load_artifact("m", device="cpu")
+    return {"w": art.state.w.numpy(), "c": art.state.c.numpy(),
+            "i": art.state.i}
+
+
+def stream_mesh_parity(rank, cases, shards):
+    """``run_stream`` on the mesh, store backed, on the JAX side's initial
+    state and per-step per-shard draws, for each ``(path, search, root)``
+    of ``cases``: rank 0's final artifact and every rank's dense state."""
+    from repro_torch.api import AFMConfig
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.launch.stream_train import run_stream
+    from repro_torch.training.async_trainer import AsyncBackend
+    out = []
+    init = AsyncBackend.init
+    try:
+        for path, search, root in cases:
+            z = dict(np.load(path))
+            state = state_from_numpy({"w": z["w0"], "c": z["c0"],
+                                      "far": z["far"], "near": z["near"],
+                                      "i": 0}, "cpu")
+            AsyncBackend.init = lambda self, draws, samples=None: state
+            heuristic = search == "heuristic"
+            rep = run_stream(
+                AFMConfig(**STREAM_MESH), z["xtr"], z["xte"],
+                backend="async", store_root=root, clients=0,
+                min_client_reads=0, device="cpu",
+                backend_options={"placement": "mesh", "shards": shards,
+                                 "search": search},
+                draws_for_step=lambda step: stream_step_draws(
+                    z, step, shards, heuristic), **STREAM_RUN)
+            out.append({"w": rep.state.w.numpy(), "c": rep.state.c.numpy(),
+                        "events": rep.events, "qe": rep.qe,
+                        "art": _artifact(root) if rank == 0 else None})
+    finally:
+        AsyncBackend.init = init
+    return out
+
+
+def stream_mesh_resume(rank, root, latencies):
+    """The port's mesh stream on 2 ranks, store backed: uninterrupted,
+    then killed by ``die_after`` at half the events and resumed, at each
+    of ``latencies``; then in memory at zero latency with a reader on
+    rank 0. Every rank's reports; rank 0's final artifacts."""
+    from repro_torch.api import AFMConfig
+    from repro_torch.launch.stream_train import run_stream
+    rng = np.random.default_rng(0)
+    xtr = rng.normal(size=(120, 3)).astype(np.float32)
+    xte = rng.normal(size=(32, 3)).astype(np.float32)
+    cfg = AFMConfig(**STREAM_MESH)
+
+    def report(rep):
+        return {"events": rep.events, "swaps": rep.swaps,
+                "seconds": rep.seconds, "interrupted": rep.interrupted,
+                "reads": rep.client_requests, "errors": len(rep.client_errors),
+                "qe": rep.qe, "w": rep.state.w.numpy(),
+                "dispatches": rep.gateway.dispatches}
+
+    out = {}
+    for latency in latencies:
+        opts = {"placement": "mesh", "shards": 2, "search": "exact",
+                "latency": latency,
+                "delay": 0.0 if latency == "zero" else 1.0}
+        common = dict(backend="async", backend_options=opts, clients=0,
+                      min_client_reads=0, device="cpu", **STREAM_RUN)
+        a, b, ck = (f"{root}/{latency}-{x}" for x in ("a", "b", "ck"))
+        full = run_stream(cfg, xtr, xte, store_root=a, **common)
+        cut = run_stream(cfg, xtr, xte, store_root=b, checkpoint_dir=ck,
+                         checkpoint_every=24, die_after=48, **common)
+        logs = []
+        res = run_stream(cfg, xtr, xte, store_root=b, checkpoint_dir=ck,
+                         resume=True, log=logs.append, **common)
+        out[latency] = {
+            "full": report(full), "cut": report(cut), "res": report(res),
+            "verified": any("checksum verified" in x for x in logs),
+            "arts": [_artifact(a), _artifact(b)] if rank == 0 else None}
+    mem = run_stream(cfg, xtr, xte, backend="async", clients=1,
+                     client_batch=4, device="cpu",
+                     backend_options={"placement": "mesh", "shards": 2,
+                                      "search": "exact"}, **STREAM_RUN)
+    out["memory"] = report(mem)
+    return out
+
+
+def stream_mesh_cli(rank, root):
+    """``repro_torch.launch.stream_train.main`` with ``--shards 2`` on every
+    rank: uninterrupted, killed by ``--die-after`` and resumed, each store
+    backed. Every rank's event count and whether it was interrupted."""
+    import contextlib
+    import io
+    from repro_torch.launch import stream_train
+    base = ["--device", "cpu", "--dist-backend", "gloo", "--dataset",
+            "satimage", "--side", "4", "--shards", "2", "--search", "exact",
+            "--events", "96", "--chunk", "24", "--swap-every", "48",
+            "--clients", "1", "--train-size", "200", "--eval-size", "32",
+            "--name", "m"]
+    ck = ["--checkpoint-dir", f"{root}/ck"]
+    out = []
+    for extra in (["--store", f"{root}/a"],
+                  ["--store", f"{root}/b", *ck, "--die-after", "48"],
+                  ["--store", f"{root}/b", *ck, "--resume"]):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rep = stream_train.main(base + extra)
+        out.append({"events": rep.events, "interrupted": rep.interrupted,
+                    "reads": rep.client_requests, "stdout": text.getvalue()})
+    if rank == 0:
+        out.append({"arts": [_artifact(f"{root}/a"), _artifact(f"{root}/b")]})
+    return out
 
 
 # ------------------------------------------------ on the card (gpu marker)
