@@ -114,6 +114,20 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     128 and resumed: the final artifacts bitwise, every rank's dense
     state alike, rank 0's QE finite and below the initial QE, its
     readers at least one read and no error;
+11K. the SOM baseline and the port's examples and lint, after the LM
+    phases (``som_phase``, ``examples_phase``, ``lint_phase``): a 30x30x784
+    SOM (``repro_torch.core.som``) on the mnist stand-in, seed 0, 8,000
+    samples (its ``i_max``): 500 steps at B = 16 and 8,000 at B = 1, each
+    ``som.train`` run under ``set_sync_debug_mode("error")`` (no host
+    sync) and launching ``bmu`` exactly once a step; 50 steps of each held
+    to the plain step on the
+    card (BMUs within the tie bound, weights bitwise on the same BMUs); the
+    QE of the test samples falling by more than 30 %; samples/s, a profiled
+    window's launches and syncs a step, and the accuracy beside the AFM
+    main path's; then ``examples/quickstart_torch.py`` and
+    ``classify_datasets_torch.py`` at their default sizes on the card,
+    their tables printed; then ``python -m repro_torch.launch.lint
+    --no-ruff``, which must exit 0;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -232,9 +246,10 @@ def time_both(fns: dict, iters: int, what: str) -> dict:
     return queued
 
 
-def check_bmu(w, s, precision, what):
+def check_bmu(w, s, precision, what, quiet=False):
     """Kernel vs plain version on the same card: q2 within the f32 bound of
-    the expanded form, indices equal except within that bound of a tie."""
+    the expanded form, indices equal except within that bound of a tie.
+    Returns (max |dq2|, the kernel's indices); ``quiet`` prints nothing."""
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.bmu import ref as bmu_ref
     idx, q2 = bmu_ops.bmu(w, s, precision=precision)
@@ -253,8 +268,9 @@ def check_bmu(w, s, precision, what):
     if not bool((err <= bound).all()):
         raise AssertionError(f"bmu {precision} {what}: q2 off by "
                              f"{float(err.max())} > bound")
-    print(f"bmu {precision:5s} {what}: max|dq2| {float(err.max()):.3g}, "
-          f"{n_differ} near-tie index differences")
+    if not quiet:
+        print(f"bmu {precision:5s} {what}: max|dq2| {float(err.max()):.3g}, "
+              f"{n_differ} near-tie index differences")
     return float(err.max()), idx
 
 
@@ -719,12 +735,12 @@ def main_path(device, xtr, ytr, xte, yte, steps, kernel="staged",
     """Phase 6: train and query through the entry points a user
     calls, with the ``kernel`` backend's ``kernel`` option. Returns the
     trained map, the launch counts of its training and of the whole run,
-    and its fit samples/s. Fails unless every kernel in ``required`` was
-    launched in this run (the queries run through the serving engine:
-    ``bmu`` on 4,096 + 4,096 + 1,808 samples, bucket 4,096's chunks), the
-    step kernel (``drive_cascade`` staged, ``fused_step`` fused) once a
-    training step, and ``cascade_wave`` once a wave past the 16-wave
-    block."""
+    its fit samples/s and its test accuracy. Fails unless every kernel in
+    ``required`` was launched in this run (the queries run through the
+    serving engine: ``bmu`` on 4,096 + 4,096 + 1,808 samples, bucket
+    4,096's chunks), the step kernel (``drive_cascade`` staged,
+    ``fused_step`` fused) once a training step, and ``cascade_wave`` once
+    a wave past the 16-wave block."""
     from repro_torch.api import TopoMap
     from repro_torch.core import afm
     from repro_torch.draws import GeneratorDraws
@@ -805,7 +821,7 @@ def main_path(device, xtr, ytr, xte, yte, steps, kernel="staged",
     if not within:
         raise AssertionError(f"transform: a unit beyond the tie bound, "
                              f"{float(slack.max())} from the nearest")
-    return tm, train_launches, launches, steps * cfg.batch / fit_s
+    return tm, train_launches, launches, steps * cfg.batch / fit_s, acc
 
 
 #: chance is 0.1 on the ten classes; the first run on an H100 (500 steps,
@@ -2661,6 +2677,193 @@ def _row_as(rows, prefix, name, launches):
     return {**row, "name": name, "launches": launches}
 
 
+#: phase K: the SOM's samples, at B = 16 (500 steps, the AFM main path's
+#: budget) and at B = 1 (8,000 steps, the faithful online SOM): the paper's
+#: 600 N samples cut in depth only. They are also the SOM's ``i_max``, so
+#: its schedules (lr 0.5 -> 0.01, sigma 15 -> 1) run their course, as
+#: ``som.train``'s default step count is ``i_max // B``. Then the steps
+#: held to the plain step, and the profiled window.
+SOM_SAMPLES, SOM_PAIRED, SOM_PROFILED = 8000, 50, 50
+#: the QE of the test samples must fall by more than this share, as
+#: ``tests/test_afm.py`` asks of JAX's SOM
+SOM_QE_DROP = 0.3
+
+
+def _som_paired(device, xtr, cfg, steps):
+    """``steps`` SOM steps from the seed's initial state on the same index
+    draws as the timed run's first steps: each step's ``bmu`` kernel BMUs
+    against ``bmu_ref``'s on the same card (within the tie bound), and the
+    kernel step's weights bitwise the plain step's (``som.update`` on
+    ``bmu_ref``'s BMUs) wherever the BMUs agree; the next step starts from
+    the kernel step's state. Returns (max |dq2|, steps with a tie flip)."""
+    from repro_torch.core import som
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    draws = GeneratorDraws(SEED, device)
+    state = som.init(draws, cfg, xtr, device=device)
+    worst, flips = 0.0, 0
+    for k in range(steps):
+        s = xtr[draws.randint(0, xtr.shape[0], (cfg.batch,))]
+        err, idx = check_bmu(state.w, s, "exact", f"(SOM step {k}, "
+                             f"B={cfg.batch})", quiet=True)
+        worst = max(worst, err)
+        idx_r, _ = bmu_ref.bmu_ref(state.w, s)
+        new = som.train_step(state, s, cfg)
+        if torch.equal(idx, idx_r):
+            plain = som.update(state, s, idx_r, cfg)
+            if not torch.equal(new.w.view(torch.int32),
+                               plain.w.view(torch.int32)):
+                raise AssertionError(f"SOM step {k}, B={cfg.batch}: the "
+                                     f"kernel step's weights differ from "
+                                     f"the plain step's on the same BMUs")
+        else:
+            flips += 1
+        state = new
+    return worst, flips
+
+
+def _som_run(device, xtr, cfg, steps):
+    """The timed SOM run from the seed: ``som.init`` then ``som.train``
+    for ``steps`` steps under ``set_sync_debug_mode("error")`` (any host
+    sync raises), with the launch counts of the run alone. Returns (state,
+    initial state, launches, samples/s)."""
+    from repro_torch.core import som
+    from repro_torch.draws import GeneratorDraws
+    draws = GeneratorDraws(SEED, device)
+    state0 = som.init(draws, cfg, xtr, device=device)
+    som.train(state0, xtr, GeneratorDraws(SEED + 1, device), cfg,
+              num_steps=3, device=device)       # warm the path
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = som.train(state0, xtr, draws, cfg, num_steps=steps,
+                          device=device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    others = {k: v for k, v in launches.items() if v and k != "bmu"}
+    if launches["bmu"] != steps or others:
+        raise AssertionError(f"SOM run, B={cfg.batch}: launched {launches} "
+                             f"for {steps} steps: bmu must run once a step, "
+                             f"nothing else")
+    return state, state0, launches, steps * cfg.batch / seconds
+
+
+def som_phase(device, xtr, ytr, xte, yte, afm_acc, rows):
+    """Phase K (a, b): the SOM baseline (``repro_torch.core.som``) at
+    30x30x784 on the mnist stand-in, seed 0, 8,000 samples (``i_max``):
+    500 steps at B = 16 and 8,000 at B = 1, each one ``bmu`` launch a step
+    and no host sync (the run
+    under ``set_sync_debug_mode("error")``); 50 steps of each held to the
+    plain step on the card; the QE of the 10,000 test samples before and
+    after (it must fall by more than ``SOM_QE_DROP``); the accuracy beside
+    the AFM main path's. Returns the phase's kernel rows."""
+    from repro_torch.core import classifier, som
+    from repro_torch.draws import GeneratorDraws
+    t_phase = time.perf_counter()
+    out = []
+    for batch, prefix in ((16, "bmu (training search, B=16)"),
+                          (1, "bmu (async search, B=1)")):
+        cfg = som.SOMConfig(side=30, dim=784, batch=batch,
+                            i_max=SOM_SAMPLES)
+        steps = cfg.total_samples // batch
+        state, state0, launches, rate = _som_run(device, xtr, cfg, steps)
+        worst, flips = _som_paired(device, xtr, cfg, SOM_PAIRED)
+        qe0 = float(som.quantization_error(state0, xte))
+        qe = float(som.quantization_error(state, xte))
+        if not (np.isfinite(qe) and qe < (1 - SOM_QE_DROP) * qe0):
+            raise AssertionError(f"SOM, B={batch}: QE {qe0} -> {qe} did not "
+                                 f"fall by more than {SOM_QE_DROP:.0%}")
+        labels = classifier.label_units(state.w, xtr, ytr)
+        acc = float((som.predict(state, labels, xte) == yte).float().mean())
+        n_launch, syncs, wall = _profile_counts(lambda: som.train(
+            state, xtr, GeneratorDraws(SEED + 3, device), cfg,
+            num_steps=SOM_PROFILED, device=device))
+        print(f"SOM (B={batch}): {steps} steps at 30x30x784 on "
+              f"{tuple(xtr.shape)}: {rate:.1f} samples/s "
+              f"({steps * batch / rate:.3f} s); bmu launches "
+              f"{launches['bmu']} ({launches['bmu'] / steps:.2f} a step), "
+              f"host syncs a step 0 (set_sync_debug_mode('error') over the "
+              f"run); profiled {SOM_PROFILED} steps: "
+              f"{n_launch / SOM_PROFILED:.2f} kernel launches and "
+              f"{syncs / SOM_PROFILED:.2f} host syncs a step, "
+              f"{wall / SOM_PROFILED * 1e3:.4f} ms a step")
+        print(f"SOM (B={batch}): QE of the test samples {qe0:.4f} -> "
+              f"{qe:.4f} ({100 * (1 - qe / qe0):.1f} % lower); accuracy "
+              f"{acc:.4f} (the AFM main path's, staged, B=16, "
+              f"{STEPS} steps: {afm_acc:.4f}); {SOM_PAIRED} steps held to "
+              f"the plain step on the card: max|dq2| {worst:.3g}, weights "
+              f"bitwise on the same BMUs, {flips} step(s) with a BMU tie "
+              f"flip")
+        out.append({**_row_as(rows, prefix,
+                              f"bmu (SOM train step, B={batch})",
+                              launches["bmu"]), "max_abs_err": worst})
+    print(f"SOM phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _example_main(name, argv):
+    """Run an example's ``main(argv)`` in this process; returns what it
+    printed (also echoed)."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        module.main(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    return text
+
+
+def examples_phase():
+    """Phase K (c): both port examples on the card at their default sizes,
+    their tables printed and parsed."""
+    import re
+    t0 = time.perf_counter()
+    quick = _example_main("quickstart_torch", [])
+    found = re.search(r"acc=([0-9.]+) precision=([0-9.]+) recall=([0-9.]+)",
+                      quick)
+    if "device=cuda" not in quick or found is None or not (
+            float(found.group(1)) > 0.5):
+        raise AssertionError(f"quickstart_torch on the card: {quick!r}")
+    t1 = time.perf_counter()
+    table = _example_main("classify_datasets_torch", [])
+    rows = [line.split() for line in table.strip().splitlines()[1:]]
+    if [r[0] for r in rows] != ["satimage", "letters"] or not all(
+            len(r) == 5 and all(0.0 < float(x) <= 1.0 for x in r[1:])
+            for r in rows):
+        raise AssertionError(f"classify_datasets_torch on the card: "
+                             f"{table!r}")
+    print(f"examples on the card: quickstart_torch {t1 - t0:.1f} s, "
+          f"classify_datasets_torch {time.perf_counter() - t1:.1f} s")
+
+
+def lint_phase():
+    """Phase K (d): ``python -m repro_torch.launch.lint --no-ruff`` over
+    the tree exits 0; prints its count of baselined findings."""
+    import os
+    import re
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.lint", "--no-ruff"],
+        capture_output=True, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    found = re.search(r"clean \(([0-9]+) baselined finding", out.stdout)
+    if out.returncode != 0 or found is None:
+        raise AssertionError(f"lint: exit {out.returncode}: {out.stdout}"
+                             f"{out.stderr}")
+    print(f"lint (python -m repro_torch.launch.lint --no-ruff): exit 0, "
+          f"{found.group(1)} baselined findings")
+
+
 LM_ARCH = "llama3.2-1b"
 #: tolerances of the swa kernel against its plain version on the same card:
 #: f32 within 2e-4 relative and absolute (the sums run in another order);
@@ -2982,9 +3185,9 @@ def main() -> int:
     check_step_stages(device, xtr)
     check_fused_parts(device, xtr)
     check_fused_vs_staged(device, xtr)
-    tm, train_launches, launches, staged_rate = main_path(
+    tm, train_launches, launches, staged_rate, afm_acc = main_path(
         device, xtr, ytr, xte, yte, STEPS)
-    tmf, _, fused_launches, fused_rate = main_path(
+    tmf, _, fused_launches, fused_rate, _ = main_path(
         device, xtr, ytr, xte, yte, STEPS, kernel="fused",
         required=("fused_step", "bmu@4096"))
     print(f"fit samples/s at 30x30x784, B=16, {STEPS} steps: staged "
@@ -3028,7 +3231,6 @@ def main() -> int:
     rows.append(mesh_phase(device, xtr, xte, worst))
     sharded_phase(device, xtr, xte)
     rows += stream_mesh_phase(rows)
-    del xtr, ytr, xte, yte
     swa_worst = check_swa_kernel(device)
     check_decode_card_vs_cpu(device)
     runs, long_inputs = serve_full_width(device, swa_worst)
@@ -3037,6 +3239,10 @@ def main() -> int:
         print(f"{LM_ARCH} {key}: prefill {run['prefill_ms']:.3f} ms, decode "
               f"{run['decode_ms_per_step']:.4f} ms/step, "
               f"{run['decode_tok_s']:.1f} decode tok/s")
+    rows += som_phase(device, xtr, ytr, xte, yte, afm_acc, rows)
+    del xtr, ytr, xte, yte
+    examples_phase()
+    lint_phase()
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

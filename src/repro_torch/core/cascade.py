@@ -140,7 +140,9 @@ def drive_and_cascade(w, c, gmu_mask, *, l_c: float, p: float, theta: int,
                    max_waves=max_waves, wave_fn=wave_fn)
 
 
-def sequential_cascade_reference(w, c, fired_queue, *, l_c, p, theta,
+def sequential_cascade_reference(w, c,
+                                 fired_queue: list[tuple[int, int]], *,
+                                 l_c: float, p: float, theta: int,
                                  seed: int):
     """Pure-Python sequential (depth-first, paper Algorithm 1) oracle.
 
@@ -158,7 +160,7 @@ def sequential_cascade_reference(w, c, fired_queue, *, l_c, p, theta,
     stack = list(fired_queue)
     size = 0
 
-    def neighbors(r, cc):
+    def neighbors(r: int, cc: int) -> list[tuple[int, int]]:
         out = []
         if r > 0:
             out.append((r - 1, cc))

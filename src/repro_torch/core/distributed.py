@@ -47,6 +47,16 @@ from repro_torch.core.afm import AFMConfig, AFMState
 #: JAX's constant folded into the step key for the cascade stream
 CASCADE_FOLD = 10_000_019
 
+#: Host reads that are part of the design (``repro_torch.analysis.syncs``):
+#: the ranks run in lockstep, so each loop ends on a value reduced over the
+#: model axis and read back alike on every rank.
+SYNCS_BY_DESIGN = {
+    "sharded_cascade": "the wave loop ends on the firing count psum'd "
+                       "over the model axis, one read a wave",
+    "make_sharded_train_step.greedy": "the descent ends on the reduced "
+                                      "`active`, one read a hop",
+}
+
 
 class ShardedAux(NamedTuple):
     cascade_size: torch.Tensor   # () int32, firing incidents over all shards

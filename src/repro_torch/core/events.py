@@ -91,6 +91,14 @@ KERNELS = ("staged", "fused")
 #: paths' wave block)
 WAVE_CAP = cascade_ops.DEFAULT_WAVE_CAP
 
+#: Host reads that are part of the design (``repro_torch.analysis.syncs``):
+#: the engine's loops branch on the next round, which ``read_round`` reads
+#: back to the host once a round.
+SYNCS_BY_DESIGN = {
+    "_make_engine.go": "the drain loop runs on the round read_round read",
+    "_make_budgeted.go": "the loop runs on the round read_round read",
+}
+
 # Direction codes, from the receiver's side, match ``core.cascade._shift4``'s
 # slot order: 0 = from row+1 (below), 1 = from row-1 (above), 2 = from col+1
 # (right), 3 = from col-1 (left). A sender's 4 messages in ``near``-table
@@ -282,7 +290,7 @@ def init_events(state: AFMState, cfg: AFMConfig, ecfg: EventConfig,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     return EventState(
-        w=w, c=c, i=int(state.i),
+        w=w, c=c, i=int(state.i),  # lint: sync-ok(i is a host int)
         clock=z(n, dtype=torch.float32), nevents=z(n),
         msg_t=torch.full((m,), float("inf"), device=dev),
         msg_key=torch.full((m,), placement_single.KEY_FREE,

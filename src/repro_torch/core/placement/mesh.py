@@ -78,6 +78,16 @@ AXIS = "shards"
 stats = {"drain_iterations": 0, "collectives": 0, "weight_gathers": 0,
          "host_reads": 0, "exchange_s": 0.0}
 
+#: Host reads that are part of the design (``repro_torch.analysis.syncs``):
+#: the shards run in lockstep on host values, each read or gather counted
+#: in ``stats``.
+SYNCS_BY_DESIGN = {
+    "_build_mesh_runner.go": "a drain iteration gathers every shard's "
+                             "outbox and due flag on the host; a sample "
+                             "round gathers the search's (q, index) and "
+                             "reads what fires",
+}
+
 
 def shard_mesh(shards: int) -> compat.ShardMesh:
     """The event engine's ``("shards",)`` mesh over the process group,

@@ -40,7 +40,7 @@ def topple(c: torch.Tensor, fired0: torch.Tensor, p, theta: int, draws,
     wave_fn = cascade_ops.cascade_wave if wave_fn is None else wave_fn
     fired, waves = fired0, 0
     size = torch.zeros((), dtype=torch.int32, device=c.device)
-    while waves < max_waves and bool(fired.any()):   # one sync a wave
+    while waves < max_waves and bool(fired.any()):  # lint: sync-ok(per wave)
         bern = draws.uniform((4, side, side)) < p
         size = size + fired.sum(dtype=torch.int32)
         c, fired, _ = wave_fn(c, fired, bern, theta)

@@ -72,8 +72,9 @@ def greedy_phase(w, near, far, samples, jstar, qstar, use_far: bool = True,
     j, q = jstar.long(), qstar
     active = torch.ones(b, dtype=torch.bool, device=w.device)
     steps = torch.zeros(b, dtype=torch.int32, device=w.device)
-    # one host sync per greedy step
-    while bool(active.any() & (steps.max() < max_steps)):
+    # one host sync per greedy step: the descent ends when no sample improves
+    while bool(active.any()  # lint: sync-ok(one read a greedy step)
+               & (steps.max() < max_steps)):
         cands = table[j]                                       # (B, C)
         valid = cands >= 0
         cq = _sqdist(w[torch.clamp(cands, min=0)], samples[:, None, :])

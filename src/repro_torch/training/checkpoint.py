@@ -145,7 +145,8 @@ def _leaf_array(leaf) -> np.ndarray:
     """A leaf as the numpy array the payload stores. Python ints and floats
     take JAX's default 32-bit dtypes, as ``jnp.asarray`` gives them."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().contiguous().numpy()
+        # a save writes the state to disk: each leaf is read back once
+        return leaf.detach().cpu().contiguous().numpy()  # lint: sync-ok(save)
     if isinstance(leaf, bool):
         return np.asarray(leaf)
     if isinstance(leaf, int):

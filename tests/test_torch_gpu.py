@@ -1031,3 +1031,80 @@ def test_sharded_step_on_the_card_equals_the_cpu(cuda):
         eps = np.finfo(np.float32).eps
         assert np.abs(card["w"] - cpu["w"]).max() <= 64 * eps * np.abs(
             cpu["w"]).max()
+
+
+def _som_on_card(cuda, side=30, dim=784, batch=16, n=2000, seed=0):
+    from repro_torch.core import som
+    from repro_torch.draws import GeneratorDraws
+    # the data's stream apart from the draw source's (seeded alike, the
+    # initial units would be the first samples)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    data = torch.rand(n, dim, generator=gen, device=cuda)
+    cfg = som.SOMConfig(side=side, dim=dim, batch=batch, i_max=500 * batch)
+    draws = GeneratorDraws(seed, cuda)
+    return cfg, som.init(draws, cfg, data, device=cuda), data, draws
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_som_step_on_the_card_matches_the_plain_step(cuda, batch):
+    """Each of 30 steps from the kernel path's state: the ``bmu`` kernel's
+    BMUs within the tie bound of ``bmu_ref``'s on the same card, and the
+    weights bitwise the plain step's wherever the BMUs agree."""
+    from repro_torch.core import som
+    cfg, state, data, _ = _som_on_card(cuda, batch=batch)
+    before, agreed = bmu_ops.launches, 0
+    for k in range(30):
+        s = data[batch * k:batch * (k + 1)].contiguous()
+        idx, q2 = bmu_ops.bmu(state.w, s)
+        idx_r, q2_r = bmu_ref.bmu_ref(state.w, s)
+        _assert_bmu(idx, q2, state.w, s)
+        new = som.train_step(state, s, cfg)
+        plain = som.update(state, s, idx_r, cfg)
+        assert new.i == plain.i == state.i + batch
+        if torch.equal(idx, idx_r):
+            assert torch.equal(new.w.view(torch.int32),
+                               plain.w.view(torch.int32))
+            agreed += 1
+        state = new
+    assert agreed >= 28
+    assert bmu_ops.launches - before == 60    # one a search, one a step
+
+
+def test_som_train_on_the_card_makes_no_host_sync(cuda):
+    """100 steps of ``som.train`` after a first one: one ``bmu`` launch a
+    step and no read back to the host; the QE of the data falls."""
+    from repro_torch.core import som
+    cfg, state, data, draws = _som_on_card(cuda)
+    qe0 = float(som.quantization_error(state, data))
+    state = som.train(state, data, draws, cfg, num_steps=1)   # warm
+    before = bmu_ops.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = som.train(state, data, draws, cfg, num_steps=100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bmu_ops.launches - before == 100
+    assert state.w.device.type == "cuda" and state.i == 1616
+    assert float(som.quantization_error(state, data)) < qe0
+
+
+def test_trace_guard_bounds_the_engines_signatures_on_the_card(cuda):
+    """``repro_torch.analysis.runtime.TraceGuard`` on the serving engine:
+    a new bucket is one signature, a repeated one none, and every chunk one
+    ``bmu`` launch."""
+    from repro_torch.analysis.runtime import TraceGuard
+    from repro_torch.serving import BmuEngine, CompileCache
+    cfg, state, data = _served_map(cuda)
+    cache = CompileCache()
+    engine = BmuEngine(cache=cache)
+    before = bmu_ops.launches
+    with TraceGuard(engine, expect=2):             # buckets 8 and 64
+        engine.bmu(state.w, data[:5].contiguous())
+        engine.bmu(state.w, data[:40].contiguous())
+    assert cache.trace_count == 2
+    with TraceGuard(engine, cache):                # no new signature
+        for n in (1, 8, 33, 64):
+            idx, q2 = engine.bmu(state.w, data[:n].contiguous())
+            _assert_bmu(idx, q2, state.w, data[:n])
+    assert bmu_ops.launches - before == 6

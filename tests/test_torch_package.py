@@ -60,10 +60,16 @@ def test_import_leaves_jax_and_repro_out(probes):
 
 
 def test_no_jax_or_repro_import_lines():
+    """The package (its analysis layer included), the card's smoke run and
+    the port's examples import neither JAX nor the JAX package."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    for f in files:
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [f.name for f in examples] == ["classify_datasets_torch.py",
+                                          "quickstart_torch.py"]
+    assert (ROOT / "src" / "repro_torch" / "analysis" / "syncs.py") in files
+    for f in files + examples:
         assert not pattern.search(f.read_text()), f
 
 

@@ -33,9 +33,9 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port needs PyTorch
 
-from repro.analysis.runtime import LockOrderRecorder, TraceGuard
 from repro.api import TopoMap as JTopoMap
 from repro.serving import MapService as JMapService
+from repro_torch.analysis.runtime import LockOrderRecorder, TraceGuard
 from repro_torch.api import MapStore, TopoMap
 from repro_torch.convert import state_from_numpy
 from repro_torch.kernels.bmu import ref as bmu_ref
