@@ -128,6 +128,23 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     ``classify_datasets_torch.py`` at their default sizes on the card,
     their tables printed; then ``python -m repro_torch.launch.lint
     --no-ruff``, which must exit 0;
+11L. LM training with the AFM probe (``training_phase``), last: three
+    smoke-width train steps (f32) with a side-6 probe on the card against
+    the CPU, each from the CPU's state, on one batch and one list of draw
+    numbers (loss, ce, lr, grad_norm within 1e-5; the probe's GMUs within
+    the tie bound, its counters and cascade bitwise where they agree); the
+    probe's kernels at its full-width shape (``bmu`` at B 4, N 64, D 2,048
+    under the tie-bound contract; ``drive_cascade`` at side 8, D 2,048
+    bitwise from a p = 0.9 drive; the probe's kernel stages against the
+    plain stages); llama3.2-1b at full width, bf16, through
+    ``launch/train.py``'s ``run``: B 4 x S 1,024, 30 steps with an 8x8
+    probe (losses finite and falling, one ``bmu`` call and one
+    ``drive_cascade`` launch a step; ms a step, tokens/s, peak memory,
+    model FLOPs and their share of the bf16 peak; profiled steps'
+    launches, host syncs and device busy; the probe update's device time
+    and host syncs); 10 steps of ``configs.get_optimized``; then
+    ``examples/lm_train_e2e_torch.py`` and ``activation_atlas_torch.py``
+    at their default sizes; the two probe rows of the kernel table;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -3154,6 +3171,515 @@ def swa_rows(device, runs, worst, long_inputs):
     return rows
 
 
+#: phase L: LM training with the AFM probe. The full-width run is
+#: llama3.2-1b at its published geometry (configs.get), bf16, B 4 x S 1,024
+#: (the JAX package's train_4k shape, batch 256 x seq 4,096, cut in depth),
+#: 30 steps, an 8x8 probe map on the 2,048-d pooled hidden states; then 10
+#: steps of the optimised config (chunked attention, chunked CE)
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_OPT_STEPS = 4, 1024, 30, 10
+#: the full-width runs' learning rate: AdamWConfig's default, not the
+#: launcher's 1e-3, under which this 1.2 B-parameter model's loss spikes
+#: (to 12.79 at step 9 in one run) and its first and last five steps'
+#: means land within the batches' noise of each other (PERF.md)
+TRAIN_LR = 3e-4
+TRAIN_PROBE_SIDE = 8
+#: steps of the smoke-width card-vs-CPU check (probe side 6), and its batch
+TRAIN_PAIRED, TRAIN_PAIRED_B, TRAIN_PAIRED_S = 3, 4, 64
+#: steps of the profiled window after the full-width run, and probe
+#: updates of the probe's own window
+TRAIN_PROFILED, PROBE_PROFILED = 2, 30
+#: card vs CPU: loss, ce, lr and grad_norm within this share (the CPU
+#: tests' tolerance against JAX)
+TRAIN_TOL = 1e-5
+#: dense bf16 tensor-core peaks (NVIDIA data sheets, at the full power
+#: limit)
+BF16_PEAKS = {"SXM": 989e12, "PCIe": 756e12}
+
+
+def _probe_draw_lists(seed, side, waves=64):
+    """One step's cascade draws as numbers, laid out for both stage sets:
+    the plain stages' (the drive, one ``(4, side, side)`` a wave) and the
+    kernel stages' (the drive, the first 16 waves as one block, one a later
+    wave), the same numbers on both devices. ``waves`` outlasts any
+    cascade here (a replay that ran out would raise)."""
+    from repro_torch.kernels.cascade.ops import DEFAULT_WAVE_CAP as cap
+    gen = torch.Generator().manual_seed(seed)
+    drive = torch.rand(8, side, side, generator=gen).numpy()
+    per_wave = [torch.rand(4, side, side, generator=gen).numpy()
+                for _ in range(waves)]
+    return [drive, *per_wave], [drive, np.stack(per_wave[:cap]),
+                                *per_wave[cap:]]
+
+
+def _train_state_to(state, device):
+    """A copy of a train state on ``device``: weights (trainable), f32
+    moments, step, probe map."""
+    from repro_torch.core import probe
+    from repro_torch.training import adamw
+    model = copy.deepcopy(state.params).to(device)
+    opt = adamw.AdamWState(
+        {k: v.to(device) for k, v in state.opt.mu.items()},
+        {k: v.to(device) for k, v in state.opt.nu.items()},
+        state.opt.step.to(device))
+    a = state.probe.afm
+    return type(state)(model, opt, state.step.to(device), probe.ProbeState(
+        a._replace(w=a.w.to(device), c=a.c.to(device), far=a.far.to(device),
+                   near=a.near.to(device))))
+
+
+def _pooled(state, batch, cfg):
+    """The probe's vectors for ``batch``: the step's hidden states,
+    mean-pooled, computed outside the step (no grad)."""
+    from repro_torch.core import probe
+    from repro_torch.training import train_step
+    with torch.no_grad():
+        hidden = train_step.lm_loss(state.params, batch, cfg,
+                                    return_hidden=True)[3]
+    return probe.pool_hidden(hidden.float())
+
+
+def train_card_vs_cpu(device):
+    """Phase L (a): ``TRAIN_PAIRED`` smoke-width train steps (f32) with a
+    side-6 probe, each from the CPU run's state copied to the card, on the
+    same token batch and one list of draw numbers (the plain stages' layout
+    on the CPU, the kernel stages' on the card): loss, ce, lr and grad_norm
+    within ``TRAIN_TOL``; the probe's GMUs within the tie bound, and where
+    they agree its counters and cascade size bitwise and its weights
+    within the vectors' difference. Returns the steps' cascade sizes."""
+    from repro_torch import configs
+    from repro_torch.core import probe
+    from repro_torch.data import tokens
+    from repro_torch.draws import ReplayDraws
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    from repro_torch.training import AdamWConfig, train_step
+    cfg = configs.get_smoke(TRAIN_ARCH)
+    pcfg = probe.ProbeConfig(side=6, dim=cfg.d_model, i_max=400, c_m=1.0)
+    step = train_step.make_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_PAIRED),
+        pcfg)
+    state = train_step.init_train_state(cfg, pcfg, seed=SEED, device="cpu")
+    a = state.probe.afm                     # counters one below threshold
+    state = state._replace(probe=probe.ProbeState(
+        a._replace(c=torch.full_like(a.c, pcfg.theta - 1))))
+    data = tokens.batches(torch.Generator().manual_seed(SEED + 1),
+                          cfg.vocab_size, TRAIN_PAIRED_B, TRAIN_PAIRED_S,
+                          TRAIN_PAIRED, device="cpu")
+    sizes = []
+    for k, batch in enumerate(data):
+        card = _train_state_to(state, device)
+        gbatch = {n: v.to(device) for n, v in batch.items()}
+        cpu_draws, card_draws = _probe_draw_lists(SEED + 40 + k, pcfg.side)
+        vecs, gvecs = _pooled(state, batch, cfg), _pooled(card, gbatch, cfg)
+        w0 = state.probe.afm.w
+        gmu = bmu_ref.bmu_ref(w0, vecs)[0]
+        ggmu = bmu_ops.bmu(card.probe.afm.w, gvecs)[0].cpu()
+        state, m = step(state, batch, ReplayDraws(cpu_draws))
+        card, mg = step(card, gbatch, ReplayDraws(card_draws, device=device))
+        errs = {}
+        for key in ("loss", "ce", "lr", "grad_norm"):
+            want, got = float(m[key]), float(mg[key])
+            errs[key] = abs(got - want) / abs(want)
+            if not errs[key] <= TRAIN_TOL:
+                raise AssertionError(f"train step {k} card vs CPU: {key} "
+                                     f"{got} against {want}")
+        vec_err = float((gvecs.cpu() - vecs).abs().max())
+        differ = ggmu != gmu
+        if bool(differ.any()):
+            gap = bmu_ref.top2_gap(w0, vecs)[differ]
+            bound = bmu_ref.tie_bound(w0, vecs)[differ] + 4 * vec_err
+            if not bool((gap <= bound).all()):
+                raise AssertionError(f"train step {k} card vs CPU: the "
+                                     f"probe's GMUs differ away from ties")
+            print(f"train step {k} card vs CPU: probe GMUs differ at a near "
+                  f"tie; state not compared")
+            continue
+        size = int(m["probe_cascade"])
+        dw = float((card.probe.afm.w.cpu() - state.probe.afm.w).abs().max())
+        bound = vec_err + 64 * torch.finfo(torch.float32).eps * float(
+            state.probe.afm.w.abs().max())
+        if (int(mg["probe_cascade"]) != size
+                or not torch.equal(card.probe.afm.c.cpu(), state.probe.afm.c)
+                or not dw <= bound):
+            raise AssertionError(f"train step {k} card vs CPU: the probe's "
+                                 f"state differs (cascade {size} / "
+                                 f"{int(mg['probe_cascade'])}, |dw| {dw})")
+        sizes.append(size)
+        print(f"train step {k} card vs CPU, smoke width (f32, B "
+              f"{TRAIN_PAIRED_B} x S {TRAIN_PAIRED_S}), probe side 6: "
+              + ", ".join(f"{key} rel {e:.3g}" for key, e in errs.items())
+              + f" (<= {TRAIN_TOL}); probe GMUs equal, cascade {size} and "
+              f"counters bitwise, max|dw| {dw:.3g} <= {bound:.3g}")
+    if not any(sizes):
+        raise AssertionError("train steps card vs CPU: no probe cascade "
+                             "fired, so the cascade was not compared")
+    return sizes
+
+
+def probe_kernel_checks(device):
+    """Phase L (b): the probe's kernels at its full-width shape (side 8,
+    D = 2,048, B = 4): ``bmu`` at N = 64 under the tie-bound contract and
+    bitwise on a second call; ``drive_cascade`` at side 8 bitwise against
+    its plain version on the integers and on w, budgets 16, 3 and 0, from a
+    p = 0.9 drive; then the probe's kernel stages against the plain stages
+    on the same card and draw numbers from counters one below threshold
+    (GMUs within the tie bound; where they agree counters, size and waves
+    bitwise, w within 8 ulp an adaptation; one ``bmu`` call and one
+    ``drive_cascade`` launch a step). Returns the worst errors and the
+    timing inputs."""
+    from repro_torch.core import afm, probe
+    from repro_torch.draws import GeneratorDraws, ReplayDraws
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.cascade import ops as cas_ops
+    from repro_torch.kernels.cascade import ref as cas_ref
+    from repro_torch import configs
+    side, d, b = TRAIN_PROBE_SIDE, configs.get(TRAIN_ARCH).d_model, TRAIN_B
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    w = 0.1 * torch.randn(side * side, d, generator=gen, device=device)
+    s = 0.5 * torch.randn(b, d, generator=gen, device=device)
+    err, _ = check_bmu(w, s, "exact", f"(probe search) B={b} N={side * side}"
+                       f" D={d}")
+    if not all(torch.equal(x, y) for x, y in zip(bmu_ops.bmu(w, s),
+                                                 bmu_ops.bmu(w, s))):
+        raise AssertionError("bmu (probe search): two calls differ")
+    args = drive_inputs(torch.Generator().manual_seed(SEED + 29), side, d,
+                        cas_ops.DEFAULT_WAVE_CAP, device)
+    drive_waves = 0
+    for budget in (cas_ops.DEFAULT_WAVE_CAP, 3, 0):
+        kw = dict(l_c=0.3, theta=4, budget=budget)
+        out = cas_ops.drive_cascade(*args, **kw)
+        ref = cas_ref.drive_cascade_ref(*args, **kw)
+        again = cas_ops.drive_cascade(*args, **kw)
+        torch.cuda.synchronize()
+        for x, r, y in zip(out, ref, again):
+            same = (torch.equal(x.view(torch.int32), r.view(torch.int32))
+                    if x.is_floating_point() else torch.equal(x, r))
+            if not (same and torch.equal(x, y)):
+                raise AssertionError(f"drive_cascade (probe) side {side} "
+                                     f"D={d} budget {budget}: not bitwise")
+        size, waves = out[3].tolist()
+        if budget and not waves:
+            raise AssertionError(f"drive_cascade (probe) side {side}: no "
+                                 f"wave")
+        if budget == cas_ops.DEFAULT_WAVE_CAP:
+            drive_waves = waves
+        print(f"drive_cascade (probe) side {side} D={d} budget {budget}: "
+              f"{size} firings in {waves} waves; bitwise equal to the plain "
+              f"version, and two calls bitwise equal")
+    pcfg = probe.ProbeConfig(side=side, dim=d, i_max=120, c_m=1.0)
+    cfg = pcfg.afm_config()
+    compared = 0
+    for seed in range(3):
+        st = probe.init(GeneratorDraws(SEED + seed, device), pcfg,
+                        device=device).afm
+        st = st._replace(c=torch.full_like(st.c, pcfg.theta - 1), i=8)
+        vecs = 0.5 * torch.randn(b, d, generator=torch.Generator(
+            device=device).manual_seed(SEED + 100 + seed), device=device)
+        plain, kernel = _probe_draw_lists(SEED + 50 + seed, side)
+        before = bmu_ops.launches, cas_ops.drive_launches
+        new_k, aux_k = probe.update(probe.ProbeState(st), vecs,
+                                    ReplayDraws(kernel, device=device), pcfg)
+        if (bmu_ops.launches - before[0],
+                cas_ops.drive_launches - before[1]) != (1, 1):
+            raise AssertionError("probe step: not one bmu call and one "
+                                 "drive_cascade launch")
+        new_p, aux_p = afm.train_step_batch(
+            st, vecs, ReplayDraws(plain, device=device), cfg,
+            stages=afm.EXACT_STAGES)
+        if not torch.equal(aux_k.gmu, aux_p.gmu):
+            check_bmu(st.w, vecs, "exact", "(probe stage)", quiet=True)
+            continue
+        waves = int(aux_p.waves)
+        dw = float((new_k.afm.w - new_p.w).abs().max())
+        bound = (8 * (1 + waves) * torch.finfo(torch.float32).eps
+                 * float(new_p.w.abs().max()))
+        if ((int(aux_k.cascade_size), int(aux_k.waves))
+                != (int(aux_p.cascade_size), waves)
+                or not torch.equal(new_k.afm.c, new_p.c) or not dw <= bound):
+            raise AssertionError(f"probe stages seed {seed}: the kernel "
+                                 f"stages differ from the plain stages")
+        compared += waves > 0
+        print(f"probe stages (side {side}, D={d}, B={b}) seed {seed}: "
+              f"kernel stages against the plain stages on the card: GMUs "
+              f"equal, {int(aux_p.cascade_size)} firings in {waves} waves "
+              f"and counters bitwise, max|dw| {dw:.3g} <= {bound:.3g}")
+    if not compared:
+        raise AssertionError("probe stages: no cascade compared")
+    return {"bmu": err, "drive_waves": drive_waves, "w": w, "s": s,
+            "drive_args": args}
+
+
+def _train_flops(cfg, b, s):
+    """(bf16 product FLOPs, f32 attention product FLOPs, model FLOPs) of
+    one train step: the block and head matrices 2 T N forward, 4 T N
+    backward and the blocks' 2 T N again under remat; the attention's QK
+    and PV over the whole S x S square, 4 B H S^2 hd a layer forward, as
+    many again under remat and twice in backward. Model FLOPs: forward
+    and backward once, no remat."""
+    t = b * s
+    d, hd = cfg.d_model, cfg.hd
+    blocks = cfg.num_layers * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+                               + 3 * d * cfg.d_ff)
+    head = cfg.vocab_size * d
+    attn_fwd = 4 * b * cfg.num_heads * s * s * hd * cfg.num_layers
+    remat = 1 if cfg.remat else 0
+    bf16 = 6 * t * (blocks + head) + remat * 2 * t * blocks
+    attn = (3 + remat) * attn_fwd
+    return bf16, attn, 6 * t * (blocks + head) + 3 * attn_fwd
+
+
+def train_full_width(device):
+    """Phase L (c): llama3.2-1b at full width, bf16, through
+    ``launch/train.py``'s ``run``: B 4 x S 1,024, 30 steps with the probe
+    (side 8), the kernel counts set to 0 just before and read just after.
+    Each loss finite, the mean of the last 5 below the first 5's, exactly
+    one ``bmu`` call and one ``drive_cascade`` launch a step. Then a
+    profiled window of full steps (launches, host syncs, device busy) and
+    of the probe's update alone (its device time and host syncs). Returns
+    the run's figures."""
+    from repro_torch import configs
+    from repro_torch.core import probe
+    from repro_torch.data import tokens
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.launch import train
+    from repro_torch.training import AdamWConfig, train_step
+    cfg = configs.get(TRAIN_ARCH)
+    name = torch.cuda.get_device_name(0)
+    peak = BF16_PEAKS["PCIe" if "PCIe" in name else "SXM"]
+    f32_peak, _ = peaks_for(name)
+    # the batch pipeline apart from the step: one batch at the run's shape
+    gen = torch.Generator().manual_seed(SEED)
+    table, weights = tokens.make_markov(gen, cfg.vocab_size)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tokens.sample_batch(gen, table, weights, TRAIN_B, TRAIN_S)
+    batch_ms = (time.perf_counter() - t0) / 5 * 1e3
+    last, times = {}, []
+
+    def on_step(i, state, metrics, ms):
+        times.append(ms)
+        last["state"] = state
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = train.run(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                       lr=TRAIN_LR, probe=True, probe_side=TRAIN_PROBE_SIDE,
+                       seed=SEED, device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"full-width training: losses {losses}")
+    first, final = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not final < first:
+        raise AssertionError(f"full-width training: loss {first} -> {final}"
+                             f" did not fall")
+    if (counts["bmu"], counts["drive_cascade"]) != (TRAIN_STEPS,
+                                                     TRAIN_STEPS):
+        raise AssertionError(f"full-width training: launched {counts} in "
+                             f"{TRAIN_STEPS} steps; bmu and drive_cascade "
+                             f"must run once a step")
+    step_ms = float(np.median(times[4:]))
+    bf16, attn, model = _train_flops(cfg, TRAIN_B, TRAIN_S)
+    floor_ms = (bf16 / peak + attn / f32_peak) * 1e3
+    print(f"full-width training ({cfg.name}, bf16, B {TRAIN_B} x S "
+          f"{TRAIN_S}, {TRAIN_STEPS} steps, probe {TRAIN_PROBE_SIDE}x"
+          f"{TRAIN_PROBE_SIDE}x{cfg.d_model}): {seconds:.2f} s with init; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+          f"{first:.4f}, of the last 5 {final:.4f}: improved)")
+    print(f"full-width training: {step_ms:.3f} ms a step (CUDA events, "
+          f"median of steps 5-{TRAIN_STEPS}; min {min(times[4:]):.3f}, max "
+          f"{max(times[4:]):.3f}), {TRAIN_B * TRAIN_S / step_ms * 1e3:.1f} "
+          f"tokens/s; peak memory {peak_mem / 1e9:.3f} GB "
+          f"(max_memory_allocated); launches {counts}")
+    print(f"full-width training: {bf16 / 1e12:.2f} TFLOP of bf16 products "
+          f"and {attn / 1e12:.2f} TFLOP of f32 attention products a step "
+          f"(remat included); model FLOPs {model / 1e12:.2f} T a step, "
+          f"{100 * model / (step_ms * 1e-3) / peak:.1f} % of the dense bf16 "
+          f"peak ({peak / 1e12:.0f} TFLOP/s); floor {floor_ms:.1f} ms "
+          f"(bf16 at {peak / 1e12:.0f}, f32 at {f32_peak / 1e12:.0f} "
+          f"TFLOP/s); a batch made on the host in {batch_ms:.2f} ms")
+    # the profiled window: full steps from the run's last state
+    state = last["state"]
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(TRAIN_STEPS // 20, 5))
+    pcfg = probe.ProbeConfig(side=TRAIN_PROBE_SIDE, dim=cfg.d_model,
+                             i_max=TRAIN_STEPS * TRAIN_B)
+    step = train_step.make_train_step(cfg, opt_cfg, pcfg)
+    batch = next(tokens.batches(torch.Generator().manual_seed(SEED + 5),
+                                cfg.vocab_size, TRAIN_B, TRAIN_S, 1,
+                                device=device))
+    torch.cuda.synchronize()
+
+    def steps():
+        st = state
+        for i in range(TRAIN_PROFILED):
+            st, _ = step(st, batch, GeneratorDraws.for_step(SEED, 5000 + i,
+                                                            device))
+        return st
+
+    n_launch, syncs, wall = _profile_counts(steps)
+    _, busy, _ = _profiled_busy(steps)
+    print(f"full-width training, {TRAIN_PROFILED} profiled steps: "
+          f"{n_launch / TRAIN_PROFILED:.1f} kernel launches and "
+          f"{syncs / TRAIN_PROFILED:.2f} host syncs (cudaStreamSynchronize) a"
+          f" step (the probe's cascade tail decision is 1), device busy "
+          f"{busy / 1e3 / TRAIN_PROFILED:.3f} ms a step, wall "
+          f"{wall * 1e3 / TRAIN_PROFILED:.3f} ms a step under the profiler")
+    # the probe's update alone, on the run's pooled hidden states
+    vecs = _pooled(state, batch, cfg).contiguous()
+    pstate = state.probe
+
+    def updates():
+        st = pstate
+        for i in range(PROBE_PROFILED):
+            st, _ = probe.update(st, vecs, GeneratorDraws.for_step(
+                SEED, 9000 + i, device), pcfg)
+        return st
+
+    updates()
+    p_launch, p_syncs, p_wall = _profile_counts(updates)
+    _, p_busy, _ = _profiled_busy(updates)
+    p_ms = p_busy / 1e3 / PROBE_PROFILED
+    print(f"probe update ({TRAIN_PROBE_SIDE}x{TRAIN_PROBE_SIDE}x"
+          f"{cfg.d_model}, B={TRAIN_B}; bmu + merge + drive_cascade): device "
+          f"busy {p_ms:.4f} ms an update ({100 * p_ms / step_ms:.3f} % of a "
+          f"step), {p_launch / PROBE_PROFILED:.1f} kernel launches and "
+          f"{p_syncs / PROBE_PROFILED:.2f} host syncs an update, wall "
+          f"{p_wall * 1e3 / PROBE_PROFILED:.3f} ms an update under the "
+          f"profiler")
+    del state, last, pstate
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_ms": step_ms}
+
+
+def train_optimized(device):
+    """Phase L (d): ``TRAIN_OPT_STEPS`` steps of ``configs.get_optimized``
+    (chunked attention, chunked CE) at the same B and S, with the probe:
+    every loss finite; ms a step."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    cfg = configs.get_optimized(TRAIN_ARCH)
+    times = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = train.run(cfg, steps=TRAIN_OPT_STEPS, batch=TRAIN_B,
+                       seq=TRAIN_S, lr=TRAIN_LR, probe=True,
+                       probe_side=TRAIN_PROBE_SIDE,
+                       seed=SEED, device=device,
+                       on_step=lambda i, st, m, ms: times.append(ms))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"optimised config: losses {losses}")
+    print(f"optimised config ({cfg.attention_impl} attention, chunked_ce "
+          f"{cfg.chunked_ce}, ce_chunk {cfg.ce_chunk}): "
+          f"{float(np.median(times[2:])):.3f} ms a step (median of steps 3-"
+          f"{TRAIN_OPT_STEPS}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, losses finite")
+    torch.cuda.empty_cache()
+
+
+def train_examples_phase():
+    """Phase L (e): both training examples on the card at their default
+    sizes (the e2e example's checkpoint to a temporary directory)."""
+    import re
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        e2e = _example_main("lm_train_e2e_torch",
+                            ["--checkpoint", f"{tmp}/lm.msgpack"])
+    found = re.search(r"loss: ([0-9.]+) -> ([0-9.]+)", e2e)
+    if found is None or not float(found.group(2)) < float(found.group(1)):
+        raise AssertionError(f"lm_train_e2e_torch on the card: {e2e!r}")
+    t1 = time.perf_counter()
+    atlas = _example_main("activation_atlas_torch", [])
+    rows = atlas.split("(low = coherent region):")[-1].strip("\n")
+    if "device=cuda" not in atlas or len(rows.splitlines()) != 6:
+        raise AssertionError(f"activation_atlas_torch on the card: "
+                             f"{atlas!r}")
+    print(f"training examples on the card: lm_train_e2e_torch "
+          f"{t1 - t0:.1f} s, activation_atlas_torch "
+          f"{time.perf_counter() - t1:.1f} s")
+
+
+def probe_kernel_rows(device, checks, counts):
+    """Phase L, the kernel table's rows at the probe's shapes: ``bmu`` (B 4,
+    N 64, D 2,048) beside its plain version and ``cdist().min``, and
+    ``drive_cascade`` (side 8, D 2,048, the p = 0.9 call's waves) beside
+    its plain version; launches from the full-width run."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.bmu import ops as bmu_ops
+    from repro_torch.kernels.bmu import ref as bmu_ref
+    from repro_torch.kernels.cascade import ops as cas_ops
+    from repro_torch.kernels.cascade import ref as cas_ref
+    f32_peak, bw = peaks_for(torch.cuda.get_device_name(0))
+    w, s = checks["w"], checks["s"]
+    (n, d), b = w.shape, s.shape[0]
+    plan = bmu_ops.plan(n, b, d, sm_count(w.device))
+    print(f"bmu (probe search): plan {plan.kernel}_kernel, grid {plan.grid} "
+          f"({plan.splits} splits of the units), then the merge")
+    t = time_both({"plain": lambda: bmu_ref.bmu_ref(w, s),
+                   "kernel": lambda: bmu_ops.bmu(w, s),
+                   "library": lambda: torch.cdist(s, w).min(dim=1)}, 200,
+                  "bmu (probe search)")
+    bound, by = _bmu_bound(n, b, d, f32_peak, bw)
+    rows = [{
+        "name": f"bmu (probe search, B={b}, N={n}, D={d})", "route": "cuda",
+        "source": "src/repro_torch/kernels/bmu/bmu.cu",
+        "replaces": "src/repro/kernels/bmu/bmu.py:26",
+        "launches": counts["bmu"], "max_abs_err": checks["bmu"],
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+        "bound_by": by, "library_ms": t["library"]}]
+    args = checks["drive_args"]
+    waves = checks["drive_waves"]
+    side = args[1].shape[0]
+    kw = dict(l_c=0.3, theta=4, budget=cas_ops.DEFAULT_WAVE_CAP)
+    plan = cas_ops._cascade_plan(device.index or 0, n, d)
+    print(f"drive_cascade (probe): plan {plan.blocks} blocks of "
+          f"{plan.threads} threads, {plan.ds} features a block, {plan.smem}"
+          f" bytes of shared memory each, the draws of {plan.staged_waves} "
+          f"waves staged")
+    t = time_both({
+        "plain": lambda: cas_ref.drive_cascade_ref(*args, **kw),
+        "kernel": lambda: cas_ops.drive_cascade(*args, **kw),
+    }, 200, "drive_cascade (probe)")
+    nbytes = 2 * 4 * n * d + n * (4 + 4 + 8 + 4 * waves) + n * (4 + 1 + 4) + 8
+    ops = 6 * n * d * waves
+    bound = max(nbytes / bw, ops / f32_peak) * 1e3
+    print(f"drive_cascade (probe): bound {bound:.6f} ms ({nbytes / 1e6:.3f} "
+          f"MB, {ops / 1e6:.2f} M operations), kernel at "
+          f"{100 * bound / t['kernel']:.1f} % of it")
+    rows.append({
+        "name": f"drive_cascade (probe, side {side}, D={d}, {waves} waves)",
+        "route": "cuda", "source": "src/repro_torch/kernels/cascade/cascade.cu",
+        "replaces": "src/repro/kernels/cascade/cascade.py:38",
+        "launches": counts["drive_cascade"], "max_abs_err": 0.0,
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / bw > ops / f32_peak
+        else "operations",
+        "library_ms": None})
+    return rows
+
+
+def training_phase(device):
+    """Phase L: LM training with the AFM probe (``train_card_vs_cpu``,
+    ``probe_kernel_checks``, ``train_full_width``, ``train_optimized``,
+    ``train_examples_phase``). Returns the phase's kernel rows."""
+    t_phase = time.perf_counter()
+    train_card_vs_cpu(device)
+    checks = probe_kernel_checks(device)
+    run = train_full_width(device)
+    rows = probe_kernel_rows(device, checks, run["counts"])
+    train_optimized(device)
+    train_examples_phase()
+    print(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -3243,6 +3769,7 @@ def main() -> int:
     del xtr, ytr, xte, yte
     examples_phase()
     lint_phase()
+    rows += training_phase(device)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

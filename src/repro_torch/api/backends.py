@@ -35,6 +35,7 @@ Every backend implements the ``Backend`` protocol:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Protocol, runtime_checkable
 
@@ -168,6 +169,35 @@ class ReferenceBackend(_DenseBackend):
         return state, afm.stack_aux(auxes)
 
 
+def _kernel_search(state, samples, draws, cfg, *, precision: str = "exact"
+                   ) -> search_lib.SearchResult:
+    """The exact search stage on the ``bmu`` kernel (its plain version on
+    CPU tensors)."""
+    del draws, cfg
+    idx, q2 = bmu_ops.bmu(state.w, samples, precision=precision)
+    zeros = torch.zeros(samples.shape[:1], dtype=torch.int32,
+                        device=samples.device)
+    return search_lib.SearchResult(idx, q2, zeros, zeros)
+
+
+def kernel_stages(search: str = "exact", *, kernel: str = "staged",
+                  precision: str = "exact") -> afm.Stages:
+    """The stages of the ``kernel`` backend's step (see ``KernelBackend``):
+    ``'staged'`` puts the exact search on the ``bmu`` kernel (the relay
+    race stays as it is) and the cascade on ``drive_cascade_stage``;
+    ``'fused'`` hands the whole step to the fused kernel. The AFM probe
+    (``core.probe``) trains its map on the staged stages."""
+    stages = _stages_for(search)
+    if kernel == "fused":
+        return stages._replace(fused=fused_ops.make_fused_stage(
+            search=search, precision=precision))
+    stages = stages._replace(cascade=cascade_ops.drive_cascade_stage)
+    if search == "exact":
+        stages = stages._replace(search=functools.partial(
+            _kernel_search, precision=precision))
+    return stages
+
+
 @register_backend("kernel")
 class KernelBackend(_DenseBackend):
     """Training through the CUDA kernels.
@@ -208,22 +238,8 @@ class KernelBackend(_DenseBackend):
         super().__init__(cfg, search=search, device=device)
         self.kernel = kernel
         self.precision = precision
-        if kernel == "fused":
-            self.stages = self.stages._replace(
-                fused=fused_ops.make_fused_stage(search=search,
-                                                 precision=precision))
-            return
-        self.stages = self.stages._replace(
-            cascade=cascade_ops.drive_cascade_stage)
-        if search == "exact":
-            self.stages = self.stages._replace(search=self._search_stage)
-
-    def _search_stage(self, state, samples, draws, cfg):
-        del draws, cfg
-        idx, q2 = bmu_ops.bmu(state.w, samples, precision=self.precision)
-        zeros = torch.zeros(samples.shape[:1], dtype=torch.int32,
-                            device=samples.device)
-        return search_lib.SearchResult(idx, q2, zeros, zeros)
+        self.stages = kernel_stages(search, kernel=kernel,
+                                    precision=precision)
 
     def bmu(self, w, samples):
         return bmu_ops.bmu(w, samples)

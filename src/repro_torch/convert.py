@@ -12,7 +12,9 @@ whose leaves carry a leading layer axis) and returns the port's
 ``Transformer``; dense weights are (d_in, d_out) in both packages, so
 nothing is transposed. ``lm_cache_from_numpy`` does the same for a KV cache
 (``{"blocks": {"k", "v"}}``). The ``*_to_numpy`` functions are their
-inverses; bf16 leaves come back as float32 (exact).
+inverses; bf16 leaves come back as float32 (exact). ``lm_params_tree``
+keeps each leaf's own dtype, as CPU tensors: the tree a checkpoint of the
+weights is written from.
 """
 from __future__ import annotations
 
@@ -85,13 +87,19 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     return model
 
 
-def lm_params_to_numpy(model: Transformer) -> dict:
-    """The JAX ``init_params`` tree of a ``Transformer``: layer leaves
-    stacked on a leading axis, float32."""
+def lm_params_tree(model: Transformer,
+                   dtype: torch.dtype | None = None) -> dict:
+    """The JAX ``init_params`` tree of a ``Transformer`` as CPU tensors:
+    layer leaves stacked on a leading axis, each leaf in its own dtype
+    (bf16 weights stay bf16) or in ``dtype``. ``training.checkpoint.save``
+    writes it as JAX's ``save`` writes the ``init_params`` tree of the same
+    config, byte for byte."""
     tree: dict = {"blocks": {}}
     layers: dict = {}
     for name, param in model.named_parameters():
-        arr = param.detach().float().cpu().numpy()
+        arr = param.detach().cpu()
+        if dtype is not None:
+            arr = arr.to(dtype)
         parts = name.split(".")
         if parts[0] != "blocks":
             tree[name] = arr
@@ -101,8 +109,18 @@ def lm_params_to_numpy(model: Transformer) -> dict:
         node = tree["blocks"]
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = np.stack(arrs)
+        node[path[-1]] = torch.stack(arrs)
     return tree
+
+
+def lm_params_to_numpy(model: Transformer) -> dict:
+    """``lm_params_tree`` as float32 numpy arrays (numpy has no bfloat16;
+    bf16 weights convert exactly)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node.numpy()
+    return walk(lm_params_tree(model, torch.float32))
 
 
 def lm_cache_from_numpy(tree: Mapping[str, Any], dtype: torch.dtype,

@@ -1,6 +1,7 @@
 """Attention layers of the dense family: GQA causal or sliding-window
-self-attention over a full sequence (prefill), and single-token decode over
-a KV cache, whose attention runs on the ``kernels.swa`` kernel.
+self-attention over a full sequence (prefill, and training, which
+differentiates it), and single-token decode over a KV cache, whose
+attention runs on the ``kernels.swa`` kernel.
 
 A copy of ``repro.models.attention``. Projections are stored flattened,
 (d_model, heads * head_dim); activations are reshaped to (B, S, H, hd).
@@ -85,8 +86,10 @@ def attend_chunked(q, k, v, *, window: int, chunk: int,
                    probs_bf16: bool = False):
     """Flash-style causal attention in plain tensor ops: a loop over KV
     chunks with an online-softmax accumulator, so the largest buffer is
-    (B, Sq, H, chunk) instead of (B, H, Sq, Sk). Serving has no backward
-    pass, so nothing is rematerialised."""
+    (B, Sq, H, chunk) instead of (B, H, Sq, Sk). Nothing here is
+    rematerialised by itself: in training the block's checkpoint
+    (``transformer.forward_hidden`` under ``cfg.remat``) recomputes the
+    loop in the backward pass, so only the block's input is kept."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     if sk % chunk:
@@ -123,7 +126,8 @@ def attend_chunked(q, k, v, *, window: int, chunk: int,
 
 
 def self_attention(p: Attention, x, positions, cfg: ModelConfig):
-    """Causal full-sequence self-attention (prefill), sliding-window when
+    """Causal full-sequence self-attention (prefill and training),
+    sliding-window when
     ``cfg.window > 0``. x: (B, S, D); positions: (B, S). Returns
     (out (B, S, D), (k, v) before the GQA repeat)."""
     b, s, _ = x.shape

@@ -143,6 +143,21 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE in f32. logits: (..., V); labels integers (...);
+    ``mask`` (...) weights each position, the mean taken over its sum (at
+    least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
 def trunc_normal(generator: torch.Generator,
                  shape: tuple[int, ...]) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], f32, drawn on ``generator``'s

@@ -15,16 +15,23 @@ configs (e.g. ``configs.for_shape(cfg, "long_500k")``):
 The cache is ``{"blocks": {"k": (L, B, S, Hkv, hd), "v": ...}}``, as in
 JAX; ``decode_step`` writes into it in place and returns it. Other
 families (MoE, SSM, hybrid, audio, VLM) raise "not ported yet".
+
+Training (``repro_torch.training.train_step``) differentiates
+``forward_train`` or ``forward_hidden`` + ``chunked_ce_loss``. The weights
+are built with ``requires_grad=False``, so a served model builds no
+autograd graph; the training state switches them on for its own model.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention
 from repro_torch.models import mlp as mlp_lib
-from repro_torch.models.common import ModelConfig, dense, init_dense, rms_norm
+from repro_torch.models.common import (ModelConfig, dense, init_dense,
+                                       rms_norm, softmax_cross_entropy)
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -144,23 +151,82 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+def _training(model: Transformer) -> bool:
+    """Whether this forward builds an autograd graph of the weights: grad
+    mode on and the model's weights trainable (``init_train_state``
+    switches them on; a served model keeps them off)."""
+    return torch.is_grad_enabled() and model.embed.requires_grad
+
+
 def forward_hidden(model: Transformer, batch: dict, cfg: ModelConfig):
-    """Full forward up to the (pre-ln_f) hidden states (B, S, D)."""
+    """Full forward up to the (pre-ln_f) hidden states (B, S, D).
+
+    In training with ``cfg.remat`` each block runs under a non-reentrant
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of the scanned
+    block body): only the block's input is kept, and the backward pass
+    recomputes the rest."""
     _layer_plan(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed(model, tokens, cfg)
+    remat = cfg.remat and _training(model)
     for blk in model.blocks:
-        x = _block_fwd(blk, x, positions, cfg)
+        if remat:
+            x = checkpoint(_block_fwd, blk, x, positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = _block_fwd(blk, x, positions, cfg)
     return x
+
+
+def forward_train(model: Transformer, batch: dict, cfg: ModelConfig,
+                  return_hidden: bool = False):
+    """batch: tokens (B, S). Returns (logits (B, S, V) f32, aux) [, the
+    pre-ln_f hidden states (B, S, D) when ``return_hidden``]. ``aux`` is
+    the auxiliary loss, a 0-d f32 zero for the dense family (the MoE
+    router's loss waits for that family)."""
+    x = forward_hidden(model, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return _logits(model, x, cfg), aux, x
+    return _logits(model, x, cfg), aux
 
 
 def forward(model: Transformer, batch: dict, cfg: ModelConfig):
     """batch: tokens (B, S). Returns logits (B, S, V) f32 (``forward_train``
-    of the JAX package without its auxiliary losses, which the dense family
-    does not have)."""
+    without its auxiliary loss)."""
     return _logits(model, forward_hidden(model, batch, cfg), cfg)
+
+
+def _chunk_ce(h, y, w):
+    """Mean CE of one chunk's logits, (B, C, D) hidden against (D, V)."""
+    return softmax_cross_entropy(dense(h, w).float(), y)
+
+
+def chunked_ce_loss(model: Transformer, hidden, labels, cfg: ModelConfig):
+    """Next-token CE without materialising the (B, S, V) logits: the
+    predictions of ``hidden[:, t]`` for ``labels[:, t + 1]`` in chunks of
+    ``min(cfg.ce_chunk, S - 1)`` positions, each chunk's logits and CE
+    under a checkpoint (recomputed in the backward pass), the ragged tail
+    after them, the sum divided by the true count."""
+    b, _, d = hidden.shape
+    h = rms_norm(hidden, model.ln_f, cfg.norm_eps)
+    w = model.embed.T if cfg.tie_embeddings else model.unembed
+    h, y = h[:, :-1], labels[:, 1:]
+    s1 = h.shape[1]
+    chunk = min(cfg.ce_chunk, s1)
+    n = (s1 // chunk) * chunk
+    remat = _training(model)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, n, chunk):
+        hh, yy = h[:, lo:lo + chunk], y[:, lo:lo + chunk]
+        ce = (checkpoint(_chunk_ce, hh, yy, w, use_reentrant=False) if remat
+              else _chunk_ce(hh, yy, w))
+        tot = tot + ce * (chunk * b)
+    if n < s1:                                  # the ragged tail
+        tot = tot + _chunk_ce(h[:, n:], y[:, n:], w) * ((s1 - n) * b)
+    return tot / (s1 * b)
 
 
 # ---------------------------------------------------------------------------

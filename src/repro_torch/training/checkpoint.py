@@ -9,7 +9,9 @@ over leaves that are tensors, numpy arrays or Python scalars, flattened in
 JAX's order (a dict by sorted key, a NamedTuple by field) without
 ``jax.tree``. A Python ``int`` leaf (the port's ``AFMState.i``) is written
 as a shape-``[]`` ``int32`` leaf, as JAX writes its ``jnp.int32`` step
-count, and read back as an ``int``.
+count, and read back as an ``int``. A bfloat16 leaf is written as JAX
+writes one (dtype ``"bfloat16"``, its raw 2-byte words) and read back into
+a ``torch.bfloat16`` tensor, with no ``ml_dtypes``.
 
 All structural checks raise ``ValueError`` so that callers (notably
 ``repro_torch.api.persistence``) can report corrupt or mismatched payloads
@@ -64,6 +66,8 @@ _TORCH_DTYPES = {
     "bool": torch.bool,
 }
 _NUMPY_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+#: the payload's name of a bfloat16 leaf (JAX's ``str(dtype)`` of one)
+BF16 = "bfloat16"
 
 
 def _is_namedtuple(tree) -> bool:
@@ -156,11 +160,29 @@ def _leaf_array(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _leaf_record(leaf) -> dict:
+    """A leaf as the payload stores it: dtype name, shape, raw little-endian
+    bytes. A bfloat16 tensor is written as JAX writes a bf16 array, under
+    the name ``"bfloat16"`` with its 2-byte words (numpy has no bfloat16
+    of its own, so the words go through int16)."""
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        words = leaf.detach().view(torch.int16)
+        a, name = _leaf_array(words), BF16
+    else:
+        a = _leaf_array(leaf)
+        name = str(a.dtype)
+    return {"dtype": name, "shape": list(a.shape),
+            "data": np.ascontiguousarray(a).tobytes()}
+
+
 def _leaf_like(ref, arr: np.ndarray):
     """``arr`` in the type, dtype and device of the ``like`` leaf ``ref``."""
     if isinstance(ref, torch.Tensor):
-        return torch.from_numpy(arr.astype(_NUMPY_NAMES[ref.dtype])).to(
-            ref.device).contiguous()
+        if ref.dtype == torch.bfloat16:   # exact from a bfloat16 record
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr.astype(_NUMPY_NAMES[ref.dtype]))
+        return t.to(ref.device).contiguous()
     if isinstance(ref, bool):
         return bool(arr)
     if isinstance(ref, int):
@@ -199,12 +221,7 @@ def file_sha256(path: str) -> str:
 
 def save(path: str, tree) -> None:
     """Write ``tree`` to ``path`` (atomically, through a ``.tmp`` file)."""
-    arrays = [_leaf_array(leaf) for leaf in _flatten(tree)]
-    leaf_records = [
-        {"dtype": str(a.dtype), "shape": list(a.shape),
-         "data": np.ascontiguousarray(a).tobytes()}
-        for a in arrays
-    ]
+    leaf_records = [_leaf_record(leaf) for leaf in _flatten(tree)]
     payload = {
         "format_version": FORMAT_VERSION,
         "treedef": treedef_str(tree),
@@ -253,7 +270,12 @@ def _read_payload(path: str) -> dict:
     return payload
 
 
-def _record_array(rec) -> np.ndarray:
+def _record_array(rec: dict) -> np.ndarray:
+    """A record's numbers; a bfloat16 record's as float32 (exact: its words
+    are the top halves of the float32 words)."""
+    if rec["dtype"] == BF16:
+        words = np.frombuffer(rec["data"], dtype="<u2").astype(np.uint32)
+        return (words << 16).view(np.float32).reshape(rec["shape"])
     return np.frombuffer(rec["data"], dtype=np.dtype(rec["dtype"])).reshape(
         rec["shape"])
 

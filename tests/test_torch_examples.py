@@ -1,6 +1,7 @@
-"""The port's two examples, ``examples/quickstart_torch.py`` and
-``examples/classify_datasets_torch.py``: each ``main`` runs with
-``--device cpu`` at a small size, and what it prints is parsed."""
+"""The port's examples, ``examples/quickstart_torch.py``,
+``classify_datasets_torch.py``, ``lm_train_e2e_torch.py`` and
+``activation_atlas_torch.py``: each ``main`` runs with ``--device cpu`` at
+a small size, and what it prints is parsed."""
 import importlib.util
 import re
 from pathlib import Path
@@ -60,3 +61,27 @@ def test_classify_datasets_refuses_the_sharded_backend():
     with pytest.raises(SystemExit, match="sharded backend"):
         _example("classify_datasets_torch").main(
             ["--device", "cpu", "--backend", "sharded"])
+
+
+def test_lm_train_e2e_trains_and_checkpoints(capsys, tmp_path):
+    path = tmp_path / "lm.msgpack"
+    _example("lm_train_e2e_torch").main(
+        ["--device", "cpu", "--tiny", "--steps", "12", "--batch", "4",
+         "--seq", "32", "--checkpoint", str(path)])
+    out = capsys.readouterr().out
+    assert "lm-tiny: 0.8M params, 12 steps, batch 4 x seq 32" in out, out
+    first, last = (float(x) for x in re.search(
+        rf"loss: {NUMBER} -> {NUMBER}", out).groups())
+    assert last < first
+    assert f"checkpoint -> {path}" in out and path.stat().st_size > 0
+
+
+def test_activation_atlas_prints_the_u_matrix(capsys):
+    _example("activation_atlas_torch").main(
+        ["--device", "cpu", "--arch", "llama3.2-1b", "--steps", "11"])
+    out = capsys.readouterr().out
+    assert "with a 6x6 AFM probe on its hidden states, device=cpu" in out
+    assert len(re.findall(r"step +[0-9]+ loss=[0-9.]+ probe_cascade=[0-9]+",
+                          out)) == 2
+    rows = out.split("(low = coherent region):")[1].strip("\n").splitlines()
+    assert len(rows) == 6 and all(len(r) == 8 for r in rows), rows

@@ -1108,3 +1108,164 @@ def test_trace_guard_bounds_the_engines_signatures_on_the_card(cuda):
             idx, q2 = engine.bmu(state.w, data[:n].contiguous())
             _assert_bmu(idx, q2, state.w, data[:n])
     assert bmu_ops.launches - before == 6
+
+
+# ---------------------------------------------------------------------------
+# LM training with the AFM probe
+
+
+def _probe_draws(seed, side, waves=64, cap=cas_ops.DEFAULT_WAVE_CAP):
+    """One step's cascade draws as numbers, laid out for both stage sets:
+    the plain stages' (the drive, one ``(4, side, side)`` a wave) and the
+    kernel stages' (the drive, the first ``cap`` waves as one block, one a
+    later wave). ``waves`` outlasts any cascade here."""
+    rng = np.random.default_rng(seed)
+    drive = rng.random((8, side, side), dtype=np.float32)
+    per_wave = [rng.random((4, side, side), dtype=np.float32)
+                for _ in range(waves)]
+    return [drive, *per_wave], [drive, np.stack(per_wave[:cap]),
+                                *per_wave[cap:]]
+
+
+def _state_to(state, dev):
+    """A copy of a train state on ``dev``: weights, moments, probe map."""
+    import copy
+    from repro_torch.core import probe
+    from repro_torch.training import adamw
+    model = copy.deepcopy(state.params).to(dev)
+    opt = adamw.AdamWState({k: v.to(dev) for k, v in state.opt.mu.items()},
+                           {k: v.to(dev) for k, v in state.opt.nu.items()},
+                           state.opt.step.to(dev))
+    a = state.probe.afm
+    return type(state)(model, opt, state.step.to(dev), probe.ProbeState(
+        a._replace(w=a.w.to(dev), c=a.c.to(dev), far=a.far.to(dev),
+                   near=a.near.to(dev))))
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """Three smoke-width train steps with the probe (side 6), each from the
+    CPU run's state copied to the card, on the same batch and the same draw
+    numbers: loss, ce, lr and grad_norm within 1e-5 relative; the probe's
+    GMUs within the tie bound, and where they agree its counters and
+    cascade size bitwise and its weights within the vectors' difference."""
+    from repro_torch.core import probe
+    from repro_torch.data import tokens
+    from repro_torch.draws import ReplayDraws
+    from repro_torch.training import AdamWConfig, train_step
+    cfg = configs.get_smoke("llama3.2-1b")
+    pcfg = probe.ProbeConfig(side=6, dim=cfg.d_model, i_max=400, c_m=1.0)
+    step = train_step.make_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3), pcfg)
+    state = train_step.init_train_state(cfg, pcfg, seed=0, device="cpu")
+    a = state.probe.afm                 # counters one below threshold
+    state = state._replace(probe=probe.ProbeState(
+        a._replace(c=torch.full_like(a.c, pcfg.theta - 1))))
+    data = tokens.batches(torch.Generator().manual_seed(1), cfg.vocab_size,
+                          2, 32, 3, device="cpu")
+    fired = 0
+    for k, batch in enumerate(data):
+        card = _state_to(state, cuda)
+        cpu_draws, card_draws = _probe_draws(k, pcfg.side)
+        with torch.no_grad():
+            vecs = {dev: probe.pool_hidden(train_step.lm_loss(
+                s.params, {n: v.to(dev) for n, v in batch.items()}, cfg,
+                return_hidden=True)[3].float())
+                for dev, s in (("cpu", state), (cuda, card))}
+        w0 = state.probe.afm.w
+        gmu_cpu, _ = bmu_ref.bmu_ref(w0, vecs["cpu"])
+        gmu_card, _ = bmu_ops.bmu(card.probe.afm.w, vecs[cuda])
+        state, m = step(state, batch, ReplayDraws(cpu_draws))
+        card, mc = step(card, {n: v.to(cuda) for n, v in batch.items()},
+                        ReplayDraws(card_draws, device=cuda))
+        for key in ("loss", "ce", "lr", "grad_norm"):
+            want = float(m[key])
+            assert abs(float(mc[key]) - want) <= 1e-5 * abs(want), key
+        differ = (gmu_card.cpu() != gmu_cpu).numpy()
+        if differ.any():
+            gap = bmu_ref.top2_gap(w0, vecs["cpu"]).numpy()
+            bound = bmu_ref.tie_bound(w0, vecs["cpu"]).numpy()
+            vec_err = float((vecs[cuda].cpu() - vecs["cpu"]).abs().max())
+            assert np.all(gap[differ] <= bound[differ] + 4 * vec_err)
+            continue
+        assert int(mc["probe_cascade"]) == int(m["probe_cascade"])
+        assert torch.equal(card.probe.afm.c.cpu(), state.probe.afm.c)
+        vec_err = float((vecs[cuda].cpu() - vecs["cpu"]).abs().max())
+        dw = float((card.probe.afm.w.cpu() - state.probe.afm.w).abs().max())
+        assert dw <= vec_err + 64 * 1.2e-7 * float(state.probe.afm.w.abs()
+                                                   .max())
+        fired += int(m["probe_cascade"]) > 0
+    assert fired > 0
+
+
+def test_probe_kernel_stages_match_the_plain_stages(cuda):
+    """The probe's step at the full-width probe shape (side 8, D = 2048,
+    B = 4) on its kernel stages (``bmu``, the merge, ``drive_cascade``)
+    against the plain stages on the same card, on the same draw numbers,
+    from counters one below threshold: GMUs within the tie bound; where
+    they agree, counters, cascade size and waves bitwise and the weights
+    within 8 ulp an adaptation; one ``bmu`` call and one ``drive_cascade``
+    launch."""
+    from repro_torch.core import afm, probe
+    from repro_torch.draws import GeneratorDraws, ReplayDraws
+    pcfg = probe.ProbeConfig(side=8, dim=2048, i_max=120, c_m=1.0)
+    cfg = pcfg.afm_config()
+    fired = 0
+    for seed in range(3):
+        st = probe.init(GeneratorDraws(seed, cuda), pcfg, device=cuda).afm
+        st = st._replace(c=torch.full_like(st.c, pcfg.theta - 1), i=8)
+        vecs = torch.randn(4, 2048, generator=torch.Generator(
+            device=cuda).manual_seed(seed + 100), device=cuda)
+        plain, kernel = _probe_draws(seed, 8)
+        b0, d0 = bmu_ops.launches, cas_ops.drive_launches
+        new_k, aux_k = probe.update(probe.ProbeState(st), vecs,
+                                    ReplayDraws(kernel, device=cuda), pcfg)
+        assert (bmu_ops.launches - b0, cas_ops.drive_launches - d0) == (1, 1)
+        new_p, aux_p = afm.train_step_batch(st, vecs,
+                                            ReplayDraws(plain, device=cuda),
+                                            cfg, stages=afm.EXACT_STAGES)
+        if not torch.equal(aux_k.gmu, aux_p.gmu):
+            _assert_bmu(aux_k.gmu, aux_k.q2, st.w, vecs)
+            continue
+        assert (int(aux_k.cascade_size), int(aux_k.waves)) == (
+            int(aux_p.cascade_size), int(aux_p.waves))
+        assert torch.equal(new_k.afm.c, new_p.c)
+        waves = int(aux_p.waves)
+        bound = 8 * (1 + waves) * 1.2e-7 * float(new_p.w.abs().max())
+        assert float((new_k.afm.w - new_p.w).abs().max()) <= bound
+        fired += waves > 0
+    assert fired > 0
+
+
+def test_bf16_weights_checkpoint_round_trips_from_the_card(cuda, tmp_path):
+    """A bf16 model on the card: its ``lm_params_tree`` saved and restored
+    into a tree of CUDA tensors, every leaf bitwise."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.training import checkpoint
+    cfg = dataclasses.replace(configs.get_smoke("llama3.2-1b"),
+                              dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    model = transformer.init_params(cfg, seed=3, device=cuda)
+    tree = convert.lm_params_tree(model)
+    path = str(tmp_path / "w.msgpack")
+    checkpoint.save(path, tree)
+    like = {k: v for k, v in tree.items() if k != "blocks"}
+    like = {**{k: torch.zeros_like(v, device=cuda) for k, v in like.items()},
+            "blocks": {k: ({kk: torch.zeros_like(vv, device=cuda)
+                            for kk, vv in v.items()} if isinstance(v, dict)
+                           else torch.zeros_like(v, device=cuda))
+                       for k, v in tree["blocks"].items()}}
+    back = checkpoint.restore(path, like)
+    assert back["embed"].device.type == "cuda"
+    assert back["embed"].dtype == torch.bfloat16
+    assert torch.equal(back["embed"].view(torch.int16),
+                       model.embed.detach().view(torch.int16))
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            continue
+        node = back["blocks"]
+        for part in parts[2:]:
+            node = node[part]
+        assert torch.equal(node[int(parts[1])].view(torch.int16),
+                           p.detach().view(torch.int16)), name

@@ -66,7 +66,9 @@ def test_no_jax_or_repro_import_lines():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
-    assert [f.name for f in examples] == ["classify_datasets_torch.py",
+    assert [f.name for f in examples] == ["activation_atlas_torch.py",
+                                          "classify_datasets_torch.py",
+                                          "lm_train_e2e_torch.py",
                                           "quickstart_torch.py"]
     assert (ROOT / "src" / "repro_torch" / "analysis" / "syncs.py") in files
     for f in files + examples:
