@@ -145,6 +145,28 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     and host syncs); 10 steps of ``configs.get_optimized``; then
     ``examples/lm_train_e2e_torch.py`` and ``activation_atlas_torch.py``
     at their default sizes; the two probe rows of the kernel table;
+11M. the MoE family (``moe_phase``), last: (a) both MoE configs at smoke
+    width (f32) on the card against the CPU for each ``moe_impl``
+    (``dense``, ``ragged``, single-process ``ep``): forward logits and
+    aux, prefill and 16 greedy decode steps, one train step's loss, ce,
+    moe_aux and grad_norm; (b) one granite-moe-1b-a400m MoE layer at full
+    width, bf16, 4,096 tokens: the ragged path against the dense path, the
+    grouped product against its per-expert loop, ``moe`` with ``ep`` on 2
+    gloo ranks on the card (16 experts a rank) against the dense path and,
+    at a capacity that drops half the assignments, against
+    ``moe_ep_path`` on one process; the probe's kernels at D 1,024; (c)
+    granite-moe-1b-a400m and (d) deepseek-moe-16b served at full width,
+    bf16, through ``launch/serve.py``'s ``run`` (B 4, a 128-token prompt,
+    64 and 32 new tokens; ``dense`` and ``ragged``; prefill ms, decode
+    ms/step, tok/s, peak memory, one ``swa_decode`` launch a layer a
+    step), the kernel held to its plain version and timed at each decode
+    shape; (e) granite trained at full width with an 8x8 probe through
+    ``launch/train.py``'s ``run`` (B 4 x S 1,024, lr 3e-4): 20 steps of
+    the faithful config (the loss falling), 10 of ``ragged`` (each loss
+    within 1 % of the faithful run's while their learning rates agree),
+    5 of ``get_optimized``; one ``bmu`` and one ``drive_cascade`` a step;
+    ms a step, tokens/s, peak memory, model FLOPs on the active
+    parameters beside the bf16 peak; the kernel rows at the new shapes;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -2893,14 +2915,16 @@ BF16_ULP = 2.0 ** -7
 LOGIT_TOL = 2e-4
 #: (label, B, H, Hkv, hd, W, first pos; rows step by 21 positions):
 #: llama3.2-1b's long_500k decode shape at pos 0, 5, 8191 and 70,000, its
-#: serve shape (pos 128-191), the shapes of tests/test_kernels.py, and rep 3
-#: and rep 1 over ragged caches
+#: serve shape (pos 128-191), the shapes of tests/test_kernels.py, rep 3
+#: and rep 1 over ragged caches, and hd 32 (the MoE configs' smoke widths)
+#: on one split and on several
 SWA_CASES = [("long_500k", 1, 32, 8, 64, 8192, p)
              for p in (0, 5, 8191, 70_000)] + [
     ("serve", 4, 32, 8, 64, 192, 128),
     ("ragged", 2, 8, 2, 64, 512, 100), ("ragged", 1, 4, 1, 128, 1024, 70_000),
     ("ragged", 3, 16, 8, 64, 256, 255), ("ragged", 2, 4, 4, 128, 128, 4),
-    ("ragged", 2, 6, 2, 128, 96, 60), ("ragged", 2, 3, 3, 64, 100, 120)]
+    ("ragged", 2, 6, 2, 128, 96, 60), ("ragged", 2, 3, 3, 64, 100, 120),
+    ("ragged", 2, 4, 2, 32, 40, 20), ("ragged", 1, 8, 2, 32, 1024, 700)]
 
 
 def swa_inputs(gen, b, h, hkv, hd, w, pos0, dtype, device):
@@ -2968,52 +2992,60 @@ def teacher_forced_logits(model, cfg, prompt, tokens, cache_len):
     return torch.stack(out, dim=1)
 
 
-def check_decode_card_vs_cpu(device):
-    """Phase 9: greedy generation at the f32 smoke width on the card (decode
-    attention on the kernel) and on the CPU (plain version), same weights
-    and prompts: a linear cache, and a window-16 ring that the prompt has
-    wrapped. Teacher-forced logits within LOGIT_TOL; free-running tokens
-    equal, except where the CPU's top two logits lie within it."""
-    from repro_torch import configs
+def decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, new, cache_len,
+                       what):
+    """Greedy generation of ``new`` tokens on the card (decode attention on
+    the kernel, one launch a layer a step) and on the CPU (plain version)
+    from the same weights and prompt: the card's logits teacher-forced on
+    the CPU's tokens within LOGIT_TOL; free-running tokens equal, except
+    where the CPU's top two logits lie within it."""
     from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.serving import serve_step
+    device = next(gpu_model.parameters()).device
+    toks_c, logits_c = serve_step.generate(cpu_model, cfg, prompt, new,
+                                           cache_len, return_logits=True)
+    before = swa_ops.launches
+    toks_g = serve_step.generate(gpu_model, cfg, prompt.to(device), new,
+                                 cache_len).cpu()
+    if swa_ops.launches - before != cfg.num_layers * (new - 1):
+        raise AssertionError(f"{what}: swa_decode launched "
+                             f"{swa_ops.launches - before} times")
+    forced = teacher_forced_logits(gpu_model, cfg, prompt.to(device),
+                                   toks_c.to(device), cache_len).cpu()
+    tol = LOGIT_TOL * (1 + float(logits_c.abs().max()))
+    err = float((forced - logits_c).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{what}: card logits off by {err} > {tol}")
+    ties = 0
+    for row in range(toks_c.shape[0]):
+        differ = (toks_g[row] != toks_c[row]).nonzero()
+        if len(differ):
+            top2 = logits_c[row, int(differ[0])].topk(2).values
+            if float(top2[0] - top2[1]) > tol:
+                raise AssertionError(f"{what}: tokens differ away from a "
+                                     f"tie, row {row}")
+            ties += 1
+    print(f"{what}, prompt {prompt.shape[1]}, cache {cache_len}, {new} "
+          f"tokens: teacher-forced logits max|d| {err:.3g} <= {tol:.3g}; "
+          f"free-running tokens equal"
+          f"{f' up to {ties} near ties' if ties else ''}")
+
+
+def check_decode_card_vs_cpu(device):
+    """Phase 9: ``decode_card_vs_cpu`` at the f32 smoke width: a linear
+    cache, and a window-16 ring that the prompt has wrapped."""
+    from repro_torch import configs
     from repro_torch.launch.serve import prompts_for
     from repro_torch.models import transformer
-    from repro_torch.serving import serve_step
     base = configs.get_smoke(LM_ARCH)
     cpu_model = transformer.init_params(base, seed=SEED, device="cpu")
     gpu_model = copy.deepcopy(cpu_model).to(device)
-    new = 16
     for window, prompt_len, cache_len in ((0, 24, 40), (16, 40, 16)):
         cfg = dataclasses.replace(base, window=window)
         prompt = prompts_for(cfg, 2, prompt_len, SEED, "cpu")
-        toks_c, logits_c = serve_step.generate(cpu_model, cfg, prompt, new,
-                                               cache_len, return_logits=True)
-        before = swa_ops.launches
-        toks_g = serve_step.generate(gpu_model, cfg, prompt.to(device), new,
-                                     cache_len).cpu()
-        if swa_ops.launches - before != cfg.num_layers * (new - 1):
-            raise AssertionError("decode on the card: swa_decode launched "
-                                 f"{swa_ops.launches - before} times")
-        forced = teacher_forced_logits(gpu_model, cfg, prompt.to(device),
-                                       toks_c.to(device), cache_len).cpu()
-        tol = LOGIT_TOL * (1 + float(logits_c.abs().max()))
-        err = float((forced - logits_c).abs().max())
-        if not err <= tol:
-            raise AssertionError(f"decode window {window}: card logits off "
-                                 f"by {err} > {tol}")
-        ties = 0
-        for row in range(toks_c.shape[0]):
-            differ = (toks_g[row] != toks_c[row]).nonzero()
-            if len(differ):
-                top2 = logits_c[row, int(differ[0])].topk(2).values
-                if float(top2[0] - top2[1]) > tol:
-                    raise AssertionError(f"decode window {window}: tokens "
-                                         f"differ away from a tie, row {row}")
-                ties += 1
-        print(f"decode card vs CPU, smoke width, window {window}, prompt "
-              f"{prompt_len}, cache {cache_len}, {new} tokens: teacher-forced"
-              f" logits max|d| {err:.3g} <= {tol:.3g}; free-running tokens "
-              f"equal{f' up to {ties} near ties' if ties else ''}")
+        decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, 16, cache_len,
+                           f"decode card vs CPU, smoke width, window "
+                           f"{window}")
 
 
 def _serve_run(serve, model, cfg, prompts, new, cache_len, what):
@@ -3107,68 +3139,74 @@ def swa_rows(device, runs, worst, long_inputs):
     16 layers' caches of the long prefill (269 MB), so K/V come from device
     memory and not from L2, as in a decode step; the serve shape's caches
     are random."""
+    gen = torch.Generator().manual_seed(SEED + 19)
+    serve_inputs = [swa_inputs(gen, 4, 32, 8, 64, 192, 128, torch.bfloat16,
+                               device)]
+    return [swa_row(device, shape, inputs, run["launches"]["swa_decode"],
+                    worst[shape])
+            for shape, run, inputs in (("serve", runs["serve"], serve_inputs),
+                                       ("long_500k", runs["long"],
+                                        long_inputs))]
+
+
+def swa_row(device, shape, inputs, launches, max_err):
+    """The kernel table's row of ``swa_decode`` at one decode shape:
+    ``inputs`` a list of (q, k, v, pos) cycled through by the timed calls;
+    ``launches`` from the shape's serve run."""
     from repro_torch.device import sm_count
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.swa import ref as swa_ref
     f32_peak, bw = peaks_for(torch.cuda.get_device_name(0))
-    gen = torch.Generator().manual_seed(SEED + 19)
-    serve_inputs = [swa_inputs(gen, 4, 32, 8, 64, 192, 128, torch.bfloat16,
-                               device)]
-    rows = []
-    for shape, run, inputs in (("serve", runs["serve"], serve_inputs),
-                               ("long_500k", runs["long"], long_inputs)):
-        q, k, v, pos = inputs[0]
-        (b, h, hd), (w, hkv) = q.shape, k.shape[1:3]
-        label = (f"{shape} B={b}, H={h}, Hkv={hkv}, W={w}, pos "
-                 f"{int(pos.min())}-{int(pos.max())}")
-        plan = swa_ops.plan(b, hkv, w, sm_count(q.device))
-        print(f"swa_decode {label}: plan grid ({plan.splits}, {hkv}, {b}), "
-              f"{plan.splits} split(s) of {plan.slots} slots"
-              f"{', combined by the last block of each' if plan.splits > 1 else ''}"
-              f"; {'tensor cores' if q.dtype == torch.bfloat16 else 'SIMT'}")
-        posl = pos.long()[:, None]
-        j = torch.arange(w, device=device)[None, :]
-        valid = torch.remainder(posl - j, w) < torch.clamp(posl + 1, max=w)
-        mask = valid[:, None, None, :]
+    q, k, v, pos = inputs[0]
+    (b, h, hd), (w, hkv) = q.shape, k.shape[1:3]
+    label = (f"{shape} B={b}, H={h}, Hkv={hkv}, hd={hd}, W={w}, pos "
+             f"{int(pos.min())}-{int(pos.max())}")
+    plan = swa_ops.plan(b, hkv, w, sm_count(q.device))
+    print(f"swa_decode {label}: plan grid ({plan.splits}, {hkv}, {b}), "
+          f"{plan.splits} split(s) of {plan.slots} slots"
+          f"{', combined by the last block of each' if plan.splits > 1 else ''}"
+          f"; {'tensor cores' if q.dtype == torch.bfloat16 else 'SIMT'}")
+    posl = pos.long()[:, None]
+    j = torch.arange(w, device=device)[None, :]
+    valid = torch.remainder(posl - j, w) < torch.clamp(posl + 1, max=w)
+    mask = valid[:, None, None, :]
 
-        def library(q, k, v, pos):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask, enable_gqa=True)[:, :, 0]
+    def library(q, k, v, pos):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
 
-        def plain(q, k, v, pos):
-            return swa_ref.swa_decode_ref(q, k, v, pos, window=w)
+    def plain(q, k, v, pos):
+        return swa_ref.swa_decode_ref(q, k, v, pos, window=w)
 
-        def cycling(fn):
-            turn = itertools.cycle(inputs)
-            return lambda: fn(*next(turn))
+    def cycling(fn):
+        turn = itertools.cycle(inputs)
+        return lambda: fn(*next(turn))
 
-        lib_err = float((library(q, k, v, pos).float()
-                         - swa_ops.swa_decode(q, k, v, pos).float())
-                        .abs().max())
-        t = time_both({"plain": cycling(plain),
-                       "kernel": cycling(swa_ops.swa_decode),
-                       "library": cycling(library)}, 32,
-                      f"swa_decode {shape}")
-        n_valid = int(valid.sum())
-        nbytes = (2 * n_valid * hkv * hd + 2 * b * h * hd) * q.element_size()
-        flops = 4 * n_valid * h * hd
-        bound = max(nbytes / bw, flops / f32_peak) * 1e3
-        print(f"swa_decode {label}: kernel {t['kernel']:.5f} ms, plain "
-              f"{t['plain']:.5f} ms, sdpa {t['library']:.5f} ms (max|d| from "
-              f"the kernel {lib_err:.3g}), bound {bound:.5f} ms "
-              f"({nbytes / 1e6:.3f} MB), {len(inputs)} caches in turn")
-        rows.append({
-            "name": f"swa_decode ({label})", "route": "cuda",
-            "source": "src/repro_torch/kernels/swa/swa.cu",
-            "replaces": "src/repro/kernels/swa/swa.py:28",
-            "launches": run["launches"]["swa_decode"],
-            "max_abs_err": worst[shape],
-            "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / bw > flops / f32_peak
-            else "operations",
-            "library_ms": t["library"]})
-    return rows
+    lib_err = float((library(q, k, v, pos).float()
+                     - swa_ops.swa_decode(q, k, v, pos).float())
+                    .abs().max())
+    t = time_both({"plain": cycling(plain),
+                   "kernel": cycling(swa_ops.swa_decode),
+                   "library": cycling(library)}, 32,
+                  f"swa_decode {shape}")
+    n_valid = int(valid.sum())
+    nbytes = (2 * n_valid * hkv * hd + 2 * b * h * hd) * q.element_size()
+    flops = 4 * n_valid * h * hd
+    bound = max(nbytes / bw, flops / f32_peak) * 1e3
+    print(f"swa_decode {label}: kernel {t['kernel']:.5f} ms, plain "
+          f"{t['plain']:.5f} ms, sdpa {t['library']:.5f} ms (max|d| from "
+          f"the kernel {lib_err:.3g}), bound {bound:.5f} ms "
+          f"({nbytes / 1e6:.3f} MB), {len(inputs)} caches in turn")
+    return {
+        "name": f"swa_decode ({label})", "route": "cuda",
+        "source": "src/repro_torch/kernels/swa/swa.cu",
+        "replaces": "src/repro/kernels/swa/swa.py:28",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / bw > flops / f32_peak
+        else "operations",
+        "library_ms": t["library"]}
 
 
 #: phase L: LM training with the AFM probe. The full-width run is
@@ -3214,7 +3252,7 @@ def _probe_draw_lists(seed, side, waves=64):
 
 def _train_state_to(state, device):
     """A copy of a train state on ``device``: weights (trainable), f32
-    moments, step, probe map."""
+    moments, step, probe map (if any)."""
     from repro_torch.core import probe
     from repro_torch.training import adamw
     model = copy.deepcopy(state.params).to(device)
@@ -3222,6 +3260,8 @@ def _train_state_to(state, device):
         {k: v.to(device) for k, v in state.opt.mu.items()},
         {k: v.to(device) for k, v in state.opt.nu.items()},
         state.opt.step.to(device))
+    if state.probe is None:
+        return type(state)(model, opt, state.step.to(device))
     a = state.probe.afm
     return type(state)(model, opt, state.step.to(device), probe.ProbeState(
         a._replace(w=a.w.to(device), c=a.c.to(device), far=a.far.to(device),
@@ -3317,7 +3357,7 @@ def train_card_vs_cpu(device):
     return sizes
 
 
-def probe_kernel_checks(device):
+def probe_kernel_checks(device, arch=TRAIN_ARCH):
     """Phase L (b): the probe's kernels at its full-width shape (side 8,
     D = 2,048, B = 4): ``bmu`` at N = 64 under the tie-bound contract and
     bitwise on a second call; ``drive_cascade`` at side 8 bitwise against
@@ -3334,7 +3374,7 @@ def probe_kernel_checks(device):
     from repro_torch.kernels.cascade import ops as cas_ops
     from repro_torch.kernels.cascade import ref as cas_ref
     from repro_torch import configs
-    side, d, b = TRAIN_PROBE_SIDE, configs.get(TRAIN_ARCH).d_model, TRAIN_B
+    side, d, b = TRAIN_PROBE_SIDE, configs.get(arch).d_model, TRAIN_B
     gen = torch.Generator(device=device).manual_seed(SEED + 23)
     w = 0.1 * torch.randn(side * side, d, generator=gen, device=device)
     s = 0.5 * torch.randn(b, d, generator=gen, device=device)
@@ -3410,17 +3450,33 @@ def probe_kernel_checks(device):
             "drive_args": args}
 
 
+def _active_block_params(cfg):
+    """The block parameters one token's forward multiplies by: all of a
+    dense layer's; of an MoE layer the attention, the router, the shared
+    experts and k of the E routed experts (the active parameters)."""
+    d = cfg.d_model
+    attn = 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+    if cfg.arch_type != "moe":
+        return cfg.num_layers * (attn + 3 * d * cfg.d_ff)
+    nd = cfg.first_dense_layers
+    fe = cfg.moe_d_ff or cfg.d_ff
+    moe = attn + d * cfg.num_experts + 3 * d * fe * (
+        cfg.experts_per_token + cfg.num_shared_experts)
+    return (nd * (attn + 3 * d * (cfg.first_dense_d_ff or cfg.d_ff))
+            + (cfg.num_layers - nd) * moe)
+
+
 def _train_flops(cfg, b, s):
     """(bf16 product FLOPs, f32 attention product FLOPs, model FLOPs) of
     one train step: the block and head matrices 2 T N forward, 4 T N
-    backward and the blocks' 2 T N again under remat; the attention's QK
-    and PV over the whole S x S square, 4 B H S^2 hd a layer forward, as
-    many again under remat and twice in backward. Model FLOPs: forward
-    and backward once, no remat."""
+    backward and the blocks' 2 T N again under remat, N the active
+    parameters (``_active_block_params``); the attention's QK and PV over
+    the whole S x S square, 4 B H S^2 hd a layer forward, as many again
+    under remat and twice in backward. Model FLOPs: forward and backward
+    once, no remat."""
     t = b * s
     d, hd = cfg.d_model, cfg.hd
-    blocks = cfg.num_layers * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
-                               + 3 * d * cfg.d_ff)
+    blocks = _active_block_params(cfg)
     head = cfg.vocab_size * d
     attn_fwd = 4 * b * cfg.num_heads * s * s * hd * cfg.num_layers
     remat = 1 if cfg.remat else 0
@@ -3680,6 +3736,409 @@ def training_phase(device):
     return rows
 
 
+#: phase M: the MoE family. Card against the CPU at smoke width (f32) for
+#: both MoE configs and each path; one granite-moe-1b-a400m MoE layer at
+#: full width on MOE_LAYER_T tokens; serving at full width, bf16 (B, prompt,
+#: new tokens, linear cache slots); then granite trained at full width with
+#: the probe (B 4 x S 1,024, an 8x8 probe on its 1,024-d hidden states, lr
+#: TRAIN_LR): MOE_TRAIN_STEPS steps of the faithful config, of
+#: moe_impl="ragged" and of get_optimized (ep without a mesh)
+MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-moe-16b")
+MOE_SERVE = {"granite-moe-1b-a400m": (4, 128, 64, 192),
+             "deepseek-moe-16b": (4, 128, 32, 160)}
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN_STEPS = {"faithful": 20, "ragged": 10, "optimized": 5}
+#: the ragged run against the faithful run (the same seed, batches and
+#: draws; the paths differ in where bf16 rounds) at the steps whose
+#: updates so far had the same learning rates (the launcher's schedule
+#: depends on the run's length: the warmup's steps): each loss within this
+#: share
+MOE_TRACK_TOL = 0.01
+
+
+def _launcher_lrs(steps):
+    """The learning rate of each update of a ``launch/train.run`` of
+    ``steps`` steps at TRAIN_LR (its AdamWConfig)."""
+    from repro_torch.training import AdamWConfig, adamw
+    cfg = AdamWConfig(lr=TRAIN_LR, total_steps=steps,
+                      warmup_steps=max(steps // 20, 5))
+    return [float(adamw.lr_schedule(cfg, torch.tensor(i)))
+            for i in range(1, steps + 1)]
+MOE_LAYER_T = 4096
+#: card against the CPU at smoke width, f32: forward logits within MOE_TOL
+#: (1 + max|logit|); aux, loss, ce, moe_aux and grad_norm within MOE_TOL
+#: relative (the matrix products sum in another order on the card)
+MOE_TOL = 1e-5
+#: capacity factors of the ep check on 2 ranks: the default, which drops
+#: nothing at MOE_LAYER_T tokens, and one that drops about half
+MOE_EP_FACTORS = (2.0, 0.5)
+#: seconds the ep ranks may take (process start and kernel loads included)
+MOE_RANK_TIMEOUT = 240
+
+
+def _moe_bf16_bound(cfg, y):
+    """Two bf16 MoE paths against each other: each output sums k gated
+    expert rows, and the paths round each row to bf16 in other places, so
+    they agree within k bf16 roundings (2^-8 relative) of the largest
+    output."""
+    return cfg.experts_per_token * 2.0 ** -8 * float(y.float().abs().max())
+
+
+def _rel_err(got, want):
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def moe_card_vs_cpu(device):
+    """Phase M (a): both MoE configs at smoke width (f32) on the card and on
+    the CPU from the same weights, for each of ``dense``, ``ragged`` and
+    single-process ``ep``: ``forward_train`` logits within MOE_TOL (1 +
+    max|logit|) and aux within MOE_TOL; prefill and 16 greedy decode steps
+    (``decode_card_vs_cpu``); one train step from the CPU's state on one
+    batch: loss, ce, moe_aux and grad_norm within MOE_TOL relative."""
+    from repro_torch import configs
+    from repro_torch.data import tokens
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import mlp, transformer
+    from repro_torch.training import AdamWConfig, train_step
+    for arch in MOE_ARCHS:
+        base = configs.get_smoke(arch)
+        cpu_model = transformer.init_params(base, seed=SEED, device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        prompt = prompts_for(base, 2, 24, SEED, "cpu")
+        batch = next(tokens.batches(torch.Generator().manual_seed(SEED + 3),
+                                    base.vocab_size, 4, 64, 1, device="cpu"))
+        for impl in mlp.MOE_IMPLS:
+            cfg = dataclasses.replace(base, moe_impl=impl)
+            what = f"{arch} smoke ({impl}) card vs CPU"
+            lc, ac = transformer.forward_train(cpu_model, {"tokens": prompt},
+                                               cfg)
+            lg, ag = transformer.forward_train(
+                gpu_model, {"tokens": prompt.to(device)}, cfg)
+            err = float((lg.cpu() - lc).abs().max())
+            tol = MOE_TOL * (1 + float(lc.abs().max()))
+            if not (err <= tol and _rel_err(ag, ac) <= MOE_TOL):
+                raise AssertionError(f"{what}: logits off by {err} > {tol} "
+                                     f"or aux {float(ag)} against {float(ac)}")
+            print(f"{what}: forward logits max|d| {err:.3g} <= {tol:.3g}, "
+                  f"aux {float(ac):.6f} rel {_rel_err(ag, ac):.3g}")
+            decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, 16, 40,
+                               f"{what}, decode")
+            step = train_step.make_train_step(
+                cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2))
+            state = train_step.init_train_state(cfg, seed=SEED, device="cpu")
+            card = _train_state_to(state, device)
+            _, m = step(state, batch)
+            _, mg = step(card, {k: v.to(device) for k, v in batch.items()})
+            errs = {key: _rel_err(mg[key], m[key])
+                    for key in ("loss", "ce", "moe_aux", "grad_norm")}
+            if not all(e <= MOE_TOL for e in errs.values()):
+                raise AssertionError(f"{what}: train step {errs}")
+            print(f"{what}, one train step (B 4 x S 64): " + ", ".join(
+                f"{key} rel {e:.3g}" for key, e in errs.items())
+                + f" (<= {MOE_TOL}); moe_aux {float(m['moe_aux']):.6f}")
+
+
+def _moe_layer_inputs(cfg, device, t):
+    """One seeded full-width MoE layer and ``t`` bf16 tokens on the card (the same on every process: the draws come from a seeded
+    generator on the card)."""
+    from repro_torch.models import mlp
+    gen = torch.Generator(device=device).manual_seed(SEED + 61)
+    p = mlp.MoE(cfg, device)
+    p.reset_parameters(gen, cfg)
+    x = torch.randn(t, cfg.d_model, generator=gen,
+                    device=device).to(cfg.dtype)
+    return p, x
+
+
+def _moe_ep_rank(rank, factors, device, t):
+    """One rank of phase M (b)'s ep check: ``moe`` with ``moe_impl="ep"``
+    over a 2-rank ``model`` axis, this rank's half of the experts, at each
+    capacity factor; (y as f32 numpy, exact from bf16; aux; collectives):
+    numpy and floats, which cross the process boundary by value."""
+    from repro_torch import configs
+    from repro_torch.models import mlp
+    from repro_torch.sharding import ShardMesh
+    device = torch.device(device)
+    mesh = ShardMesh((2,), ("model",))
+    out = []
+    for f in factors:
+        cfg = dataclasses.replace(configs.get(MOE_TRAIN_ARCH), moe_impl="ep",
+                                  moe_capacity_factor=f)
+        p, x = _moe_layer_inputs(cfg, device, t)
+        y, aux = mlp.moe(p, x[None], cfg, mesh=mesh)
+        out.append((y[0].float().cpu().numpy(), float(aux), mesh.calls))
+    return out
+
+
+def moe_layer_checks(device):
+    """Phase M (b): one granite-moe-1b-a400m MoE layer at full width, bf16,
+    MOE_LAYER_T tokens on the card: the ragged path against the dense path
+    within ``_moe_bf16_bound``; the grouped product (``grouped_mm``) against
+    its per-expert loop within one bf16 ulp plus 1e-3; ``moe`` with
+    ``moe_impl="ep"`` on 2 gloo ranks on the card (a ``model`` axis, 16
+    experts a rank): at the default capacity (nothing dropped) against the
+    dense path, at factor 0.5 against ``moe_ep_path`` on one process
+    owning every expert (the same assignments dropped), both ranks equal."""
+    from repro_torch import configs
+    from repro_torch.models import mlp
+    from repro_torch.sharding import spawn_ranks
+    cfg = configs.get(MOE_TRAIN_ARCH)
+    p, x = _moe_layer_inputs(cfg, device, MOE_LAYER_T)
+    gates, top_i, top_p, aux = mlp._routing(p, x, cfg)
+    dense = mlp.moe_dense_path(p, x, gates, cfg.dtype)
+    ragged = mlp.moe_ragged_path(p, x, top_i, top_p, cfg, cfg.dtype)
+    bound = _moe_bf16_bound(cfg, dense)
+    err = float((ragged.float() - dense.float()).abs().max())
+    if not (bool(torch.isfinite(dense.float()).all()) and err <= bound):
+        raise AssertionError(f"MoE layer: ragged off the dense path by {err}"
+                             f" > {bound}")
+    print(f"MoE layer ({cfg.name}, T {MOE_LAYER_T}, bf16): ragged against "
+          f"dense max|d| {err:.4g} <= {bound:.4g} (max|y| "
+          f"{float(dense.float().abs().max()):.4g}, mean|d| "
+          f"{float((ragged.float() - dense.float()).abs().mean()):.3g}); aux "
+          f"{float(aux):.5f}")
+    flat_e = top_i.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    offs = mlp.group_offsets(flat_e[order], cfg.num_experts)
+    xs = x[torch.div(order, cfg.experts_per_token, rounding_mode="floor")]
+    for name in ("wg", "wu"):
+        got = mlp.grouped_mm(xs, getattr(p, name), offs).float()
+        want = mlp.grouped_mm_ref(xs, getattr(p, name), offs).float()
+        gerr = (got - want).abs()
+        if not bool((gerr <= BF16_ULP * want.abs() + 1e-3).all()):
+            raise AssertionError(f"grouped_mm ({name}): off its per-expert "
+                                 f"loop by {float(gerr.max())}")
+        print(f"grouped_mm ({name}, {xs.shape[0]} rows in {cfg.num_experts} "
+              f"groups, sizes {int(offs[0])}..): max|d| from the per-expert "
+              f"loop {float(gerr.max()):.3g}")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_moe_ep_rank, 2, (MOE_EP_FACTORS, str(device),
+                                              MOE_LAYER_T),
+                        dist_backend="gloo", timeout=MOE_RANK_TIMEOUT)
+    counts = torch.bincount(flat_e, minlength=cfg.num_experts)
+    for i, f in enumerate(MOE_EP_FACTORS):
+        y0, aux0, calls = ranks[0][i]
+        y0, y1 = torch.from_numpy(y0), torch.from_numpy(ranks[1][i][0])
+        cap = max(8, int(f * MOE_LAYER_T * cfg.experts_per_token
+                         / cfg.num_experts))
+        dropped = int(torch.clamp(counts - cap, min=0).sum())
+        if f == MOE_EP_FACTORS[0]:
+            want, against = dense, "the dense path"
+            if dropped:
+                raise AssertionError(f"ep at factor {f} dropped {dropped}")
+        else:
+            want = mlp.moe_ep_path({n: getattr(p, n) for n in ("wg", "wu",
+                                                                "wd")},
+                                   x, top_i, top_p, cfg, cfg.dtype,
+                                   capacity_factor=f)
+            against = "moe_ep_path on one process"
+            if not dropped:
+                raise AssertionError(f"ep at factor {f} dropped nothing")
+        err = float((y0 - want.float().cpu()).abs().max())
+        if not (torch.equal(y0, y1) and err <= bound
+                and _rel_err(aux0, aux) <= MOE_TOL):
+            raise AssertionError(f"ep on 2 ranks, factor {f}: off {against} "
+                                 f"by {err} > {bound}, or ranks differ, or "
+                                 f"aux {float(aux0)} against {float(aux)}")
+        print(f"moe ep on 2 gloo ranks (capacity factor {f}, cap {cap}, "
+              f"{dropped} of {flat_e.numel()} assignments dropped): against "
+              f"{against} max|d| {err:.4g} <= {bound:.4g}, both ranks "
+              f"bitwise equal, aux rel {_rel_err(aux0, aux):.3g}, {calls} "
+              f"collectives")
+    print(f"moe ep ranks: {time.perf_counter() - t0:.1f} s (process start "
+          f"included)")
+
+
+def moe_serve(device, arch):
+    """Phase M (c, d): ``arch`` at full width, bf16, seeded weights, through
+    ``launch/serve.py``'s ``run`` (MOE_SERVE's B, prompt, new tokens and
+    linear cache) with ``moe_impl`` ``dense`` (JAX's default) and
+    ``ragged``, each warmed up first: prefill ms, decode ms/step, tok/s,
+    peak memory, ``swa_decode`` launches (one a layer a decode step). Then
+    the kernel against its plain version at the decode shape (f32 and
+    bf16), and its row of the kernel table."""
+    from repro_torch import configs
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa import ref as swa_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = configs.get(arch)
+    b, prompt_len, new, cache_len = MOE_SERVE[arch]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name}: {n / 1e9:.4f} B parameters, {nbytes / 1e9:.3f} GB, "
+          f"seeded init on the card in {time.perf_counter() - t0:.2f} s")
+    prompts = serve.prompts_for(cfg, b, prompt_len, SEED, device)
+    runs = {}
+    for impl in ("dense", "ragged"):
+        c = dataclasses.replace(cfg, moe_impl=impl)
+        serve.run(model, c, prompts, max_new=4, cache_len=cache_len)
+        torch.cuda.reset_peak_memory_stats()
+        runs[impl] = _serve_run(serve, model, c, prompts, new, cache_len,
+                                f"{cfg.name} ({impl}) serve B={b} x "
+                                f"{prompt_len} + {new}, linear cache "
+                                f"{cache_len}")
+        runs[impl]["peak"] = torch.cuda.max_memory_allocated()
+        print(f"{cfg.name} ({impl}): peak memory "
+              f"{runs[impl]['peak'] / 1e9:.3f} GB (max_memory_allocated)")
+    same = float((runs["dense"]["tokens"] == runs["ragged"]["tokens"])
+                 .float().mean())
+    print(f"{cfg.name}: dense and ragged choose the same token at "
+          f"{100 * same:.1f} % of the {b} x {new} places (bf16 rounds in "
+          f"other places on the two paths)")
+    del model, prompts
+    for run in runs.values():
+        run.pop("logits", None)
+    torch.cuda.empty_cache()
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    gen = torch.Generator().manual_seed(SEED + 67)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, pos = swa_inputs(gen, b, h, hkv, hd, cache_len,
+                                  cache_len - 64, dtype, device)
+        out = swa_ops.swa_decode(q, k, v, pos)
+        ref = swa_ref.swa_decode_ref(q, k, v, pos, window=cache_len)
+        torch.cuda.synchronize()
+        e = swa_error(out, ref, f"{cfg.name} decode shape {dtype}")
+        if dtype == torch.bfloat16:
+            worst = e
+        print(f"swa_decode at {cfg.name}'s decode shape (B={b}, H={h}, "
+              f"Hkv={hkv}, hd={hd}, W={cache_len}) {dtype}: max|d| {e:.3g}")
+    inputs = [swa_inputs(gen, b, h, hkv, hd, cache_len, cache_len - 64,
+                         torch.bfloat16, device)]
+    row = swa_row(device, cfg.name, inputs,
+                  runs["dense"]["launches"]["swa_decode"], worst)
+    return runs, row
+
+
+def moe_train(device):
+    """Phase M (e): granite-moe-1b-a400m at full width, bf16, through
+    ``launch/train.py``'s ``run`` with the probe (B 4 x S 1,024, an 8x8
+    probe on the 1,024-d pooled hidden states, lr TRAIN_LR): the faithful
+    config (``moe_impl="dense"``), ``ragged`` and ``get_optimized`` (``ep``
+    without a mesh: routing and the dense path; chunked attention and CE),
+    MOE_TRAIN_STEPS steps each, the kernel counts set to 0 just before each
+    run and read just after. Every loss and moe_aux finite; the faithful
+    run's loss falling (the mean of the last three steps below the first
+    three's); the ragged run's losses within MOE_TRACK_TOL of the faithful
+    run's at the steps whose updates had the same learning rates; one ``bmu`` call and one ``drive_cascade``
+    launch a step. ms a step, tokens/s, peak memory and
+    model FLOPs on the active parameters beside the bf16 peak. Returns the
+    faithful run's kernel counts."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    base = configs.get(MOE_TRAIN_ARCH)
+    name = torch.cuda.get_device_name(0)
+    peak = BF16_PEAKS["PCIe" if "PCIe" in name else "SXM"]
+    _, _, model_flops = _train_flops(base, TRAIN_B, TRAIN_S)
+    out = {}
+    for label, cfg in (("faithful", base),
+                       ("ragged", dataclasses.replace(base,
+                                                      moe_impl="ragged")),
+                       ("optimized", configs.get_optimized(MOE_TRAIN_ARCH))):
+        steps = MOE_TRAIN_STEPS[label]
+        times, auxes = [], []
+
+        def on_step(i, state, metrics, ms):
+            times.append(ms)
+            auxes.append(float(metrics["moe_aux"]))
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = train.run(cfg, steps=steps, batch=TRAIN_B, seq=TRAIN_S,
+                           lr=TRAIN_LR, probe=True,
+                           probe_side=TRAIN_PROBE_SIDE, seed=SEED,
+                           device=device, on_step=on_step)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+        what = f"{cfg.name} training ({label}: moe_impl {cfg.moe_impl})"
+        if (len(losses) != steps or not all(np.isfinite(losses))
+                or not all(np.isfinite(auxes))):
+            raise AssertionError(f"{what}: losses {losses}, aux {auxes}")
+        first, final = np.mean(losses[:3]), np.mean(losses[-3:])
+        if label == "faithful" and not final < first:
+            raise AssertionError(f"{what}: loss {first} -> {final} did not "
+                                 f"fall")
+        if label == "ragged":
+            ref = out["faithful"]["losses"]
+            same = next((i for i, (a, b) in enumerate(zip(
+                _launcher_lrs(steps), _launcher_lrs(len(ref)))) if a != b),
+                steps)
+            want = np.array(ref[:same + 1])
+            off = np.abs(np.array(losses[:same + 1]) - want) / want
+            if not (same > 0 and bool((off <= MOE_TRACK_TOL).all())):
+                raise AssertionError(f"{what}: losses {losses} off the "
+                                     f"faithful run's {ref}")
+            print(f"{what}: losses of steps 0-{same} (the updates before "
+                  f"them at the faithful run's learning rates) within "
+                  f"{float(off.max()):.3g} of the faithful run's (<= "
+                  f"{MOE_TRACK_TOL})")
+        if (counts["bmu"], counts["drive_cascade"]) != (steps, steps):
+            raise AssertionError(f"{what}: launched {counts} in {steps} "
+                                 f"steps; bmu and drive_cascade must run "
+                                 f"once a step")
+        step_ms = float(np.median(times[2:]))
+        print(f"{what}, bf16, B {TRAIN_B} x S {TRAIN_S}, {steps} steps, "
+              f"probe {TRAIN_PROBE_SIDE}x{TRAIN_PROBE_SIDE}x{cfg.d_model}: "
+              f"{seconds:.2f} s with init; losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)} (mean of the first 3 "
+              f"{first:.4f}, of the last 3 {final:.4f}); moe_aux "
+              f"{' '.join(f'{x:.2f}' for x in auxes)}")
+        print(f"{what}: {step_ms:.3f} ms a step (CUDA events, median of "
+              f"steps 3-{steps}; min {min(times[2:]):.3f}, max "
+              f"{max(times[2:]):.3f}), {TRAIN_B * TRAIN_S / step_ms * 1e3:.1f}"
+              f" tokens/s; peak memory {peak_mem / 1e9:.3f} GB; model FLOPs "
+              f"on the active parameters {model_flops / 1e12:.2f} T a step, "
+              f"{100 * model_flops / (step_ms * 1e-3) / peak:.2f} % of the "
+              f"dense bf16 peak ({peak / 1e12:.0f} TFLOP/s); launches "
+              f"{counts}")
+        out[label] = {"counts": counts, "step_ms": step_ms,
+                      "losses": losses}
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(device):
+    """Phase M: the MoE family (``moe_card_vs_cpu``, ``moe_layer_checks``,
+    the probe's kernels at D = 1,024, ``moe_serve`` of both configs,
+    ``moe_train``). Returns the phase's kernel rows."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    moe_card_vs_cpu(device)
+    moe_layer_checks(device)
+    checks = probe_kernel_checks(device, MOE_TRAIN_ARCH)
+    rows = []
+    serve_runs = {}
+    for arch in MOE_ARCHS[:1]:
+        serve_runs[arch], row = moe_serve(device, arch)
+        rows.append(row)
+    trained = moe_train(device)
+    rows += probe_kernel_rows(device, checks, trained["faithful"]["counts"])
+    for arch in MOE_ARCHS[1:]:
+        serve_runs[arch], row = moe_serve(device, arch)
+        rows.append(row)
+    for arch, runs in serve_runs.items():
+        for impl, run in runs.items():
+            print(f"{arch} ({impl}): prefill {run['prefill_ms']:.3f} ms, "
+                  f"decode {run['decode_ms_per_step']:.4f} ms/step, "
+                  f"{run['decode_tok_s']:.1f} decode tok/s, "
+                  f"{run['tok_s']:.1f} tok/s in all, peak "
+                  f"{run['peak'] / 1e9:.3f} GB")
+    print(f"MoE phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -3770,6 +4229,7 @@ def main() -> int:
     examples_phase()
     lint_phase()
     rows += training_phase(device)
+    rows += moe_phase(device)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

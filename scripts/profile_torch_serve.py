@@ -3,9 +3,11 @@
 NVIDIA card.
 
     PYTHONPATH=src python3 scripts/profile_torch_serve.py [--steps 32] \
-        [--shape serve|long_500k]
+        [--shape serve|long_500k] [--arch llama3.2-1b] \
+        [--moe-impl dense|ragged|ep]
 
-Builds llama3.2-1b at full width (bf16, seeded weights) and prefills it as
+Builds ``--arch`` at full width (bf16, seeded weights; an MoE config's
+path set by ``--moe-impl``) and prefills it as
 ``chip_smoke.py`` does: ``serve`` is B 4 with a 128-token prompt on a
 192-slot linear cache, ``long_500k`` B 1 with an 8,704-token prompt
 (chunked) on the 8,192-slot ring. After a few warm-up steps it runs
@@ -36,6 +38,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=32)
     parser.add_argument("--shape", choices=("serve", "long_500k"),
                         default="serve")
+    parser.add_argument("--arch", default="llama3.2-1b")
+    parser.add_argument("--moe-impl", choices=("dense", "ragged", "ep"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -48,7 +52,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
-    cfg = configs.get("llama3.2-1b")
+    cfg = configs.get(args.arch)
+    if args.moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
     if args.shape == "serve":
         batch, prompt_len, cache_len = 4, 128, 128 + 64
     else:
@@ -88,7 +94,8 @@ def main() -> int:
     device_us = sum(getattr(e, attr) for e in events
                     if e.device_type == DeviceType.CUDA
                     and not e.is_user_annotation)
-    print(f"{args.shape}: B {batch}, prompt {prompt_len}, cache {cache_len}; "
+    print(f"{cfg.name} (moe_impl {cfg.moe_impl}) {args.shape}: B {batch}, "
+          f"prompt {prompt_len}, cache {cache_len}; "
           f"profiled {args.steps} decode steps: wall "
           f"{wall * 1e3 / args.steps:.3f} ms/step, device busy "
           f"{device_us / 1e3 / args.steps:.3f} ms/step, idle share "

@@ -3,13 +3,14 @@
 one NVIDIA card.
 
     PYTHONPATH=src python3 scripts/profile_torch_train.py [--steps 30] \
-        [--optimized] [--lr 1e-3] [--batch 4] [--seq 1024] [--probe-side 8]
+        [--optimized] [--lr 1e-3] [--batch 4] [--seq 1024] [--probe-side 8] \
+        [--arch llama3.2-1b] [--moe-impl dense|ragged|ep]
 
-Builds llama3.2-1b at full width (bf16, seeded weights, ``configs.get``,
-or ``configs.get_optimized`` with ``--optimized``) with the AFM probe, as
-``launch/train.py`` does, and runs ``--steps`` steps on the synthetic
-corpus, printing each step's loss and time (CUDA events). Then, from the
-trained state:
+Builds ``--arch`` at full width (bf16, seeded weights, ``configs.get``,
+or ``configs.get_optimized`` with ``--optimized``; an MoE config's path
+set by ``--moe-impl``) with the AFM probe, as ``launch/train.py`` does,
+and runs ``--steps`` steps on the synthetic corpus, printing each step's
+loss and time (CUDA events). Then, from the trained state:
 
 - the step's parts apart, each with CUDA events (median of 3): the
   forward pass with its graph, the forward and backward passes
@@ -24,6 +25,7 @@ trained state:
 """
 import argparse
 import collections
+import dataclasses
 import subprocess
 import sys
 import time
@@ -61,6 +63,8 @@ def main() -> int:
     parser.add_argument("--probe-side", type=int, default=8)
     parser.add_argument("--optimized", action="store_true")
     parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--arch", default="llama3.2-1b")
+    parser.add_argument("--moe-impl", choices=("dense", "ragged", "ep"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -76,8 +80,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
-    arch = "llama3.2-1b"
+    arch = args.arch
     cfg = configs.get_optimized(arch) if args.optimized else configs.get(arch)
+    if args.moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
     b, s = args.batch, args.seq
     pcfg = probe.ProbeConfig(side=args.probe_side, dim=cfg.d_model,
                              i_max=args.steps * b)
@@ -103,7 +109,8 @@ def main() -> int:
               f"{int(m['probe_cascade'])} {start.elapsed_time(end):.3f} ms")
     k = min(5, len(losses))
     print(f"{cfg.name} (attention {cfg.attention_impl}, chunked_ce "
-          f"{cfg.chunked_ce}), B {b} x S {s}: loss mean of the first {k} "
+          f"{cfg.chunked_ce}, moe_impl {cfg.moe_impl}), B {b} x S {s}: "
+          f"loss mean of the first {k} "
           f"{sum(losses[:k]) / k:.4f}, of the last {k} "
           f"{sum(losses[-k:]) / k:.4f}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")

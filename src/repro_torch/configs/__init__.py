@@ -19,8 +19,9 @@ import importlib
 
 import torch
 
-#: the architectures the port runs (the dense family)
-ARCHS = ["smollm_360m", "llama3_2_1b", "deepseek_coder_33b", "yi_9b"]
+#: the architectures the port runs (the dense and MoE families)
+ARCHS = ["smollm_360m", "llama3_2_1b", "deepseek_moe_16b",
+         "deepseek_coder_33b", "yi_9b", "granite_moe_1b_a400m"]
 
 # canonical ids -> module names (every architecture of the JAX package)
 ALIASES = {

@@ -6,12 +6,14 @@ package's ``AFMState`` gives (a mapping or a namedtuple of ``w``, ``c``,
 ``far``, ``near``, ``i``) and returns the port's ``AFMState`` on a device;
 ``state_to_numpy`` is its inverse.
 
-``lm_params_from_numpy`` takes the JAX package's dense-LM ``init_params``
-tree as numpy (``embed``, ``ln_f``, optional ``unembed``, and ``blocks``,
+``lm_params_from_numpy`` takes the JAX package's ``init_params`` tree of a
+dense or MoE LM as numpy (``embed``, ``ln_f``, optional ``unembed``, and
+one entry a stack of the layer plan, ``blocks`` and ``dense_blocks``,
 whose leaves carry a leading layer axis) and returns the port's
-``Transformer``; dense weights are (d_in, d_out) in both packages, so
-nothing is transposed. ``lm_cache_from_numpy`` does the same for a KV cache
-(``{"blocks": {"k", "v"}}``). The ``*_to_numpy`` functions are their
+``Transformer``; dense weights are (d_in, d_out) and expert stacks (E,
+d_in, d_out) in both packages, so nothing is transposed.
+``lm_cache_from_numpy`` does the same for a KV cache (``{"blocks": {"k",
+"v"}}``, one entry a stack). The ``*_to_numpy`` functions are their
 inverses; bf16 leaves come back as float32 (exact). ``lm_params_tree``
 keeps each leaf's own dtype, as CPU tensors: the tree a checkpoint of the
 weights is written from.
@@ -26,7 +28,7 @@ import torch
 from repro_torch.core.afm import AFMState
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, layer_of
 
 FIELDS = ("w", "c", "far", "near", "i")
 _DTYPES = {"w": torch.float32, "c": torch.int32, "far": torch.int32,
@@ -61,13 +63,14 @@ def _float_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 def _leaf(tree: Mapping[str, Any], name: str):
     """The numpy leaf of a parameter name: ``blocks.3.attn.wq`` is layer 3
     of ``tree["blocks"]["attn"]["wq"]``."""
-    parts = name.split(".")
-    if parts[0] != "blocks":
+    where = layer_of(name)
+    if where is None:
         return tree[name]
-    node = tree["blocks"]
-    for part in parts[2:]:
+    stack, layer, path = where
+    node = tree[stack]
+    for part in path:
         node = node[part]
-    return np.asarray(node)[int(parts[1])]
+    return np.asarray(node)[layer]
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
@@ -94,19 +97,20 @@ def lm_params_tree(model: Transformer,
     (bf16 weights stay bf16) or in ``dtype``. ``training.checkpoint.save``
     writes it as JAX's ``save`` writes the ``init_params`` tree of the same
     config, byte for byte."""
-    tree: dict = {"blocks": {}}
+    tree: dict = {}
     layers: dict = {}
     for name, param in model.named_parameters():
         arr = param.detach().cpu()
         if dtype is not None:
             arr = arr.to(dtype)
-        parts = name.split(".")
-        if parts[0] != "blocks":
+        where = layer_of(name)
+        if where is None:
             tree[name] = arr
         else:
-            layers.setdefault(tuple(parts[2:]), []).append(arr)
-    for path, arrs in layers.items():
-        node = tree["blocks"]
+            stack, _, path = where
+            layers.setdefault((stack, path), []).append(arr)
+    for (stack, path), arrs in layers.items():
+        node = tree.setdefault(stack, {})
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[path[-1]] = torch.stack(arrs)

@@ -11,7 +11,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.swa import ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 128)
+#: head dims the kernel is built for (32: the MoE configs' smoke widths)
+HEAD_DIMS = (32, 64, 128)
 MAX_REP = 8
 
 #: calls of ``swa_decode`` that ran the kernel on the card, one per call
@@ -93,7 +94,7 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     W = k.shape[1] slots; see ``ref.swa_decode_ref`` (window = W).
 
     q: (B, H, hd); k, v: (B, W, Hkv, hd) in q's dtype (float32 or bfloat16);
-    pos: (B,) int32, >= 0. hd is 64 or 128 and H / Hkv is 1 to 8. On CUDA
+    pos: (B,) int32, >= 0. hd is 32, 64 or 128 and H / Hkv is 1 to 8. On CUDA
     all four must be contiguous on one card. Returns (B, H, hd) in q's dtype.
 
     On the card the slots of each (batch row, kv head) are split across

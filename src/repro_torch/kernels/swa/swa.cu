@@ -420,7 +420,7 @@ constexpr int MMA_RING_BYTES = MMA_STAGES * 2 * WARPS * 16 * (HD + 8) * 2;
 // with P split in a bf16 high and low part (two MMAs, so the product keeps
 // ~16 bits of the f32 probabilities) and V read by ldmatrix.trans.
 template <int HD>
-__global__ void __launch_bounds__(THREADS, HD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, HD <= 64 ? 2 : 1)
 swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
@@ -624,7 +624,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* pos,
 }  // namespace
 
 // q (b, hkv * rep, hd), k and v (b, w, hkv, hd), all of one type (bf16 when
-// `bf16`, else f32), pos (b,) int32, out like q; hd 64 or 128, rep 1..8;
+// `bf16`, else f32), pos (b,) int32, out like q; hd 32, 64 or 128 (32: the
+// MoE configs' smoke widths), rep 1..8;
 // splits x slots >= w as `ops.plan` gives them; with splits > 1, part_ml
 // (b, hkv, splits, rep, 2) and part_acc (b, hkv, splits, rep, hd) f32
 // scratch, and tickets (b * hkv,) int32, zero before the call and left so
@@ -636,18 +637,19 @@ extern "C" int repro_swa_decode(const void* q, const void* k, const void* v,
                                 void* tickets, void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b < 1 || b > 65535 || hkv < 1 || hkv > 65535 || w < 1 || rep < 1 ||
-      rep > 8 || (hd != 64 && hd != 128) || splits < 1 || slots < 1 ||
+      rep > 8 || (hd != 32 && hd != 64 && hd != 128) || splits < 1 ||
+      slots < 1 ||
       static_cast<int64_t>(splits) * slots < w || splits > MAX_SPLITS ||
       (splits > 1 && (part_ml == nullptr || part_acc == nullptr ||
                       tickets == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bf16) {
-    return hd == 64
-               ? launch_bf16<64>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s)
-               : launch_bf16<128>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+    if (hd == 32) return launch_bf16<32>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+    if (hd == 64) return launch_bf16<64>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+    return launch_bf16<128>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
   }
-  return hd == 64
-             ? launch_f32_rep<64>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s)
-             : launch_f32_rep<128>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+  if (hd == 32) return launch_f32_rep<32>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+  if (hd == 64) return launch_f32_rep<64>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+  return launch_f32_rep<128>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
 }

@@ -1,10 +1,12 @@
-"""Serving launcher: batched prefill and a decode loop for a dense LM, on
-the card unless asked otherwise. The port of ``repro.launch.serve``:
+"""Serving launcher: batched prefill and a decode loop for a dense or MoE
+LM, on the card unless asked otherwise. The port of ``repro.launch.serve``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --batch 4 --prompt-len 128 --max-new 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --batch 4 --prompt-len 128 --max-new 32
 
 Weights come from the port's seeded init (no checkpoint) and prompts from a
 seeded ``torch.Generator``. Every decode step's attention runs on the

@@ -1,18 +1,21 @@
-"""Training launcher: end-to-end LM training of a dense architecture (full
-or smoke config) on the card unless asked otherwise, with the optional AFM
+"""Training launcher: end-to-end LM training of a dense or MoE architecture
+(full or smoke config) on the card unless asked otherwise, with the optional AFM
 probe and a checkpoint of the weights. The port of ``repro.launch.train``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --probe --probe-side 8 --batch 4 --seq 1024 --steps 30
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --smoke --probe --device cpu --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-1b-a400m --probe --batch 4 --seq 1024 --steps 20
 
 Weights come from the port's seeded init, tokens from the synthetic Markov
 corpus (``data.tokens``) on a seeded CPU generator. With ``--probe`` every
 step feeds the mean-pooled final hidden states to a ``probe-side`` squared
 AFM whose search and cascade run on the ``bmu`` and ``drive_cascade``
-kernels on CUDA (their plain versions on the CPU). The families the port
-lacks (MoE, SSM, hybrid, audio, VLM) raise "not ported yet".
+kernels on CUDA (their plain versions on the CPU). An MoE model's loss
+adds ``router_aux_coef`` times its router loss. The families the port
+lacks (SSM, hybrid, audio, VLM) raise "not ported yet".
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     runs the step."""
     # the ssm family's ssm_chunk fix-up and the audio and vlm families'
     # extra inputs (frames; vision embeds and M-RoPE positions) come with
-    # those families; the port trains the dense family
+    # those families; the port trains the dense and MoE families
     transformer._layer_plan(cfg)
     device = resolve_device(device)
     cuda = device.type == "cuda"

@@ -1,20 +1,27 @@
-"""The dense LM family (L x (GQA attention + SwiGLU MLP)): parameters,
-full-sequence forward, prefill and single-token decode over a KV cache.
+"""The dense and MoE LM families: parameters, full-sequence forward, prefill
+and single-token decode over a KV cache.
 
-A port of the dense path of ``repro.models.transformer``. The parameters
+- dense: L x (GQA attention + SwiGLU MLP);
+- moe: L x (GQA attention + MoE FFN), after ``first_dense_layers`` leading
+  layers of a SwiGLU FFN of ``first_dense_d_ff`` (deepseek-moe).
+
+A port of those families of ``repro.models.transformer``. The parameters
 live in ``nn.Module``s (a ``Block`` per layer, with its ``Attention`` and
-``MLP``, in an ``nn.ModuleList``); the layer loop is a Python ``for`` loop
-where JAX scans. The entry points are plain functions, as in JAX, and take
-the config explicitly, so one set of weights can be served under several
-configs (e.g. ``configs.for_shape(cfg, "long_500k")``):
+its ``MLP`` or ``MoE``), one ``nn.ModuleList`` a stack of the layer plan
+(``blocks``; ``dense_blocks`` before it where the MoE family has leading
+dense layers); the layer loop is a Python ``for`` loop where JAX scans.
+The entry points are plain functions, as in JAX, and take the config
+explicitly, so one set of weights can be served under several configs
+(e.g. ``configs.for_shape(cfg, "long_500k")``):
 
     model = init_params(cfg, seed=0)                   # on CUDA by default
     last_logits, cache = prefill(model, {"tokens": prompt}, cfg, cache_len)
     logits, cache = decode_step(model, tokens, pos, cache, cfg)
 
-The cache is ``{"blocks": {"k": (L, B, S, Hkv, hd), "v": ...}}``, as in
-JAX; ``decode_step`` writes into it in place and returns it. Other
-families (MoE, SSM, hybrid, audio, VLM) raise "not ported yet".
+The cache holds one entry a stack, ``{"blocks": {"k": (L, B, S, Hkv, hd),
+"v": ...}}`` (and ``"dense_blocks"``), as in JAX; ``decode_step`` writes
+into it in place and returns it. Other families (SSM, hybrid, audio, VLM)
+raise "not ported yet".
 
 Training (``repro_torch.training.train_step``) differentiates
 ``forward_train`` or ``forward_hidden`` + ``chunked_ce_loss``. The weights
@@ -38,20 +45,27 @@ from repro_torch.models.common import (ModelConfig, dense, init_dense,
 
 
 def _layer_plan(cfg: ModelConfig):
-    """Returns (stacks, tail), lists of (name, kind, count, cross); the
-    dense family only."""
-    if (cfg.arch_type != "dense" or cfg.mrope_sections
+    """Returns (stacks, tail), lists of (name, kind, count, cross), as JAX's
+    ``_layer_plan``; the dense and MoE families only."""
+    if (cfg.arch_type not in ("dense", "moe") or cfg.mrope_sections
             or cfg.learned_positions or cfg.is_encoder_decoder):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.arch_type!r} family is not ported yet; the "
-            f"port runs the dense family")
+            f"port runs the dense and MoE families")
+    if cfg.arch_type == "moe":
+        nd = cfg.first_dense_layers
+        stacks = [("dense_blocks", "dense_ffn", nd, False)] if nd else []
+        stacks.append(("blocks", "moe", cfg.num_layers - nd, False))
+        return stacks, []
     return [("blocks", "attn", cfg.num_layers, False)], []
 
 
 class Block(nn.Module):
-    """One layer: RMS norm, attention, RMS norm, MLP (pre-norm residual)."""
+    """One layer: RMS norm, attention, RMS norm, then by ``kind`` the MLP
+    (``attn``), a SwiGLU MLP of ``first_dense_d_ff`` (``dense_ffn``) or the
+    MoE layer (``moe``); pre-norm residuals."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str = "attn", device=None):
         super().__init__()
         d = cfg.d_model
         self.ln1 = nn.Parameter(torch.zeros(d, device=device),
@@ -59,8 +73,15 @@ class Block(nn.Module):
         self.attn = attention.Attention(cfg, device)
         self.ln2 = nn.Parameter(torch.zeros(d, device=device),
                                 requires_grad=False)
-        self.mlp = mlp_lib.MLP(d, cfg.d_ff, cfg.param_dtype, cfg.mlp_kind,
-                               device)
+        self.kind = kind
+        if kind == "moe":
+            self.moe = mlp_lib.MoE(cfg, device)
+        elif kind == "dense_ffn":
+            self.mlp = mlp_lib.MLP(d, cfg.first_dense_d_ff or cfg.d_ff,
+                                   cfg.param_dtype, device=device)
+        else:
+            self.mlp = mlp_lib.MLP(d, cfg.d_ff, cfg.param_dtype, cfg.mlp_kind,
+                                   device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator,
@@ -68,17 +89,20 @@ class Block(nn.Module):
         self.ln1.zero_()
         self.ln2.zero_()
         self.attn.reset_parameters(generator, cfg)
-        self.mlp.reset_parameters(generator, cfg.num_layers)
+        if self.kind == "moe":
+            self.moe.reset_parameters(generator, cfg)
+        else:
+            self.mlp.reset_parameters(generator, cfg.num_layers)
 
 
 class Transformer(nn.Module):
     """Token embedding (tied to the output unless ``unembed`` is set), the
-    block stack and the final norm. Built empty; ``init_params`` or
-    ``convert.lm_params_from_numpy`` fill it."""
+    block stacks of the layer plan and the final norm. Built empty;
+    ``init_params`` or ``convert.lm_params_from_numpy`` fill it."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _layer_plan(cfg)
+        stacks, _ = _layer_plan(cfg)
         self.cfg = cfg
         d, dt = cfg.d_model, cfg.param_dtype
         self.embed = nn.Parameter(
@@ -89,8 +113,9 @@ class Transformer(nn.Module):
         self.unembed = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(d, cfg.vocab_size, dtype=dt, device=device),
             requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        for name, kind, count, _ in stacks:
+            self.add_module(name, nn.ModuleList(
+                Block(cfg, kind, device) for _ in range(count)))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -101,8 +126,9 @@ class Transformer(nn.Module):
         if self.unembed is not None:
             self.unembed.copy_(init_dense(generator, cfg.d_model,
                                           cfg.vocab_size, cfg.param_dtype))
-        for blk in self.blocks:
-            blk.reset_parameters(generator, cfg)
+        for _, _, blocks in _stacks(self, cfg):
+            for blk in blocks:
+                blk.reset_parameters(generator, cfg)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens -> (B, S, V) f32 logits under the model's config."""
@@ -125,16 +151,44 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return model
 
 
+def layer_of(name: str):
+    """(stack, layer, path in the layer) of a parameter name of a stack,
+    such as ``blocks.3.moe.wg`` or ``dense_blocks.0.mlp.wg``; None for a
+    top-level one (``embed``). JAX's tree holds each stack's leaves on a
+    leading layer axis instead."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[1].isdigit():
+        return parts[0], int(parts[1]), tuple(parts[2:])
+    return None
+
+
+def _stacks(model: Transformer, cfg: ModelConfig):
+    """(name, kind, ModuleList) of each stack of the layer plan, in
+    order."""
+    return [(name, kind, getattr(model, name))
+            for name, kind, _, _ in _layer_plan(cfg)[0]]
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward
 
 
-def _block_fwd(p: Block, x, positions, cfg: ModelConfig):
+def _ffn(p: Block, h2, cfg: ModelConfig, kind: str):
+    """The block's feed-forward sublayer: (output, the MoE router's aux
+    loss, or None for a dense FFN)."""
+    if kind == "moe":
+        return mlp_lib.moe(p.moe, h2, cfg)
+    return mlp_lib.mlp(p.mlp, h2), None
+
+
+def _block_fwd(p: Block, x, positions, cfg: ModelConfig, kind: str):
+    """One block over the full sequence: (x, aux or None)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     att, _ = attention.self_attention(p.attn, h, positions, cfg)
     x = x + att
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + mlp_lib.mlp(p.mlp, h2)
+    y, aux = _ffn(p, h2, cfg, kind)
+    return x + y, aux
 
 
 def _embed(model: Transformer, tokens, cfg: ModelConfig):
@@ -159,35 +213,39 @@ def _training(model: Transformer) -> bool:
 
 
 def forward_hidden(model: Transformer, batch: dict, cfg: ModelConfig):
-    """Full forward up to the (pre-ln_f) hidden states (B, S, D).
+    """Full forward up to the (pre-ln_f) hidden states. Returns (x (B, S,
+    D), aux): aux the 0-d f32 sum of the MoE layers' router losses, in
+    JAX's order (zero for the dense family).
 
     In training with ``cfg.remat`` each block runs under a non-reentrant
     ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of the scanned
     block body): only the block's input is kept, and the backward pass
     recomputes the rest."""
-    _layer_plan(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed(model, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and _training(model)
-    for blk in model.blocks:
-        if remat:
-            x = checkpoint(_block_fwd, blk, x, positions, cfg,
-                           use_reentrant=False)
-        else:
-            x = _block_fwd(blk, x, positions, cfg)
-    return x
+    for _, kind, blocks in _stacks(model, cfg):
+        for blk in blocks:
+            if remat:
+                x, a = checkpoint(_block_fwd, blk, x, positions, cfg, kind,
+                                  use_reentrant=False)
+            else:
+                x, a = _block_fwd(blk, x, positions, cfg, kind)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def forward_train(model: Transformer, batch: dict, cfg: ModelConfig,
                   return_hidden: bool = False):
     """batch: tokens (B, S). Returns (logits (B, S, V) f32, aux) [, the
     pre-ln_f hidden states (B, S, D) when ``return_hidden``]. ``aux`` is
-    the auxiliary loss, a 0-d f32 zero for the dense family (the MoE
-    router's loss waits for that family)."""
-    x = forward_hidden(model, batch, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    the MoE router's auxiliary loss summed over the layers, a 0-d f32 (zero
+    for the dense family)."""
+    x, aux = forward_hidden(model, batch, cfg)
     if return_hidden:
         return _logits(model, x, cfg), aux, x
     return _logits(model, x, cfg), aux
@@ -196,7 +254,7 @@ def forward_train(model: Transformer, batch: dict, cfg: ModelConfig,
 def forward(model: Transformer, batch: dict, cfg: ModelConfig):
     """batch: tokens (B, S). Returns logits (B, S, V) f32 (``forward_train``
     without its auxiliary loss)."""
-    return _logits(model, forward_hidden(model, batch, cfg), cfg)
+    return _logits(model, forward_hidden(model, batch, cfg)[0], cfg)
 
 
 def _chunk_ce(h, y, w):
@@ -234,8 +292,8 @@ def chunked_ce_loss(model: Transformer, hidden, labels, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """Zeroed KV cache in ``cfg.dtype``, ``{"blocks": {"k", "v"}}`` of
-    (L, B, S, Hkv, hd)."""
+    """Zeroed KV cache in ``cfg.dtype``: for each stack of the layer plan
+    ``{name: {"k", "v"}}`` of (L, B, S, Hkv, hd), L the stack's layers."""
     stacks, _ = _layer_plan(cfg)
     cache = {}
     for name, _, count, _ in stacks:
@@ -246,23 +304,24 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
     return cache
 
 
-def _decode_block(p: Block, x, pos, cache_k, cache_v, cfg: ModelConfig):
+def _decode_block(p: Block, x, pos, cache_k, cache_v, cfg: ModelConfig,
+                  kind: str):
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     att, _, _ = attention.decode_attention(p.attn, h, cache_k, cache_v, pos,
                                            cfg)
     x = x + att
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + mlp_lib.mlp(p.mlp, h2)
+    return x + _ffn(p, h2, cfg, kind)[0]        # the router's aux dropped
 
 
 def decode_step(model: Transformer, tokens, pos, cache, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); pos: (B,) int32. Writes the new
     K/V rows into ``cache`` in place. Returns (logits (B, V) f32, cache)."""
-    _layer_plan(cfg)
     x = _embed(model, tokens, cfg)
-    ck, cv = cache["blocks"]["k"], cache["blocks"]["v"]
-    for i, blk in enumerate(model.blocks):
-        x = _decode_block(blk, x, pos, ck[i], cv[i], cfg)
+    for name, kind, blocks in _stacks(model, cfg):
+        ck, cv = cache[name]["k"], cache[name]["v"]
+        for i, blk in enumerate(blocks):
+            x = _decode_block(blk, x, pos, ck[i], cv[i], cfg, kind)
     return _logits(model, x, cfg)[:, 0], cache
 
 
@@ -280,19 +339,21 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
     positions = _positions(b, s, tokens.device)
     x = _embed(model, tokens, cfg)
     cache = init_cache(cfg, b, cache_len, device=tokens.device)
-    ck, cv = cache["blocks"]["k"], cache["blocks"]["v"]
-    for i, blk in enumerate(model.blocks):
-        h = rms_norm(x, blk.ln1, cfg.norm_eps)
-        att, (k, v) = attention.self_attention(blk.attn, h, positions, cfg)
-        x = x + att
-        if cache_len >= s:
-            # linear layout: slot = position
-            ck[i, :, :s] = k
-            cv[i, :, :s] = v
-        else:
-            # ring buffer: position t lives at slot t % cache_len
-            ck[i] = torch.roll(k[:, -cache_len:], s % cache_len, dims=1)
-            cv[i] = torch.roll(v[:, -cache_len:], s % cache_len, dims=1)
-        h2 = rms_norm(x, blk.ln2, cfg.norm_eps)
-        x = x + mlp_lib.mlp(blk.mlp, h2)
+    for name, kind, blocks in _stacks(model, cfg):
+        ck, cv = cache[name]["k"], cache[name]["v"]
+        for i, blk in enumerate(blocks):
+            h = rms_norm(x, blk.ln1, cfg.norm_eps)
+            att, (k, v) = attention.self_attention(blk.attn, h, positions,
+                                                   cfg)
+            x = x + att
+            if cache_len >= s:
+                # linear layout: slot = position
+                ck[i, :, :s] = k
+                cv[i, :, :s] = v
+            else:
+                # ring buffer: position t lives at slot t % cache_len
+                ck[i] = torch.roll(k[:, -cache_len:], s % cache_len, dims=1)
+                cv[i] = torch.roll(v[:, -cache_len:], s % cache_len, dims=1)
+            h2 = rms_norm(x, blk.ln2, cfg.norm_eps)
+            x = x + _ffn(blk, h2, cfg, kind)[0]   # the router's aux dropped
     return _logits(model, x[:, -1:], cfg)[:, 0], cache

@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models.transformer import layer_of
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -76,11 +78,12 @@ def global_norm(tree: dict) -> torch.Tensor:
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether weight decay applies to a parameter: JAX's rule, ``ndim >= 2``
     (no decay on scales and biases), on the leaf as the JAX package's tree
-    holds it. That tree stacks every block's leaf on a leading layer axis,
-    so its rule decays the blocks' norm scales ((L, d)) and not ``ln_f``;
-    the port keeps one tensor a layer (``blocks.<i>.…``), which counts one
-    axis fewer."""
-    return p.ndim + name.startswith("blocks.") >= 2
+    holds it. That tree stacks every block's leaf on a leading layer axis
+    (``blocks``, and ``dense_blocks`` where the MoE family has leading
+    dense layers), so its rule decays the blocks' norm scales ((L, d)) and
+    not ``ln_f``; the port keeps one tensor a layer (``<stack>.<i>.…``),
+    which counts one axis fewer."""
+    return p.ndim + (layer_of(name) is not None) >= 2
 
 
 @torch.no_grad()

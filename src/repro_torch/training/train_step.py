@@ -59,8 +59,7 @@ def lm_loss(model: transformer.Transformer, batch: dict, cfg: ModelConfig,
     states come back when ``return_hidden`` or ``cfg.chunked_ce``."""
     labels = batch["labels"]
     if cfg.chunked_ce:
-        hidden = transformer.forward_hidden(model, batch, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        hidden, aux = transformer.forward_hidden(model, batch, cfg)
         ce = transformer.chunked_ce_loss(model, hidden, labels, cfg)
     else:
         out = transformer.forward_train(model, batch, cfg,

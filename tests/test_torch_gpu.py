@@ -528,7 +528,11 @@ SWA_SHAPES = [(1, 32, 8, 64, 8192, p)
     (4, 32, 8, 64, 192, 128), (2, 8, 2, 64, 512, 100),
     (1, 4, 1, 128, 1024, 70_000), (3, 16, 8, 64, 256, 255),
     (2, 4, 4, 128, 128, 4), (2, 6, 2, 128, 96, 60), (2, 3, 3, 64, 100, 120),
-    (3, 8, 2, 64, 64, 40), (2, 4, 4, 64, 1, 5)]
+    (3, 8, 2, 64, 64, 40), (2, 4, 4, 64, 1, 5),
+    # the MoE decode shapes: granite-moe-1b-a400m, deepseek-moe-16b (rep 1,
+    # hd 128), and hd 32 (their smoke widths) on one split and on several
+    (4, 16, 8, 64, 192, 128), (4, 16, 16, 128, 160, 96),
+    (2, 4, 2, 32, 40, 20), (1, 8, 2, 32, 1024, 700)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1269,3 +1273,53 @@ def test_bf16_weights_checkpoint_round_trips_from_the_card(cuda, tmp_path):
             node = node[part]
         assert torch.equal(node[int(parts[1])].view(torch.int16),
                            p.detach().view(torch.int16)), name
+
+
+# ------------------------------------------------------------ the MoE family
+
+MOE_ARCHS = ["granite-moe-1b-a400m", "deepseek-moe-16b"]
+
+
+@pytest.mark.parametrize("impl", ["dense", "ragged", "ep"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_on_the_card_equals_the_cpu(cuda, arch, impl):
+    """``moe`` at the f32 smoke width on the card and on the CPU from the
+    same weights and tokens: the output within 1e-5 of its largest value
+    and the router's aux within 1e-5 relative (the matrix products sum in
+    another order on the card)."""
+    import copy
+    import dataclasses
+    from repro_torch.models import mlp
+    cfg = dataclasses.replace(configs.get_smoke(arch), moe_impl=impl)
+    p = transformer.init_params(cfg, seed=0, device="cpu").blocks[0].moe
+    x = torch.randn(2, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    y, aux = mlp.moe(p, x, cfg)
+    yg, auxg = mlp.moe(copy.deepcopy(p).to(cuda), x.to(cuda), cfg)
+    assert float((yg.cpu() - y).abs().max()) <= 1e-5 * float(y.abs().max())
+    assert abs(float(auxg) - float(aux)) <= 1e-5 * abs(float(aux))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_step_on_the_card_equals_the_cpu(cuda, arch):
+    """One decode step of each MoE smoke config (hd 32: the swa kernel's
+    smallest head dim) from the same prefilled cache: logits within 2e-4
+    (1 + max|logit|), one ``swa_decode`` launch a layer."""
+    import copy
+    cfg = configs.get_smoke(arch)
+    model = transformer.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(2))
+    _, cache = transformer.prefill(model, {"tokens": prompt}, cfg,
+                                   cache_len=16)
+    tok = prompt[:, -1:]
+    pos = torch.full((2,), 12, dtype=torch.int32)
+    gcache = {name: {kv: c.to(cuda) for kv, c in stack.items()}
+              for name, stack in cache.items()}
+    want, _ = transformer.decode_step(model, tok, pos, cache, cfg)
+    before = swa_ops.launches
+    got, _ = transformer.decode_step(copy.deepcopy(model).to(cuda),
+                                     tok.to(cuda), pos.to(cuda), gcache, cfg)
+    assert swa_ops.launches == before + cfg.num_layers
+    tol = 2e-4 * (1 + float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= tol

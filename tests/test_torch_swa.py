@@ -52,6 +52,9 @@ def _inputs(b, h, hkv, hd, w, pos, seed):
     (2, 3, 3, 128, 100, 120),
     # rows on both sides of a full ring (pos 40, 77 and 114 over W = 64)
     (3, 8, 2, 64, 64, 40),
+    # hd 32 (the MoE configs' smoke widths): a linear cache and a ring
+    (2, 4, 2, 32, 40, 20),
+    (2, 4, 4, 32, 16, 30),
 ])
 def test_swa_plain_matches_jax(b, h, hkv, hd, w, pos):
     q, k, v, posv = _inputs(b, h, hkv, hd, w, pos, seed=b * h + w + pos)
@@ -107,7 +110,7 @@ def test_swa_on_a_linear_cache_is_causal_attention(pos):
 def _bad_inputs():
     q, k, v, pos = (t(x) for x in _inputs(2, 8, 2, 64, 16, 5, seed=0))
     return {
-        "head dim 32": (q[..., :32], k[..., :32], v[..., :32], pos),
+        "head dim 48": (q[..., :48], k[..., :48], v[..., :48], pos),
         "rep 9": (torch.zeros(2, 9, 64), k[:, :, :1], v[:, :, :1], pos),
         "H not a multiple of Hkv": (q[:, :7], k, v, pos),
         "float16": (q.half(), k.half(), v.half(), pos),
@@ -204,6 +207,7 @@ def _split_plans(w, b, hkv):
     (1, 4, 1, 128, 1024, 70_000),  # full, wrapped ring
     (3, 8, 2, 64, 64, 40),        # rows on both sides of a full ring
     (2, 6, 2, 128, 96, 60),
+    (1, 8, 2, 32, 1024, 700),     # hd 32
 ])
 def test_swa_split_combine_matches_the_pallas_kernel(b, h, hkv, hd, w, pos):
     """The kernel's split-and-combine arithmetic (plain, in base 2,

@@ -464,7 +464,8 @@ def test_token_batches_walk_the_successor_table():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "smollm-360m", "yi-9b",
-                                  "deepseek-coder-33b"])
+                                  "deepseek-coder-33b", "deepseek-moe-16b",
+                                  "granite-moe-1b-a400m"])
 def test_get_optimized_matches_jax(arch):
     ours = dataclasses.asdict(configs.get_optimized(arch))
     theirs = dataclasses.asdict(jconfigs.get_optimized(arch))
@@ -474,7 +475,7 @@ def test_get_optimized_matches_jax(arch):
     assert configs.OPTIMIZED == jconfigs.OPTIMIZED
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "granite-moe-1b-a400m",
+@pytest.mark.parametrize("arch", ["whisper-medium", "recurrentgemma-2b",
                                   "qwen2-vl-72b", "mamba2-1.3b"])
 def test_get_optimized_refuses_unported_families(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -571,7 +572,7 @@ def test_train_launcher_refuses():
         train_cli.main(["--arch", "mamba2-1.3b", "--smoke", "--device",
                         "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.run(torch_cfg(arch_type="moe"), steps=1, device="cpu")
+        train_cli.run(torch_cfg(arch_type="ssm"), steps=1, device="cpu")
 
 
 @pytest.mark.slow

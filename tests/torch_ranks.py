@@ -408,3 +408,41 @@ def sharded_card_and_cpu(rank):
         out.append({"w": full.w.cpu().numpy(), "c": full.c.cpu().numpy(),
                     "size": int(aux.cascade_size), "waves": int(aux.waves)})
     return out
+
+
+def moe_ep(rank, cases, factors):
+    """``test_torch_moe_train.py``'s expert parallelism on a 2-rank
+    ``model`` axis: for each smoke config in ``cases`` (JAX's layer-0 MoE
+    weights, the tokens and JAX's routing as arrays) and each capacity
+    factor, ``moe_ep_path`` on this rank's half of the experts fed JAX's
+    routing, and ``moe(..., mesh=)`` with its own; numpy results."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import mlp
+    from repro_torch.sharding import ShardMesh
+    mesh = ShardMesh((2,), ("model",))
+    out = {}
+    for arch, a in cases.items():
+        base = configs.get_smoke(arch)
+        p = mlp.MoE(base, "cpu")
+        with torch.no_grad():
+            for name in ("router", "wg", "wu", "wd"):
+                getattr(p, name).copy_(_t(a[name]))
+            if p.shared is not None:
+                for name in ("wg", "wu", "wd"):
+                    getattr(p.shared, name).copy_(_t(a[f"shared_{name}"]))
+        x = _t(a["x"])
+        e_loc = base.num_experts // 2
+        local = {n: getattr(p, n)[rank * e_loc:(rank + 1) * e_loc]
+                 for n in ("wg", "wu", "wd")}
+        out[arch] = []
+        for f in factors:
+            body = mlp.moe_ep_path(local, x, _t(a["top_i"]).long(),
+                                   _t(a["top_p"]), base, torch.float32, mesh,
+                                   capacity_factor=f)
+            cfg = dataclasses.replace(base, moe_impl="ep",
+                                      moe_capacity_factor=f)
+            y, aux = mlp.moe(p, x[None], cfg, mesh=mesh)
+            out[arch].append({"body": body.numpy(), "moe": y[0].numpy(),
+                              "aux": float(aux)})
+    return out
