@@ -167,6 +167,27 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     5 of ``get_optimized``; one ``bmu`` and one ``drive_cascade`` a step;
     ms a step, tokens/s, peak memory, model FLOPs on the active
     parameters beside the bf16 peak; the kernel rows at the new shapes;
+11N. the recurrent families (``recurrent_phase``), last: (a)
+    mamba2-1.3b and recurrentgemma-2b at smoke width (f32) on the card
+    against the CPU: forward logits, prefill and 16 greedy decode steps
+    (recurrentgemma also an 80-token prompt on its 64-slot ring, past its
+    window), one train step's loss, ce and grad_norm; (b) ``swa_decode``
+    at hd 256 with MQA (rep 10: B 4 x W 192 and B 1 x W 2,048 on a
+    wrapped ring), a ragged rep 12 and rep 16, against its plain version,
+    f32 and bf16; (c, d) both served at full width, bf16, through
+    ``launch/serve.py``'s ``run``: B 4 x 128 + 64, then B 1 x 8,704 + 64
+    (mamba2: 34 chunks of 256; recurrentgemma: its 2,048-slot long_500k
+    ring, the prefill's attention chunked), the decode cache's bytes,
+    exactly one ``swa_decode`` launch an attention layer a step (8 for
+    recurrentgemma, none for mamba2), the kernel held to its plain version
+    on recurrentgemma's layer-0 cache after the long prefill; (e) both
+    trained at full width with an 8x8 probe through ``launch/train.py``'s
+    ``run`` (B 4 x S 1,024, lr 3e-4, 20 steps): losses and grad norms
+    finite (mamba2's at its chunk of 256, where the reference's SSD
+    gradient is NaN), the loss falling, one ``bmu`` and one
+    ``drive_cascade`` a step; ms a step, tokens/s, peak memory, model
+    FLOPs beside the bf16 peak; (f) the swa rows at recurrentgemma's two
+    decode shapes and the probe's rows at D 2,048 and 2,560;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -2975,6 +2996,15 @@ def check_swa_kernel(device):
     return worst
 
 
+def attn_layers(cfg) -> int:
+    """The layers of ``cfg``'s plan whose decode attention runs on
+    ``swa_decode`` (all but the SSD and RG-LRU layers)."""
+    from repro_torch.models import transformer
+    stacks, tail = transformer._layer_plan(cfg)
+    return sum(count for _, kind, count, _ in stacks + tail
+               if kind not in ("ssm", "rglru"))
+
+
 def teacher_forced_logits(model, cfg, prompt, tokens, cache_len):
     """Logits of prefill and then decode steps fed ``tokens`` (another
     run's choices), (B, new, V)."""
@@ -2995,10 +3025,10 @@ def teacher_forced_logits(model, cfg, prompt, tokens, cache_len):
 def decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, new, cache_len,
                        what):
     """Greedy generation of ``new`` tokens on the card (decode attention on
-    the kernel, one launch a layer a step) and on the CPU (plain version)
-    from the same weights and prompt: the card's logits teacher-forced on
-    the CPU's tokens within LOGIT_TOL; free-running tokens equal, except
-    where the CPU's top two logits lie within it."""
+    the kernel, one launch an attention layer a step) and on the CPU (plain
+    version) from the same weights and prompt: the card's logits
+    teacher-forced on the CPU's tokens within LOGIT_TOL; free-running
+    tokens equal, except where the CPU's top two logits lie within it."""
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.serving import serve_step
     device = next(gpu_model.parameters()).device
@@ -3007,7 +3037,7 @@ def decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, new, cache_len,
     before = swa_ops.launches
     toks_g = serve_step.generate(gpu_model, cfg, prompt.to(device), new,
                                  cache_len).cpu()
-    if swa_ops.launches - before != cfg.num_layers * (new - 1):
+    if swa_ops.launches - before != attn_layers(cfg) * (new - 1):
         raise AssertionError(f"{what}: swa_decode launched "
                              f"{swa_ops.launches - before} times")
     forced = teacher_forced_logits(gpu_model, cfg, prompt.to(device),
@@ -3055,7 +3085,7 @@ def _serve_run(serve, model, cfg, prompts, new, cache_len, what):
     out = serve.run(model, cfg, prompts, max_new=new, cache_len=cache_len,
                     return_logits=True)
     counts = _launch_counts()
-    expect = cfg.num_layers * (new - 1)
+    expect = attn_layers(cfg) * (new - 1)
     if counts["swa_decode"] != expect:
         raise AssertionError(f"{what}: swa_decode launched "
                              f"{counts['swa_decode']} times, not {expect}")
@@ -4139,6 +4169,357 @@ def moe_phase(device):
     return rows
 
 
+#: phase N: the recurrent families, mamba2-1.3b (SSM, SSD) and
+#: recurrentgemma-2b (hybrid: RG-LRU and local attention at hd 256, MQA
+#: rep 10). Card against the CPU at smoke width (f32); swa_decode at
+#: recurrentgemma's decode shapes (label, B, H, Hkv, hd, W, first pos;
+#: rows step by 21 positions): the serve shape, the 2,048-slot ring of
+#: long_500k (8 splits), a ragged rep 12 and rep 16; both served at full
+#: width, bf16 (B 4, a 128-token prompt, 64 new tokens on a 192-slot
+#: cache; B 1, an REC_LONG_PROMPT-token prompt, 64 new tokens); both
+#: trained at full width with the 8x8 probe (B 4 x S 1,024, lr TRAIN_LR,
+#: REC_TRAIN_STEPS steps)
+REC_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b")
+REC_SWA_CASES = [("recurrentgemma serve", 4, 10, 1, 256, 192, 128),
+                 ("recurrentgemma long_500k", 1, 10, 1, 256, 2048, 8703),
+                 ("ragged rep 12", 2, 12, 1, 256, 300, 250),
+                 ("rep 16", 2, 32, 2, 256, 64, 70)]
+REC_SERVE = (4, 128, 64, 192)
+#: 34 chunks of mamba2's 256; past recurrentgemma's 2,048-slot ring
+REC_LONG_PROMPT = 8704
+REC_TRAIN_STEPS = 20
+#: card against the CPU at smoke width, f32: forward logits within REC_TOL
+#: (1 + max|logit|); loss, ce and grad_norm of a train step within
+#: TRAIN_TOL relative (the matrix products and scans sum in another order
+#: on the card)
+REC_TOL = 1e-4
+
+
+def _cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size()
+               for entry in cache.values() for t in entry.values())
+
+
+def recurrent_card_vs_cpu(device):
+    """Phase N (a): both recurrent configs at smoke width (f32) on the card
+    and on the CPU from the same weights: ``forward_train`` logits within
+    REC_TOL (1 + max|logit|); prefill and 16 greedy decode steps
+    (``decode_card_vs_cpu``; recurrentgemma also an 80-token prompt on its
+    64-slot ring, past its window); one train step from the CPU's state on
+    one batch: loss, ce and grad_norm within TRAIN_TOL relative."""
+    from repro_torch import configs
+    from repro_torch.data import tokens
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import transformer
+    from repro_torch.training import AdamWConfig, train_step
+    for arch in REC_ARCHS:
+        cfg = configs.get_smoke(arch)
+        what = f"{arch} smoke card vs CPU"
+        cpu_model = transformer.init_params(cfg, seed=SEED, device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        prompt = prompts_for(cfg, 2, 32, SEED, "cpu")
+        lc, _ = transformer.forward_train(cpu_model, {"tokens": prompt}, cfg)
+        lg, _ = transformer.forward_train(gpu_model,
+                                          {"tokens": prompt.to(device)}, cfg)
+        err = float((lg.cpu() - lc).abs().max())
+        tol = REC_TOL * (1 + float(lc.abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"{what}: logits off by {err} > {tol}")
+        print(f"{what}: forward logits max|d| {err:.3g} <= {tol:.3g}")
+        decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, 16, 48,
+                           f"{what}, decode")
+        if cfg.window:
+            ring = prompts_for(cfg, 2, cfg.window + 16, SEED + 2, "cpu")
+            decode_card_vs_cpu(cpu_model, gpu_model, cfg, ring, 16,
+                               cfg.window, f"{what}, decode past the "
+                               f"{cfg.window}-slot window on the ring")
+        batch = next(tokens.batches(torch.Generator().manual_seed(SEED + 3),
+                                    cfg.vocab_size, 4, 64, 1, device="cpu"))
+        step = train_step.make_train_step(
+            cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2))
+        state = train_step.init_train_state(cfg, seed=SEED, device="cpu")
+        card = _train_state_to(state, device)
+        _, m = step(state, batch)
+        _, mg = step(card, {k: v.to(device) for k, v in batch.items()})
+        errs = {key: _rel_err(mg[key], m[key])
+                for key in ("loss", "ce", "grad_norm")}
+        if not all(e <= TRAIN_TOL for e in errs.values()):
+            raise AssertionError(f"{what}: train step {errs}")
+        print(f"{what}, one train step (B 4 x S 64): " + ", ".join(
+            f"{key} rel {e:.3g}" for key, e in errs.items())
+            + f" (<= {TRAIN_TOL})")
+
+
+def recurrent_swa_checks(device):
+    """Phase N (b): ``swa_decode`` at REC_SWA_CASES against its plain
+    version on the card, f32 and bf16, two calls bitwise equal. Returns the
+    worst bf16 error per label."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa import ref as swa_ref
+    gen = torch.Generator().manual_seed(SEED + 71)
+    worst = {}
+    for label, b, h, hkv, hd, w, pos0 in REC_SWA_CASES:
+        plan = swa_ops.plan(b, hkv, w, sm_count(device))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, pos = swa_inputs(gen, b, h, hkv, hd, w, pos0, dtype,
+                                      device)
+            out = swa_ops.swa_decode(q, k, v, pos)
+            ref = swa_ref.swa_decode_ref(q, k, v, pos, window=w)
+            if not torch.equal(out, swa_ops.swa_decode(q, k, v, pos)):
+                raise AssertionError(f"swa_decode {label}: two calls differ")
+            torch.cuda.synchronize()
+            what = (f"{label} B={b} H={h} Hkv={hkv} hd={hd} W={w} "
+                    f"pos={pos.tolist()} {dtype}")
+            err = swa_error(out, ref, what)
+            if dtype == torch.bfloat16:
+                worst[label] = max(worst.get(label, 0.0), err)
+            print(f"swa_decode {what}: {plan.splits} split(s) of "
+                  f"{plan.slots}, max|d| {err:.3g}")
+    return worst
+
+
+def recurrent_serve(device, arch, worst):
+    """Phase N (c, d): ``arch`` at full width, bf16, seeded weights, through
+    ``launch/serve.py``'s ``run``, each run warmed up first: B 4 x 128 + 64
+    on a 192-slot cache, then B 1 x REC_LONG_PROMPT + 64 (mamba2: 34
+    chunks of 256; recurrentgemma: its long_500k ring of 2,048 slots, the
+    prefill's attention chunked). Prefill ms, decode ms/step, tok/s, peak
+    memory, the decode cache's bytes (beside a zero cache's: the prompt's
+    length does not change them),
+    ``swa_decode`` launches (one an attention layer a step: 8 for
+    recurrentgemma, none for mamba2); for recurrentgemma the kernel held
+    to its plain version on the layer-0 cache after the long prefill.
+    Returns the runs and the long run's attention caches (for timing)."""
+    from repro_torch import configs
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa import ref as swa_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = configs.get(arch)
+    b, prompt_len, new, cache_len = REC_SERVE
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name}: {n / 1e9:.4f} B parameters, {nbytes / 1e9:.3f} GB, "
+          f"seeded init on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{attn_layers(cfg)} of {cfg.num_layers} layers decode on "
+          f"swa_decode")
+    runs = {}
+    prompts = serve.prompts_for(cfg, b, prompt_len, SEED, device)
+    serve.run(model, cfg, prompts, max_new=4, cache_len=cache_len)
+    torch.cuda.reset_peak_memory_stats()
+    runs["serve"] = _serve_run(serve, model, cfg, prompts, new, cache_len,
+                               f"{cfg.name} serve B={b} x {prompt_len} + "
+                               f"{new}, cache {cache_len}")
+    runs["serve"]["peak"] = torch.cuda.max_memory_allocated()
+
+    long_cfg = dataclasses.replace(configs.for_shape(cfg, "long_500k"),
+                                   attention_impl="chunked")
+    w = configs.cache_len_for(long_cfg, "long_500k")
+    prompt = serve.prompts_for(cfg, 1, REC_LONG_PROMPT, SEED + 1, device)
+    # warm-up: the prefill alone and one decode step
+    last, cache = transformer.prefill(model, {"tokens": prompt}, long_cfg,
+                                      cache_len=w)
+    zero = _cache_bytes(transformer.init_cache(long_cfg, 1, w))
+    holds = (f"a {w}-slot ring" if attn_layers(cfg)
+             else "the recurrent states alone")
+    print(f"{cfg.name} decode cache at B 1 after the {REC_LONG_PROMPT}-token "
+          f"prefill: {_cache_bytes(cache) / 1e6:.3f} MB (a zero cache of the "
+          f"same config: {zero / 1e6:.3f} MB; {holds})")
+    long_inputs = None
+    if attn_layers(cfg):
+        k_all, v_all = cache["pat2_attn"]["k"], cache["pat2_attn"]["v"]
+        pos = torch.full((1,), REC_LONG_PROMPT - 1, dtype=torch.int32,
+                         device=device)
+        gen = torch.Generator().manual_seed(SEED + 73)
+        q = torch.randn(1, cfg.num_heads, cfg.hd, generator=gen).to(
+            device, cfg.dtype)
+        err = swa_error(swa_ops.swa_decode(q, k_all[0], v_all[0], pos),
+                        swa_ref.swa_decode_ref(q, k_all[0], v_all[0], pos,
+                                               window=w),
+                        f"{cfg.name} layer-0 cache after the long prefill")
+        worst["recurrentgemma long_500k"] = max(
+            worst.get("recurrentgemma long_500k", 0.0), err)
+        print(f"swa_decode on {cfg.name}'s layer-0 cache after the "
+              f"{REC_LONG_PROMPT}-token prefill (ring of {w}, pos "
+              f"{REC_LONG_PROMPT - 1}): max|d| {err:.3g}")
+        long_inputs = [(q, k_all[i].clone(), v_all[i].clone(), pos)
+                       for i in range(k_all.shape[0])]
+    transformer.decode_step(model, last.argmax(-1)[:, None],
+                            torch.full((1,), REC_LONG_PROMPT,
+                                       dtype=torch.int32, device=device),
+                            cache, long_cfg)
+    del cache, last
+    torch.cuda.reset_peak_memory_stats()
+    runs["long"] = _serve_run(serve, model, long_cfg, prompt, new, w,
+                              f"{cfg.name} long_500k B=1 x "
+                              f"{REC_LONG_PROMPT} + {new}, cache {w}")
+    runs["long"]["peak"] = torch.cuda.max_memory_allocated()
+    for run in runs.values():
+        run.pop("logits", None)
+        print(f"{cfg.name}: peak memory {run['peak'] / 1e9:.3f} GB "
+              f"(max_memory_allocated)")
+    del model, prompts, prompt
+    torch.cuda.empty_cache()
+    return runs, long_inputs
+
+
+def _rec_flops(cfg, b, s):
+    """Model FLOPs of one train step of a recurrent config: three times the
+    forward's products (forward and backward, no remat): 2 T N for the
+    matrices N of every layer and the head; SSD's chunk products (C B^T,
+    the intra-chunk product, the state in and out: 2 q^2 n + 2 q^2 h p +
+    4 q n h p a chunk); the local attention's QK and PV over the S x S
+    square (4 B H S^2 hd a layer, S <= window)."""
+    from repro_torch.models import transformer
+    t, d = b * s, cfg.d_model
+    mats, extra = cfg.vocab_size * d, 0
+    stacks, tail = transformer._layer_plan(cfg)
+    for _, kind, count, _ in stacks + tail:
+        if kind == "ssm":
+            di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+            p, q = cfg.ssm_head_dim, cfg.ssm_chunk
+            per = d * (2 * di + 2 * n + h) + di * d
+            extra += count * b * (s // q) * (2 * q * q * n + 2 * q * q * h * p
+                                             + 4 * q * n * h * p)
+        elif kind == "rglru":
+            w = cfg.rnn_width
+            per = 2 * d * w + 2 * w * w + w * d + 3 * d * cfg.d_ff
+        else:
+            per = 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim + 3 * d * cfg.d_ff
+            extra += count * 4 * b * cfg.num_heads * s * s * cfg.hd
+        mats += count * per
+    return 3 * (2 * t * mats + extra)
+
+
+def recurrent_train(device, arch):
+    """Phase N (e): ``arch`` at full width, bf16, through
+    ``launch/train.py``'s ``run`` with the probe (B 4 x S 1,024, an 8x8
+    probe on the pooled hidden states, lr TRAIN_LR, REC_TRAIN_STEPS
+    steps), the kernel counts set to 0 just before and read just after.
+    Every loss and grad norm finite (mamba2's at its own chunk of 256: the
+    reference's SSD gradient is NaN there), the mean of the last 5 losses
+    below the first 5's, one ``bmu`` call and one ``drive_cascade`` launch
+    a step. ms a step, tokens/s, peak memory, model FLOPs beside the bf16
+    peak, and the run's first batch evaluated again with the trained
+    weights beside its loss at step 0. Returns the run's kernel counts."""
+    from repro_torch import configs
+    from repro_torch.data import tokens
+    from repro_torch.launch import train
+    from repro_torch.training import train_step
+    cfg = configs.get(arch)
+    name = torch.cuda.get_device_name(0)
+    peak = BF16_PEAKS["PCIe" if "PCIe" in name else "SXM"]
+    times, norms, last = [], [], {}
+
+    def on_step(i, state, metrics, ms):
+        times.append(ms)
+        norms.append(float(metrics["grad_norm"]))
+        last["state"] = state
+
+    steps = REC_TRAIN_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = train.run(cfg, steps=steps, batch=TRAIN_B, seq=TRAIN_S,
+                       lr=TRAIN_LR, probe=True, probe_side=TRAIN_PROBE_SIDE,
+                       seed=SEED, device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    what = f"{cfg.name} training"
+    if (len(losses) != steps or not all(np.isfinite(losses))
+            or not all(np.isfinite(norms))):
+        raise AssertionError(f"{what}: losses {losses}, grad norms {norms}")
+    # the launcher's first batch (its data stream, seeded seed + 1)
+    batch0 = next(tokens.batches(torch.Generator().manual_seed(SEED + 1),
+                                 cfg.vocab_size, TRAIN_B, TRAIN_S, steps,
+                                 device=device))
+    with torch.no_grad():
+        again = float(train_step.lm_loss(last.pop("state").params, batch0,
+                                         cfg)[0])
+    first, final = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not final < first:
+        raise AssertionError(f"{what}: loss {first} -> {final} did not fall")
+    if (counts["bmu"], counts["drive_cascade"]) != (steps, steps):
+        raise AssertionError(f"{what}: launched {counts} in {steps} steps; "
+                             f"bmu and drive_cascade must run once a step")
+    step_ms = float(np.median(times[4:]))
+    flops = _rec_flops(cfg, TRAIN_B, TRAIN_S)
+    print(f"{what}, bf16, B {TRAIN_B} x S {TRAIN_S}, {steps} steps, probe "
+          f"{TRAIN_PROBE_SIDE}x{TRAIN_PROBE_SIDE}x{cfg.d_model}: "
+          f"{seconds:.2f} s with init; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (mean of the first 5 "
+          f"{first:.4f}, of the last 5 {final:.4f}); the first batch "
+          f"{losses[0]:.4f} -> {again:.4f} with the trained weights; grad "
+          f"norms finite ({min(norms):.3f}-{max(norms):.3f})")
+    print(f"{what}: {step_ms:.3f} ms a step (CUDA events, median of steps "
+          f"5-{steps}; min {min(times[4:]):.3f}, max {max(times[4:]):.3f}), "
+          f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.1f} tokens/s; peak memory "
+          f"{peak_mem / 1e9:.3f} GB (max_memory_allocated); model FLOPs "
+          f"{flops / 1e12:.2f} T a step, "
+          f"{100 * flops / (step_ms * 1e-3) / peak:.2f} % of the dense bf16 "
+          f"peak ({peak / 1e12:.0f} TFLOP/s); launches {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def recurrent_phase(device):
+    """Phase N: the recurrent families (``recurrent_card_vs_cpu``,
+    ``recurrent_swa_checks``, ``recurrent_serve`` and ``recurrent_train``
+    of both, the probe's kernels at D 2,048 and 2,560). Returns the phase's
+    kernel rows: swa_decode at recurrentgemma's two decode shapes (launches
+    from its serve runs) and the probe's rows at each arch's width
+    (launches from its training run)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    recurrent_card_vs_cpu(device)
+    worst = recurrent_swa_checks(device)
+    rows, serve_runs = [], {}
+    for arch in REC_ARCHS:
+        serve_runs[arch], long_inputs = recurrent_serve(device, arch, worst)
+        if long_inputs is not None:
+            gen = torch.Generator().manual_seed(SEED + 79)
+            b, prompt_len, _, cache_len = REC_SERVE
+            serve_inputs = [swa_inputs(gen, b, 10, 1, 256, cache_len,
+                                       cache_len - 64, torch.bfloat16,
+                                       device)]
+            runs = serve_runs[arch]
+            rows.append(swa_row(device, f"{arch} serve", serve_inputs,
+                                runs["serve"]["launches"]["swa_decode"],
+                                worst["recurrentgemma serve"]))
+            rows.append(swa_row(device, f"{arch} long_500k", long_inputs,
+                                runs["long"]["launches"]["swa_decode"],
+                                worst["recurrentgemma long_500k"]))
+            del long_inputs
+            torch.cuda.empty_cache()
+    for arch in REC_ARCHS:
+        checks = probe_kernel_checks(device, arch)
+        counts = recurrent_train(device, arch)
+        for row in probe_kernel_rows(device, checks, counts):
+            row["name"] = f"{row['name']} [{arch}]"
+            rows.append(row)
+        del checks
+    for arch, runs in serve_runs.items():
+        for key, run in runs.items():
+            print(f"{arch} {key}: prefill {run['prefill_ms']:.3f} ms, decode "
+                  f"{run['decode_ms_per_step']:.4f} ms/step, "
+                  f"{run['decode_tok_s']:.1f} decode tok/s, "
+                  f"{run['tok_s']:.1f} tok/s in all, peak "
+                  f"{run['peak'] / 1e9:.3f} GB")
+    print(f"recurrent phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -4230,6 +4611,7 @@ def main() -> int:
     lint_phase()
     rows += training_phase(device)
     rows += moe_phase(device)
+    rows += recurrent_phase(device)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,11 @@ import importlib
 
 import torch
 
-#: the architectures the port runs (the dense and MoE families)
-ARCHS = ["smollm_360m", "llama3_2_1b", "deepseek_moe_16b",
-         "deepseek_coder_33b", "yi_9b", "granite_moe_1b_a400m"]
+#: the architectures the port runs (the dense, MoE, SSM and hybrid
+#: families)
+ARCHS = ["smollm_360m", "llama3_2_1b", "recurrentgemma_2b",
+         "deepseek_moe_16b", "deepseek_coder_33b", "yi_9b",
+         "granite_moe_1b_a400m", "mamba2_1_3b"]
 
 # canonical ids -> module names (every architecture of the JAX package)
 ALIASES = {

@@ -7,16 +7,19 @@ package's ``AFMState`` gives (a mapping or a namedtuple of ``w``, ``c``,
 ``state_to_numpy`` is its inverse.
 
 ``lm_params_from_numpy`` takes the JAX package's ``init_params`` tree of a
-dense or MoE LM as numpy (``embed``, ``ln_f``, optional ``unembed``, and
-one entry a stack of the layer plan, ``blocks`` and ``dense_blocks``,
-whose leaves carry a leading layer axis) and returns the port's
-``Transformer``; dense weights are (d_in, d_out) and expert stacks (E,
-d_in, d_out) in both packages, so nothing is transposed.
-``lm_cache_from_numpy`` does the same for a KV cache (``{"blocks": {"k",
-"v"}}``, one entry a stack). The ``*_to_numpy`` functions are their
-inverses; bf16 leaves come back as float32 (exact). ``lm_params_tree``
-keeps each leaf's own dtype, as CPU tensors: the tree a checkpoint of the
-weights is written from.
+dense, MoE, SSM or hybrid LM as numpy (``embed``, ``ln_f``, optional
+``unembed``, one entry a stack of the layer plan, such as ``blocks``,
+``dense_blocks`` or ``pat0_rglru``, whose leaves carry a leading layer
+axis, and one entry a tail layer, such as ``tail0_rglru``, whose leaves
+do not) and returns the port's ``Transformer``, each leaf in its own
+dtype (the f32 leaves of a bf16 block stay f32); dense weights are (d_in,
+d_out) and expert stacks (E, d_in, d_out) in both packages, so nothing is
+transposed. ``lm_cache_from_numpy`` does the same for a cache (one entry
+a stack or tail: ``{"k", "v"}``, ``{"conv", "h"}`` or ``{"conv",
+"state"}``). The ``*_to_numpy`` functions are their inverses; bf16
+leaves come back as float32 (exact). ``lm_params_tree`` keeps each
+leaf's own dtype, as CPU tensors: the tree a checkpoint of the weights is
+written from.
 """
 from __future__ import annotations
 
@@ -62,15 +65,14 @@ def _float_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def _leaf(tree: Mapping[str, Any], name: str):
     """The numpy leaf of a parameter name: ``blocks.3.attn.wq`` is layer 3
-    of ``tree["blocks"]["attn"]["wq"]``."""
+    of ``tree["blocks"]["attn"]["wq"]``, ``tail0_rglru.rec.lam`` is
+    ``tree["tail0_rglru"]["rec"]["lam"]``."""
     where = layer_of(name)
-    if where is None:
-        return tree[name]
-    stack, layer, path = where
-    node = tree[stack]
+    path = tuple(name.split(".")) if where is None else (where[0],) + where[2]
+    node = tree
     for part in path:
         node = node[part]
-    return np.asarray(node)[layer]
+    return node if where is None else np.asarray(node)[where[1]]
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
@@ -93,27 +95,28 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
 def lm_params_tree(model: Transformer,
                    dtype: torch.dtype | None = None) -> dict:
     """The JAX ``init_params`` tree of a ``Transformer`` as CPU tensors:
-    layer leaves stacked on a leading axis, each leaf in its own dtype
-    (bf16 weights stay bf16) or in ``dtype``. ``training.checkpoint.save``
-    writes it as JAX's ``save`` writes the ``init_params`` tree of the same
-    config, byte for byte."""
-    tree: dict = {}
-    layers: dict = {}
+    a stack's layer leaves stacked on a leading axis, a tail's nested
+    without one, each leaf in its own dtype (bf16 weights stay bf16, f32
+    leaves f32) or in ``dtype``. ``training.checkpoint.save`` writes it as
+    JAX's ``save`` writes the ``init_params`` tree of the same config,
+    byte for byte."""
+    leaves: dict = {}
     for name, param in model.named_parameters():
         arr = param.detach().cpu()
         if dtype is not None:
             arr = arr.to(dtype)
         where = layer_of(name)
-        if where is None:
-            tree[name] = arr
-        else:
-            stack, _, path = where
-            layers.setdefault((stack, path), []).append(arr)
-    for (stack, path), arrs in layers.items():
-        node = tree.setdefault(stack, {})
+        path = (tuple(name.split(".")) if where is None
+                else (where[0],) + where[2])
+        leaves.setdefault(path, []).append((where is not None, arr))
+    tree: dict = {}
+    for path, arrs in leaves.items():
+        node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = torch.stack(arrs)
+        stacked = arrs[0][0]
+        node[path[-1]] = (torch.stack([a for _, a in arrs]) if stacked
+                          else arrs[0][1])
     return tree
 
 
@@ -127,13 +130,22 @@ def lm_params_to_numpy(model: Transformer) -> dict:
     return walk(lm_params_tree(model, torch.float32))
 
 
+#: cache leaves that hold a recurrent state, float32 whatever the
+#: activation dtype (RG-LRU's ``h``, SSD's ``state``)
+STATE_LEAVES = ("h", "state")
+
+
 def lm_cache_from_numpy(tree: Mapping[str, Any], dtype: torch.dtype,
                         device: torch.device | str | None = None) -> dict:
-    """A KV cache ``{"blocks": {"k", "v"}}`` of (L, B, S, Hkv, hd) tensors."""
+    """A cache of ``transformer.init_cache``'s layout, each leaf in its own
+    dtype: the recurrent states (``STATE_LEAVES``) in float32, the K/V
+    rows and conv histories in ``dtype`` (the activation dtype)."""
     device = resolve_device(device)
-    return {name: {kv: _float_tensor(arr, dtype, device)
-                   for kv, arr in stack.items()}
-            for name, stack in tree.items()}
+    return {name: {leaf: _float_tensor(
+                       arr, torch.float32 if leaf in STATE_LEAVES else dtype,
+                       device)
+                   for leaf, arr in entry.items()}
+            for name, entry in tree.items()}
 
 
 def lm_cache_to_numpy(cache: Mapping[str, Any]) -> dict:

@@ -11,9 +11,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.swa import ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-#: head dims the kernel is built for (32: the MoE configs' smoke widths)
-HEAD_DIMS = (32, 64, 128)
-MAX_REP = 8
+#: head dims the kernel is built for (32: the MoE configs' smoke widths;
+#: 256: recurrentgemma-2b's local attention)
+HEAD_DIMS = (32, 64, 128, 256)
+#: the most query heads a kv head serves (recurrentgemma-2b's MQA: 10)
+MAX_REP = 16
 
 #: calls of ``swa_decode`` that ran the kernel on the card, one per call
 #: (one CUDA launch: with several splits the last block of each (row, kv
@@ -94,7 +96,8 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     W = k.shape[1] slots; see ``ref.swa_decode_ref`` (window = W).
 
     q: (B, H, hd); k, v: (B, W, Hkv, hd) in q's dtype (float32 or bfloat16);
-    pos: (B,) int32, >= 0. hd is 32, 64 or 128 and H / Hkv is 1 to 8. On CUDA
+    pos: (B,) int32, >= 0. hd is 32, 64, 128 or 256 and H / Hkv is 1 to 16
+    (outside that set it raises on both devices). On CUDA
     all four must be contiguous on one card. Returns (B, H, hd) in q's dtype.
 
     On the card the slots of each (batch row, kv head) are split across

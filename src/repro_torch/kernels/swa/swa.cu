@@ -4,7 +4,9 @@
 // src/repro/kernels/swa/swa.py. One query token per head attends to a
 // cache of W slots: q (B, H, hd), k and v (B, W, Hkv, hd) in their cache
 // layout, pos (B,) int32 read from device memory (no host sync per step).
-// Head h uses kv head h / rep, rep = H / Hkv (GQA). Slot j is valid iff
+// Head h uses kv head h / rep, rep = H / Hkv (GQA, MQA: rep 1 to 16);
+// hd is 32, 64, 128 or 256 (recurrentgemma-2b's local attention: hd 256,
+// H 10 over one kv head). Slot j is valid iff
 // age(j) = (pos - j) mod W < min(pos + 1, W); for pos >= 0 that is exactly
 // j < min(pos + 1, W) (for pos >= W every age is < W; for pos < W the
 // slots j <= pos have age pos - j <= pos and the others pos - j + W > pos),
@@ -32,14 +34,21 @@
 // the loop.
 // - bf16 (`swa_bf16_kernel`, the serving path): the math is on the tensor
 //   cores (`mma.sync` m16n8k16, f32 accumulate), 16 slots a warp a
-//   128-slot chunk: S = Q K^T with the rep query rows in the A operand,
+//   128-slot chunk: S = Q K^T with the rep query rows in the A operand
+//   (rows 0-7 for rep <= 8; rows 8-15 too, each lane keeping two rows'
+//   softmax, for rep 9-16),
 //   the online softmax on the accumulator fragments, then O += P V with P
 //   split into a bf16 high and low part, so the PV product keeps ~16 bits
 //   of the f32 probabilities. (On the SIMT cores, one slot row a group of
 //   8 lanes, this math takes ~110 instructions a slot a lane, which bound
 //   the kernel.)
-// - f32 (`swa_f32_kernel`): SIMT, a group of hd / 4 lanes a slot row, each
-//   group with its own online softmax for the rep rows.
+// - f32 (`swa_f32_kernel`): SIMT, a group of min(hd / 4, 32) lanes a slot
+//   row, each group with its own online softmax for the rep rows.
+// At hd 256 (bf16), and where they would take more than 32 registers a
+// lane (f32), the query rows are read from shared memory at each use: the
+// f32 accumulators of 16 rows already take 128 registers a lane at hd 256.
+// The warps' merge tables (up to 8 warps x 16 rows x (hd + 2) f32, 132 KB
+// at hd 256) are laid over the K/V ring once the loop is done.
 // The warps merge through shared memory. With one split the block writes
 // the output; otherwise it writes its (m, l, acc) in f32 to scratch, a
 // block with no valid slot (m = -1e30, l = 0, acc = 0) included, and takes
@@ -84,8 +93,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The combine, run by the last block of a (batch row, kv head) to finish:
 // the splits' partials, read from L2 (__ldcg: other blocks wrote them), in
-// split order; a split with l = 0 adds nothing. Warp r takes row r: its
-// lanes walk the splits (lane, lane + 32, ..) for M = max m and
+// split order; a split with l = 0 adds nothing. Warp w takes rows w and
+// w + 8: its lanes walk the splits (lane, lane + 32, ..) for M = max m and
 // L = sum l 2^(m - M), joined by butterfly shuffles (one fixed order); the
 // weights 2^(m - M) pass through shared memory, and each thread sums its
 // acc columns over the splits in split order, the loads batched.
@@ -94,15 +103,15 @@ __device__ void combine_splits(const float* __restrict__ part_ml,
                                const float* __restrict__ part_acc, int b,
                                int h, int hkv, int rep, int splits,
                                T* __restrict__ out) {
-  __shared__ float s_wt[8][MAX_SPLITS];    // [r][split]: 2^(m - M)
-  __shared__ float s_lt[8];
+  __shared__ float s_wt[2 * WARPS][MAX_SPLITS];   // [r][split]: 2^(m - M)
+  __shared__ float s_lt[2 * WARPS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t part0 = (static_cast<size_t>(b) * hkv + h) * splits;
-  if (warp < rep) {
+  for (int r = warp; r < rep; r += WARPS) {
     float mx = NEG_INF;
     for (int sp = lane; sp < splits; sp += 32) {
-      mx = fmaxf(mx, __ldcg(&part_ml[((part0 + sp) * rep + warp) * 2]));
+      mx = fmaxf(mx, __ldcg(&part_ml[((part0 + sp) * rep + r) * 2]));
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -110,16 +119,16 @@ __device__ void combine_splits(const float* __restrict__ part_ml,
     }
     float lsum = 0.f;
     for (int sp = lane; sp < splits; sp += 32) {
-      const float* ml = &part_ml[((part0 + sp) * rep + warp) * 2];
+      const float* ml = &part_ml[((part0 + sp) * rep + r) * 2];
       const float wt = exp2f(__ldcg(ml) - mx);
-      s_wt[warp][sp] = wt;
+      s_wt[r][sp] = wt;
       lsum = fmaf(__ldcg(ml + 1), wt, lsum);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       lsum += __shfl_xor_sync(FULL, lsum, off);
     }
-    if (lane == 0) s_lt[warp] = lsum;
+    if (lane == 0) s_lt[r] = lsum;
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < rep * HD; idx += THREADS) {
@@ -195,33 +204,64 @@ constexpr int CHUNK_BYTES = 16384;         // of K (and as much of V) a chunk
 constexpr int STAGES = 3;                  // chunks in shared memory at once
 constexpr int RING_BYTES = STAGES * 2 * CHUNK_BYTES;   // K and V: 96 KB
 
+// floats a lane takes of a row: 4 (one 16-byte piece), or hd / 32 so that
+// a row's group stays within one warp
+template <int HD>
+__host__ __device__ constexpr int f32_vec() {
+  return HD > 128 ? HD / 32 : 4;
+}
+
+// the query rows live in shared memory when they would take more than 32
+// registers a lane (rep 9-16, and hd 256 at rep 5-8), beside as many of
+// accumulators
+template <int HD, int MAX_REP>
+__host__ __device__ constexpr bool f32_q_shared() {
+  return f32_vec<HD>() * MAX_REP > 32;
+}
+
+// the dynamic shared memory of swa_f32_kernel: the K/V ring (and the
+// query rows when they live there), or the warps' merge tables laid over
+// them after the loop, whichever is larger
+template <int HD, int MAX_REP>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  constexpr int loop = RING_BYTES + (f32_q_shared<HD, MAX_REP>()
+                                         ? MAX_REP * HD * 4 : 0);
+  constexpr int tables = WARPS * MAX_REP * (HD + 2) * 4;
+  return loop > tables ? loop : tables;
+}
+
 // grid (splits, hkv, b): split blockIdx.x of (batch row, kv head) takes the
 // slots [split * slots, split * slots + slots) below nv. The slots' K and V
 // rows stream through a ring of STAGES chunks in shared memory by cp.async
 // (16-byte copies straight from the cache layout). A warp splits into
-// groups of hd / 4 lanes, a lane reading 16 bytes of a slot's row; each
-// group takes U slots of a chunk and keeps its own online softmax for the
-// rep query rows in base 2 (q scaled by log2(e) / sqrt(hd) once).
+// groups of LPS = hd / VEC lanes; lane li of a group takes the VEC / 4
+// 16-byte pieces li, li + LPS, .. of a slot's row (so a group's loads of a
+// piece are contiguous); each group takes U slots of a chunk and keeps its
+// own online softmax for the rep query rows in base 2 (q scaled by
+// log2(e) / sqrt(hd) once).
 template <int HD, int MAX_REP>
-__global__ void __launch_bounds__(THREADS, MAX_REP >= 8 ? 1 : 2)
+__global__ void __launch_bounds__(THREADS, MAX_REP >= 8 || HD > 128 ? 1 : 2)
 swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const int32_t* __restrict__ pos,
                int w, int hkv, int rep, int slots, float* __restrict__ out,
                float* __restrict__ part_ml, float* __restrict__ part_acc,
                int* __restrict__ tickets) {
-  constexpr int VEC = 4;                   // floats a lane loads at once
+  constexpr int VEC = f32_vec<HD>();       // floats a lane takes of a row
+  constexpr int NP = VEC / 4;              // its 16-byte pieces
   constexpr int LPS = HD / VEC;            // lanes per slot row (a group)
   constexpr int GPW = 32 / LPS;            // groups per warp
   constexpr int GROUPS = WARPS * GPW;
+  constexpr int PIECES = HD / 4;           // 16-byte pieces of a row
   constexpr int CS = CHUNK_BYTES / (HD * static_cast<int>(sizeof(float)));
   constexpr int U = CS / GROUPS;           // slots a group takes a chunk
+  constexpr bool QS = f32_q_shared<HD, MAX_REP>();
   static_assert(U * GROUPS == CS, "a chunk is whole slots of every group");
+  static_assert(LPS <= 32 && LPS * VEC == HD, "a row's group is in a warp");
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* k_ring = reinterpret_cast<float*>(smem);   // [STAGES][CS][HD]
   float* v_ring = k_ring + STAGES * CS * HD;
-  __shared__ float s_ml[WARPS][MAX_REP][2];
-  __shared__ float s_acc[WARPS][MAX_REP][HD];
+  float* q_s = v_ring + STAGES * CS * HD;           // [MAX_REP][HD] if QS
 
   const int split = blockIdx.x;
   const int h = blockIdx.y;                // kv head
@@ -243,8 +283,8 @@ swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto issue = [&](int c) {
     float* ks = k_ring + (c % STAGES) * CS * HD;
     float* vs = v_ring + (c % STAGES) * CS * HD;
-    for (int e = threadIdx.x; e < CS * LPS; e += THREADS) {
-      const int sl = e / LPS, part = (e % LPS) * VEC;
+    for (int e = threadIdx.x; e < CS * PIECES; e += THREADS) {
+      const int sl = e / PIECES, part = (e % PIECES) * 4;
       const int j = j0 + c * CS + sl;
       const bool ok = j < jend;
       const size_t off = ok ? row0 + j * slot_stride + part : 0;
@@ -258,20 +298,34 @@ swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
   }
 
-  float qf[MAX_REP][VEC];
+  // the query rows, scaled (rows past rep zero): in registers, or in
+  // shared memory (seen by every thread after the loop's first barrier)
+  const float* qrow = q + (static_cast<size_t>(b) * heads + h * rep) * HD;
+  float qf[QS ? 1 : MAX_REP][QS ? 1 : VEC];
+  if constexpr (QS) {
+    for (int e = threadIdx.x; e < MAX_REP * HD; e += THREADS) {
+      q_s[e] = e / HD < rep ? qrow[e] * scale : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) {
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc) {
+        const float4 x = r < rep ? *reinterpret_cast<const float4*>(
+                                       qrow + r * HD + (pc * LPS + li) * 4)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        qf[r][4 * pc] = x.x * scale;
+        qf[r][4 * pc + 1] = x.y * scale;
+        qf[r][4 * pc + 2] = x.z * scale;
+        qf[r][4 * pc + 3] = x.w * scale;
+      }
+    }
+  }
   float m[MAX_REP], l[MAX_REP], acc[MAX_REP][VEC];
 #pragma unroll
   for (int r = 0; r < MAX_REP; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
-    const float4 x = r < rep ? *reinterpret_cast<const float4*>(
-                                   q + (static_cast<size_t>(b) * heads +
-                                        h * rep + r) * HD + li * VEC)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-    qf[r][0] = x.x * scale;
-    qf[r][1] = x.y * scale;
-    qf[r][2] = x.z * scale;
-    qf[r][3] = x.w * scale;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
   }
@@ -281,19 +335,33 @@ swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();   // chunk c has landed; chunk c - 1's stage is free
     if (c + STAGES - 1 < chunks) issue(c + STAGES - 1);
     cp_async_commit();
-    const float* ks = k_ring + (c % STAGES) * CS * HD + li * VEC;
-    const float* vs = v_ring + (c % STAGES) * CS * HD + li * VEC;
+    const float* ks = k_ring + (c % STAGES) * CS * HD + li * 4;
+    const float* vs = v_ring + (c % STAGES) * CS * HD + li * 4;
     bool ok[U];
     float s[MAX_REP][U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int sl = u * GROUPS + g;
       ok[u] = j0 + c * CS + sl < jend;
-      const float4 kf = *reinterpret_cast<const float4*>(ks + sl * HD);
 #pragma unroll
-      for (int r = 0; r < MAX_REP; ++r) {
-        s[r][u] = fmaf(qf[r][3], kf.w, fmaf(qf[r][2], kf.z,
-                  fmaf(qf[r][1], kf.y, qf[r][0] * kf.x)));
+      for (int r = 0; r < MAX_REP; ++r) s[r][u] = 0.f;
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc) {
+        const float4 kf =
+            *reinterpret_cast<const float4*>(ks + sl * HD + pc * LPS * 4);
+#pragma unroll
+        for (int r = 0; r < MAX_REP; ++r) {
+          float4 qv;
+          if constexpr (QS) {
+            qv = *reinterpret_cast<const float4*>(
+                q_s + r * HD + (pc * LPS + li) * 4);
+          } else {
+            qv = make_float4(qf[r][4 * pc], qf[r][4 * pc + 1],
+                             qf[r][4 * pc + 2], qf[r][4 * pc + 3]);
+          }
+          s[r][u] = fmaf(qv.w, kf.w, fmaf(qv.z, kf.z,
+                    fmaf(qv.y, kf.y, fmaf(qv.x, kf.x, s[r][u]))));
+        }
       }
     }
     // every row up to MAX_REP, so the rows' dependent chains interleave;
@@ -326,19 +394,28 @@ swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const float4 vf = *reinterpret_cast<const float4*>(vs + (u * GROUPS + g) * HD);
 #pragma unroll
-      for (int r = 0; r < MAX_REP; ++r) {
-        acc[r][0] = fmaf(s[r][u], vf.x, acc[r][0]);
-        acc[r][1] = fmaf(s[r][u], vf.y, acc[r][1]);
-        acc[r][2] = fmaf(s[r][u], vf.z, acc[r][2]);
-        acc[r][3] = fmaf(s[r][u], vf.w, acc[r][3]);
+      for (int pc = 0; pc < NP; ++pc) {
+        const float4 vf = *reinterpret_cast<const float4*>(
+            vs + (u * GROUPS + g) * HD + pc * LPS * 4);
+#pragma unroll
+        for (int r = 0; r < MAX_REP; ++r) {
+          acc[r][4 * pc] = fmaf(s[r][u], vf.x, acc[r][4 * pc]);
+          acc[r][4 * pc + 1] = fmaf(s[r][u], vf.y, acc[r][4 * pc + 1]);
+          acc[r][4 * pc + 2] = fmaf(s[r][u], vf.z, acc[r][4 * pc + 2]);
+          acc[r][4 * pc + 3] = fmaf(s[r][u], vf.w, acc[r][4 * pc + 3]);
+        }
       }
     }
   }
   cp_async_wait<0>();
 
-  // merge the groups of each warp (shuffles); the warps merge in finish
+  // merge the groups of each warp (shuffles) into the merge tables, laid
+  // over the ring (and query rows) once every warp is done with them; the
+  // warps merge in finish
+  __syncthreads();
+  float* s_ml = reinterpret_cast<float*>(smem);     // [WARPS][MAX_REP][2]
+  float* s_acc = s_ml + WARPS * MAX_REP * 2;        // [WARPS][MAX_REP][HD]
 #pragma unroll
   for (int r = 0; r < MAX_REP; ++r) {
     float mw = m[r];
@@ -359,29 +436,34 @@ swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int off = LPS; off < 32; off <<= 1) {
         a += __shfl_xor_sync(FULL, a, off);
       }
-      if (lane < LPS) s_acc[warp][r][li * VEC + e] = a;
+      if (lane < LPS) {
+        s_acc[(warp * MAX_REP + r) * HD + ((e / 4) * LPS + li) * 4 + e % 4] =
+            a;
+      }
     }
     if (lane == 0) {
-      s_ml[warp][r][0] = mw;
-      s_ml[warp][r][1] = lw;
+      s_ml[(warp * MAX_REP + r) * 2] = mw;
+      s_ml[(warp * MAX_REP + r) * 2 + 1] = lw;
     }
   }
   __syncthreads();
-  finish<float, HD, MAX_REP>(&s_ml[0][0][0], &s_acc[0][0][0], b, h, hkv, rep,
-                             out, part_ml, part_acc, tickets);
+  finish<float, HD, MAX_REP>(s_ml, s_acc, b, h, hkv, rep, out, part_ml,
+                             part_acc, tickets);
 }
 
 // ------------------------------------------------ bf16: tensor-core math
 
-// d += a b on the tensor cores: m16n8k16, bf16 operands, f32 accumulators
+// d += a b on the tensor cores: m16n8k16, bf16 operands, f32 accumulators;
+// A's rows 0-7 in a0 (k 0-7) and a2 (k 8-15), rows 8-15 in a1 and a3
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a2, uint32_t b0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -403,23 +485,46 @@ __device__ __forceinline__ uint32_t load32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-constexpr int MMA_STAGES = 2;              // 128-slot chunks in flight
+// what the low bf16 pair of (lo, hi) leaves over its high pair `high`
+__device__ __forceinline__ uint32_t pack_rest(float lo, float hi,
+                                              uint32_t high) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&high);
+  return pack_bf16(lo - __low2float(h), hi - __high2float(h));
+}
+
+// 128-slot chunks in flight: two, or one at hd 256, whose two K and V
+// chunks (264 KB) would not fit in a block's 227 KB
+template <int HD>
+constexpr int MMA_STAGES_OF = HD > 128 ? 1 : 2;
 
 template <int HD>   // K and V rings of bf16 rows padded to HD + 8
-constexpr int MMA_RING_BYTES = MMA_STAGES * 2 * WARPS * 16 * (HD + 8) * 2;
+constexpr int MMA_RING_BYTES =
+    MMA_STAGES_OF<HD> * 2 * WARPS * 16 * (HD + 8) * 2;
+
+// the dynamic shared memory of swa_bf16_kernel: the ring, and at hd 256
+// the MR query rows (padded as the ring's) after it
+template <int HD, int MR>
+__host__ __device__ constexpr int bf16_smem_bytes() {
+  return MMA_RING_BYTES<HD> + (HD > 128 ? MR * (HD + 8) * 2 : 0);
+}
 
 // grid (splits, hkv, b), as swa_f32_kernel. A chunk is 128 slots, 16 a
 // warp; its K and V rows land by cp.async in shared memory rows padded to
 // HD + 8 elements (so the fragment reads below are free of bank
 // conflicts). Per chunk a warp takes its 16 slots on the tensor cores
-// (m16n8k16, bf16 in, f32 accumulate): S = Q K^T with the rep query rows
-// in rows 0-7 of the A operand (rows 8-15 zero) and K read as B fragments
-// straight from its rows; the logits are scaled in f32 and an online
-// softmax in base 2 runs on the accumulator fragments (a lane holds row
-// lane / 4, so a row's max and sum take two quad shuffles); then O += P V
-// with P split in a bf16 high and low part (two MMAs, so the product keeps
-// ~16 bits of the f32 probabilities) and V read by ldmatrix.trans.
-template <int HD>
+// (m16n8k16, bf16 in, f32 accumulate): S = Q K^T with query rows 0-7 in
+// rows 0-7 of the A operand and, for MR = 16 (rep 9-16), rows 8-15 in
+// rows 8-15 (else zero), and K read as B fragments straight from its
+// rows; the logits are scaled in f32 and an online softmax in base 2 runs
+// on the accumulator fragments (a lane holds rows lane / 4 and lane / 4 +
+// 8, so a row's max and sum take two quad shuffles); then O += P V with P
+// split in a bf16 high and low part (two MMAs, so the product keeps ~16
+// bits of the f32 probabilities) and V read by ldmatrix.trans. At hd 256
+// one chunk is in shared memory at a time (its loads wait for the math of
+// the chunk before). The Q
+// fragments stay in registers, or at hd 256 (where O alone takes 128
+// registers a lane at MR 16) are read from shared memory at each use.
+template <int HD, int MR>
 __global__ void __launch_bounds__(THREADS, HD <= 64 ? 2 : 1)
 swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -428,17 +533,22 @@ swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 int slots, __nv_bfloat16* __restrict__ out,
                 float* __restrict__ part_ml, float* __restrict__ part_acc,
                 int* __restrict__ tickets) {
+  constexpr int MMA_STAGES = MMA_STAGES_OF<HD>;
   constexpr int RS = HD + 8;               // padded shared row, elements
   constexpr int CS = WARPS * 16;           // slots a chunk
   constexpr int PIECES = HD / 8;           // 16-byte pieces of a row
   constexpr int KT = HD / 16;              // k-steps of Q K^T
   constexpr int NT = HD / 8;               // 8-wide column tiles of O
-  static_assert(WARPS * 8 * (HD + 2) * 4 <= MMA_RING_BYTES<HD>,
+  constexpr bool TWO = MR > 8;             // query rows 8-15 in the A tile
+  constexpr bool QS = HD > 128;            // Q fragments in shared memory
+  static_assert(MR == 8 || MR == 16, "8 or 16 rows of the A tile");
+  static_assert(WARPS * MR * (HD + 2) * 4 <= MMA_RING_BYTES<HD>,
                 "the merge tables fit in the ring");
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* k_ring = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* v_ring = k_ring + MMA_STAGES * CS * RS;
+  __nv_bfloat16* q_s = v_ring + MMA_STAGES * CS * RS;   // [MR][RS] if QS
 
   const int split = blockIdx.x;
   const int h = blockIdx.y;                // kv head
@@ -473,20 +583,35 @@ swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // Q as A fragments: row gr (zero past rep), columns 16 t + 2 gc (+1) and
-  // 16 t + 8 + 2 gc (+1)
-  uint32_t qa[KT][2];
-  const __nv_bfloat16* qrow =
-      q + ((static_cast<size_t>(b) * hkv + h) * rep + gr) * HD + 2 * gc;
+  // Q as A fragments: rows gr and gr + 8 (zero past rep), columns
+  // 16 t + 2 gc (+1) and 16 t + 8 + 2 gc (+1); at hd 256 the rows go to
+  // shared memory (seen by every thread after the loop's first barrier)
+  const __nv_bfloat16* qrows =
+      q + (static_cast<size_t>(b) * hkv + h) * rep * HD;
+  uint32_t qa[QS ? 1 : KT][4];
+  if constexpr (QS) {
+    for (int e = threadIdx.x; e < MR * PIECES; e += THREADS) {
+      const int r = e / PIECES, part = (e % PIECES) * 8;
+      *reinterpret_cast<uint4*>(q_s + r * RS + part) =
+          r < rep ? *reinterpret_cast<const uint4*>(qrows + r * HD + part)
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
 #pragma unroll
-  for (int t = 0; t < KT; ++t) {
-    qa[t][0] = gr < rep ? load32(qrow + 16 * t) : 0u;
-    qa[t][1] = gr < rep ? load32(qrow + 16 * t + 8) : 0u;
+    for (int t = 0; t < KT; ++t) {
+      const __nv_bfloat16* qa0 = qrows + gr * HD + 16 * t + 2 * gc;
+      const __nv_bfloat16* qa1 = qa0 + 8 * HD;
+      qa[t][0] = gr < rep ? load32(qa0) : 0u;
+      qa[t][2] = gr < rep ? load32(qa0 + 8) : 0u;
+      qa[t][1] = TWO && gr + 8 < rep ? load32(qa1) : 0u;
+      qa[t][3] = TWO && gr + 8 < rep ? load32(qa1 + 8) : 0u;
+    }
   }
   float o[NT][4];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float m = NEG_INF, l = 0.f;              // row gr; l over this lane's slots
+  // rows gr and gr + 8; l over this lane's slots
+  float m = NEG_INF, l = 0.f, m8 = NEG_INF, l8 = 0.f;
 
   for (int c = 0; c < chunks; ++c) {
     cp_async_wait<MMA_STAGES - 1>();
@@ -501,17 +626,36 @@ swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const __nv_bfloat16* krow = ks + (8 * nt + gr) * RS + 2 * gc;
 #pragma unroll
       for (int t = 0; t < KT; ++t) {
-        mma_bf16(sc[nt], qa[t][0], qa[t][1], load32(krow + 16 * t),
+        uint32_t a0, a1, a2, a3;
+        if constexpr (QS) {
+          const __nv_bfloat16* qp = q_s + gr * RS + 16 * t + 2 * gc;
+          a0 = load32(qp);
+          a2 = load32(qp + 8);
+          a1 = TWO ? load32(qp + 8 * RS) : 0u;
+          a3 = TWO ? load32(qp + 8 * RS + 8) : 0u;
+        } else {
+          a0 = qa[t][0];
+          a1 = qa[t][1];
+          a2 = qa[t][2];
+          a3 = qa[t][3];
+        }
+        mma_bf16(sc[nt], a0, a1, a2, a3, load32(krow + 16 * t),
                  load32(krow + 16 * t + 8));
       }
     }
+    // p[e] of row gr and p8[e] of row gr + 8, for slot jw + 8 (e >> 1) +
+    // (e & 1)
     const int jw = j0 + c * CS + warp * 16 + 2 * gc;
-    float p[4];
-    float mt = NEG_INF;
+    float p[4], p8[4];
+    float mt = NEG_INF, mt8 = NEG_INF;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       p[e] = sc[e >> 1][e & 1] * scale;
-      if (jw + 8 * (e >> 1) + (e & 1) < jend) mt = fmaxf(mt, p[e]);
+      p8[e] = sc[e >> 1][2 + (e & 1)] * scale;
+      if (jw + 8 * (e >> 1) + (e & 1) < jend) {
+        mt = fmaxf(mt, p[e]);
+        mt8 = fmaxf(mt8, p8[e]);
+      }
     }
     mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
     mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 2));
@@ -524,17 +668,40 @@ swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       l += p[e];
     }
     m = mn;
+    float alpha8 = 1.f;
+    if constexpr (TWO) {
+      mt8 = fmaxf(mt8, __shfl_xor_sync(FULL, mt8, 1));
+      mt8 = fmaxf(mt8, __shfl_xor_sync(FULL, mt8, 2));
+      const float mn8 = fmaxf(m8, mt8);
+      alpha8 = exp2f(m8 - mn8);
+      l8 *= alpha8;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p8[e] = jw + 8 * (e >> 1) + (e & 1) < jend ? exp2f(p8[e] - mn8) : 0.f;
+        l8 += p8[e];
+      }
+      m8 = mn8;
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       o[nt][0] *= alpha;
       o[nt][1] *= alpha;
+      if constexpr (TWO) {
+        o[nt][2] *= alpha8;
+        o[nt][3] *= alpha8;
+      }
     }
     // P as A fragments, a high and a low bf16 part
     const uint32_t ph0 = pack_bf16(p[0], p[1]), ph2 = pack_bf16(p[2], p[3]);
-    const __nv_bfloat162 h0 = *reinterpret_cast<const __nv_bfloat162*>(&ph0);
-    const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&ph2);
-    const uint32_t pl0 = pack_bf16(p[0] - __low2float(h0), p[1] - __high2float(h0));
-    const uint32_t pl2 = pack_bf16(p[2] - __low2float(h2), p[3] - __high2float(h2));
+    const uint32_t pl0 = pack_rest(p[0], p[1], ph0);
+    const uint32_t pl2 = pack_rest(p[2], p[3], ph2);
+    uint32_t ph1 = 0u, ph3 = 0u, pl1 = 0u, pl3 = 0u;
+    if constexpr (TWO) {
+      ph1 = pack_bf16(p8[0], p8[1]);
+      ph3 = pack_bf16(p8[2], p8[3]);
+      pl1 = pack_rest(p8[0], p8[1], ph1);
+      pl3 = pack_rest(p8[2], p8[3], ph3);
+    }
     // V as B fragments: 16 slots x 16 columns a ldmatrix.x4.trans
     const __nv_bfloat16* vrow =
         vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * RS + (lane >> 4) * 8;
@@ -542,10 +709,10 @@ swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n2 = 0; n2 < NT / 2; ++n2) {
       uint32_t vb[4];
       ldmatrix_x4_trans(vb, vrow + 16 * n2);
-      mma_bf16(o[2 * n2], ph0, ph2, vb[0], vb[1]);
-      mma_bf16(o[2 * n2], pl0, pl2, vb[0], vb[1]);
-      mma_bf16(o[2 * n2 + 1], ph0, ph2, vb[2], vb[3]);
-      mma_bf16(o[2 * n2 + 1], pl0, pl2, vb[2], vb[3]);
+      mma_bf16(o[2 * n2], ph0, ph1, ph2, ph3, vb[0], vb[1]);
+      mma_bf16(o[2 * n2], pl0, pl1, pl2, pl3, vb[0], vb[1]);
+      mma_bf16(o[2 * n2 + 1], ph0, ph1, ph2, ph3, vb[2], vb[3]);
+      mma_bf16(o[2 * n2 + 1], pl0, pl1, pl2, pl3, vb[2], vb[3]);
     }
     __syncthreads();                       // this stage is refilled next
     if (c + MMA_STAGES < chunks) issue(c + MMA_STAGES);
@@ -554,23 +721,35 @@ swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
   l += __shfl_xor_sync(FULL, l, 1);
   l += __shfl_xor_sync(FULL, l, 2);
+  if constexpr (TWO) {
+    l8 += __shfl_xor_sync(FULL, l8, 1);
+    l8 += __shfl_xor_sync(FULL, l8, 2);
+  }
 
-  // this warp's rows 0-7 into the merge tables, over the (now idle) ring
+  // this warp's rows into the merge tables, over the (now idle) ring
   __syncthreads();
-  float* s_ml = reinterpret_cast<float*>(smem);     // [WARPS][8][2]
-  float* s_acc = s_ml + WARPS * 8 * 2;              // [WARPS][8][HD]
+  float* s_ml = reinterpret_cast<float*>(smem);     // [WARPS][MR][2]
+  float* s_acc = s_ml + WARPS * MR * 2;             // [WARPS][MR][HD]
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
-    s_acc[(warp * 8 + gr) * HD + 8 * nt + 2 * gc] = o[nt][0];
-    s_acc[(warp * 8 + gr) * HD + 8 * nt + 2 * gc + 1] = o[nt][1];
+    s_acc[(warp * MR + gr) * HD + 8 * nt + 2 * gc] = o[nt][0];
+    s_acc[(warp * MR + gr) * HD + 8 * nt + 2 * gc + 1] = o[nt][1];
+    if constexpr (TWO) {
+      s_acc[(warp * MR + gr + 8) * HD + 8 * nt + 2 * gc] = o[nt][2];
+      s_acc[(warp * MR + gr + 8) * HD + 8 * nt + 2 * gc + 1] = o[nt][3];
+    }
   }
   if (gc == 0) {
-    s_ml[(warp * 8 + gr) * 2] = m;
-    s_ml[(warp * 8 + gr) * 2 + 1] = l;
+    s_ml[(warp * MR + gr) * 2] = m;
+    s_ml[(warp * MR + gr) * 2 + 1] = l;
+    if constexpr (TWO) {
+      s_ml[(warp * MR + gr + 8) * 2] = m8;
+      s_ml[(warp * MR + gr + 8) * 2 + 1] = l8;
+    }
   }
   __syncthreads();
-  finish<__nv_bfloat16, HD, 8>(s_ml, s_acc, b, h, hkv, rep, out, part_ml,
-                               part_acc, tickets);
+  finish<__nv_bfloat16, HD, MR>(s_ml, s_acc, b, h, hkv, rep, out, part_ml,
+                                part_acc, tickets);
 }
 
 template <typename K>
@@ -585,9 +764,10 @@ template <int HD, int MAX_REP>
 int launch_f32(const void* q, const void* k, const void* v, const void* pos,
                int b, int hkv, int w, int rep, int splits, int slots,
                void* out, void* ml, void* acc, void* tk, cudaStream_t st) {
-  const cudaError_t err = opt_in(swa_f32_kernel<HD, MAX_REP>, RING_BYTES);
+  constexpr int bytes = f32_smem_bytes<HD, MAX_REP>();
+  const cudaError_t err = opt_in(swa_f32_kernel<HD, MAX_REP>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  swa_f32_kernel<HD, MAX_REP><<<dim3(splits, hkv, b), THREADS, RING_BYTES, st>>>(
+  swa_f32_kernel<HD, MAX_REP><<<dim3(splits, hkv, b), THREADS, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(pos), w, hkv,
       rep, slots, static_cast<float*>(out), static_cast<float*>(ml),
@@ -603,17 +783,18 @@ int launch_f32_rep(const void* q, const void* k, const void* v,
   if (rep <= 1) return launch_f32<HD, 1>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, ml, acc, tk, s);
   if (rep <= 2) return launch_f32<HD, 2>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, ml, acc, tk, s);
   if (rep <= 4) return launch_f32<HD, 4>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, ml, acc, tk, s);
-  return launch_f32<HD, 8>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, ml, acc, tk, s);
+  if (rep <= 8) return launch_f32<HD, 8>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, ml, acc, tk, s);
+  return launch_f32<HD, 16>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, ml, acc, tk, s);
 }
 
-template <int HD>
+template <int HD, int MR>
 int launch_bf16(const void* q, const void* k, const void* v, const void* pos,
                 int b, int hkv, int w, int rep, int splits, int slots,
                 void* out, void* ml, void* acc, void* tk, cudaStream_t st) {
-  constexpr int bytes = MMA_RING_BYTES<HD>;
-  const cudaError_t err = opt_in(swa_bf16_kernel<HD>, bytes);
+  constexpr int bytes = bf16_smem_bytes<HD, MR>();
+  const cudaError_t err = opt_in(swa_bf16_kernel<HD, MR>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  swa_bf16_kernel<HD><<<dim3(splits, hkv, b), THREADS, bytes, st>>>(
+  swa_bf16_kernel<HD, MR><<<dim3(splits, hkv, b), THREADS, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(pos),
       w, hkv, rep, slots, static_cast<__nv_bfloat16*>(out),
@@ -621,11 +802,20 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* pos,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_bf16_rep(const void* q, const void* k, const void* v,
+                    const void* pos, int b, int hkv, int w, int rep,
+                    int splits, int slots, void* out, void* ml, void* acc,
+                    void* tk, cudaStream_t s) {
+  if (rep <= 8) return launch_bf16<HD, 8>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, ml, acc, tk, s);
+  return launch_bf16<HD, 16>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, ml, acc, tk, s);
+}
+
 }  // namespace
 
 // q (b, hkv * rep, hd), k and v (b, w, hkv, hd), all of one type (bf16 when
-// `bf16`, else f32), pos (b,) int32, out like q; hd 32, 64 or 128 (32: the
-// MoE configs' smoke widths), rep 1..8;
+// `bf16`, else f32), pos (b,) int32, out like q; hd 32, 64, 128 or 256
+// (32: the MoE configs' smoke widths; 256: recurrentgemma-2b), rep 1..16;
 // splits x slots >= w as `ops.plan` gives them; with splits > 1, part_ml
 // (b, hkv, splits, rep, 2) and part_acc (b, hkv, splits, rep, hd) f32
 // scratch, and tickets (b * hkv,) int32, zero before the call and left so
@@ -637,19 +827,21 @@ extern "C" int repro_swa_decode(const void* q, const void* k, const void* v,
                                 void* tickets, void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b < 1 || b > 65535 || hkv < 1 || hkv > 65535 || w < 1 || rep < 1 ||
-      rep > 8 || (hd != 32 && hd != 64 && hd != 128) || splits < 1 ||
-      slots < 1 ||
+      rep > 16 || (hd != 32 && hd != 64 && hd != 128 && hd != 256) ||
+      splits < 1 || slots < 1 ||
       static_cast<int64_t>(splits) * slots < w || splits > MAX_SPLITS ||
       (splits > 1 && (part_ml == nullptr || part_acc == nullptr ||
                       tickets == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bf16) {
-    if (hd == 32) return launch_bf16<32>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
-    if (hd == 64) return launch_bf16<64>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
-    return launch_bf16<128>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+    if (hd == 32) return launch_bf16_rep<32>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+    if (hd == 64) return launch_bf16_rep<64>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+    if (hd == 128) return launch_bf16_rep<128>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+    return launch_bf16_rep<256>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
   }
   if (hd == 32) return launch_f32_rep<32>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
   if (hd == 64) return launch_f32_rep<64>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
-  return launch_f32_rep<128>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+  if (hd == 128) return launch_f32_rep<128>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
+  return launch_f32_rep<256>(q, k, v, pos, b, hkv, w, rep, splits, slots, out, part_ml, part_acc, tickets, s);
 }

@@ -1,5 +1,6 @@
-"""Serving launcher: batched prefill and a decode loop for a dense or MoE
-LM, on the card unless asked otherwise. The port of ``repro.launch.serve``:
+"""Serving launcher: batched prefill and a decode loop for an LM of the
+dense, MoE, SSM or hybrid family, on the card unless asked otherwise. The
+port of ``repro.launch.serve``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --batch 4 --prompt-len 128 --max-new 64
@@ -7,14 +8,22 @@ LM, on the card unless asked otherwise. The port of ``repro.launch.serve``:
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-moe-16b --batch 4 --prompt-len 128 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --batch 4 --prompt-len 128 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --smoke --device cpu
 
 Weights come from the port's seeded init (no checkpoint) and prompts from a
-seeded ``torch.Generator``. Every decode step's attention runs on the
-``kernels.swa`` kernel on CUDA (its plain version on the CPU).
+seeded ``torch.Generator``. Every decode step's attention (the hybrid's
+local-attention layers; the SSM family has none) runs on the
+``kernels.swa`` kernel on CUDA (its plain version on the CPU). An SSM
+config whose chunk does not divide the prompt is served at a chunk of
+``min(ssm_chunk, 16)``, as JAX's launcher does (``config_for``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -35,6 +44,15 @@ def prompts_for(cfg, batch: int, prompt_len: int, seed: int,
                          generator=gen).to(device)
 
 
+def config_for(cfg, prompt_len: int):
+    """JAX's launcher's chunk rule: an SSM config whose ``ssm_chunk`` does
+    not divide the prompt takes ``min(ssm_chunk, 16)`` (the front padding
+    of a ragged prompt stays under one short chunk)."""
+    if cfg.arch_type == "ssm" and prompt_len % cfg.ssm_chunk:
+        return dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, 16))
+    return cfg
+
+
 def run(model, cfg, prompts: torch.Tensor, *, max_new: int, cache_len: int,
         draws=None, temperature: float = 0.0,
         return_logits: bool = False) -> dict:
@@ -43,7 +61,9 @@ def run(model, cfg, prompts: torch.Tensor, *, max_new: int, cache_len: int,
     tokens (and with ``return_logits`` the logits they came from),
     ``prefill_ms``, ``decode_ms_per_step``, ``decode_tok_s`` (tokens of the
     decode steps per second) and ``tok_s`` (all new tokens over the whole
-    call, as the JAX launcher reports)."""
+    call, as the JAX launcher reports). ``cfg`` goes through
+    ``config_for`` first."""
+    cfg = config_for(cfg, prompts.shape[1])
     timings = {}
     t0 = time.perf_counter()
     out = serve_step.generate(model, cfg, prompts, max_new, cache_len, draws,

@@ -1,6 +1,7 @@
-"""Training launcher: end-to-end LM training of a dense or MoE architecture
-(full or smoke config) on the card unless asked otherwise, with the optional AFM
-probe and a checkpoint of the weights. The port of ``repro.launch.train``:
+"""Training launcher: end-to-end LM training of a dense, MoE, SSM or hybrid
+architecture (full or smoke config) on the card unless asked otherwise, with
+the optional AFM probe and a checkpoint of the weights. The port of
+``repro.launch.train``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --probe --probe-side 8 --batch 4 --seq 1024 --steps 30
@@ -8,18 +9,23 @@ probe and a checkpoint of the weights. The port of ``repro.launch.train``:
         --smoke --probe --device cpu --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch granite-moe-1b-a400m --probe --batch 4 --seq 1024 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+        --probe --batch 4 --seq 1024 --steps 20 --lr 3e-4
 
 Weights come from the port's seeded init, tokens from the synthetic Markov
 corpus (``data.tokens``) on a seeded CPU generator. With ``--probe`` every
 step feeds the mean-pooled final hidden states to a ``probe-side`` squared
 AFM whose search and cascade run on the ``bmu`` and ``drive_cascade``
 kernels on CUDA (their plain versions on the CPU). An MoE model's loss
-adds ``router_aux_coef`` times its router loss. The families the port
-lacks (SSM, hybrid, audio, VLM) raise "not ported yet".
+adds ``router_aux_coef`` times its router loss. An SSM config whose chunk
+does not divide ``seq`` trains at a chunk of ``min(ssm_chunk, seq)``, as
+JAX's launcher does. The families the port lacks (audio, VLM) raise "not
+ported yet".
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -47,10 +53,11 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     launches (read after the loss, which waits for the step anyway), on the
     CPU from the host clock. The host makes the next batch while the card
     runs the step."""
-    # the ssm family's ssm_chunk fix-up and the audio and vlm families'
-    # extra inputs (frames; vision embeds and M-RoPE positions) come with
-    # those families; the port trains the dense and MoE families
+    # the audio and vlm families' extra inputs (frames; vision embeds and
+    # M-RoPE positions) come with those families, which raise here
     transformer._layer_plan(cfg)
+    if cfg.arch_type == "ssm" and seq % cfg.ssm_chunk:
+        cfg = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, seq))
     device = resolve_device(device)
     cuda = device.type == "cuda"
     probe_cfg = (ProbeConfig(side=probe_side, dim=cfg.d_model,

@@ -78,11 +78,12 @@ def global_norm(tree: dict) -> torch.Tensor:
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether weight decay applies to a parameter: JAX's rule, ``ndim >= 2``
     (no decay on scales and biases), on the leaf as the JAX package's tree
-    holds it. That tree stacks every block's leaf on a leading layer axis
-    (``blocks``, and ``dense_blocks`` where the MoE family has leading
-    dense layers), so its rule decays the blocks' norm scales ((L, d)) and
-    not ``ln_f``; the port keeps one tensor a layer (``<stack>.<i>.…``),
-    which counts one axis fewer."""
+    holds it. That tree stacks every block's leaf of a stack on a leading
+    layer axis (``blocks``, ``dense_blocks``, the hybrid's ``pat*``), so its
+    rule decays the stacks' 1-D leaves too (norm scales, SSD's ``a_log``,
+    RG-LRU's ``lam`` and ``b_a``: (L, d)) and not ``ln_f`` or a tail's
+    (``tail*``, unstacked); the port keeps one tensor a stacked layer
+    (``<stack>.<i>.…``), which counts one axis fewer."""
     return p.ndim + (layer_of(name) is not None) >= 2
 
 

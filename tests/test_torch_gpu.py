@@ -532,7 +532,13 @@ SWA_SHAPES = [(1, 32, 8, 64, 8192, p)
     # the MoE decode shapes: granite-moe-1b-a400m, deepseek-moe-16b (rep 1,
     # hd 128), and hd 32 (their smoke widths) on one split and on several
     (4, 16, 8, 64, 192, 128), (4, 16, 16, 128, 160, 96),
-    (2, 4, 2, 32, 40, 20), (1, 8, 2, 32, 1024, 700)]
+    (2, 4, 2, 32, 40, 20), (1, 8, 2, 32, 1024, 700),
+    # recurrentgemma-2b's local attention (hd 256, MQA rep 10): the serve
+    # shape and the 2,048-slot ring (8 splits), wrapped; a ragged rep 12
+    # and rep 16 at hd 256 and 64
+    (4, 10, 1, 256, 192, 150), (1, 10, 1, 256, 2048, 8703),
+    (2, 12, 1, 256, 300, 250), (2, 24, 2, 256, 64, 70),
+    (2, 32, 2, 64, 512, 400), (1, 12, 1, 128, 1024, 900)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -576,6 +582,75 @@ def test_swa_kernel_is_bitwise_repeatable(cuda, b, pos, dtype):
         tickets = swa_ops.tickets(q.device, torch.cuda.current_stream(
             q.device).cuda_stream, b * 8)
         assert not bool(tickets.any())
+
+
+def test_swa_kernel_refuses_what_it_is_not_built_for(cuda):
+    """An hd or rep outside the built set raises on the card, as on the
+    CPU, and launches nothing."""
+    before = swa_ops.launches
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for h, hkv, hd in ((8, 1, 96), (8, 1, 512), (17, 1, 64)):
+        q = torch.zeros(1, h, hd, device=cuda).bfloat16()
+        kv = torch.zeros(1, 16, hkv, hd, device=cuda).bfloat16()
+        with pytest.raises(ValueError):
+            swa_ops.swa_decode(q, kv, kv, pos)
+    assert swa_ops.launches == before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_recurrent_decode_on_the_card_equals_the_cpu(cuda, arch):
+    """Prefill and 6 decode steps of each recurrent smoke config (f32) on
+    the card and on the CPU from the same weights: logits within 2e-4 (1 +
+    max|logit|) at each step (fed the CPU's tokens); recurrentgemma's
+    attention layers launch ``swa_decode`` once each a step (hd 128, rep
+    2), mamba2 none."""
+    import copy
+    cfg = configs.get_smoke(arch)
+    model = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu = copy.deepcopy(model).to(cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 20),
+                           generator=torch.Generator().manual_seed(3))
+    want, cache = transformer.prefill(model, {"tokens": prompt}, cfg,
+                                      cache_len=32)
+    got, gcache = transformer.prefill(gpu, {"tokens": prompt.to(cuda)}, cfg,
+                                      cache_len=32)
+    attn = sum(c for _, k, c, _ in transformer._layer_plan(cfg)[0]
+               if k == "attn")
+    for i in range(6):
+        tol = 2e-4 * (1 + float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) <= tol, i
+        tok = want.argmax(-1)[:, None]
+        pos = torch.full((2,), 20 + i, dtype=torch.int32)
+        want, cache = transformer.decode_step(model, tok, pos, cache, cfg)
+        before = swa_ops.launches
+        got, gcache = transformer.decode_step(gpu, tok.to(cuda),
+                                              pos.to(cuda), gcache, cfg)
+        assert swa_ops.launches == before + attn
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_recurrent_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """One train step of each recurrent smoke config (f32) from the same
+    weights and batch: loss, ce and grad_norm within 1e-5 relative."""
+    import copy
+    from repro_torch.training import adamw, train_step
+    cfg = configs.get_smoke(arch)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    step = train_step.make_train_step(cfg, opt)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32),
+                         generator=torch.Generator().manual_seed(4))
+    metrics = []
+    for device in ("cpu", cuda):
+        model = transformer.init_params(cfg, seed=1, device="cpu")
+        model = copy.deepcopy(model).to(device).requires_grad_(True)
+        state = train_step.TrainState(
+            model, adamw.adamw_init(dict(model.named_parameters())),
+            torch.zeros((), dtype=torch.int32, device=device))
+        batch = {"tokens": toks.to(device), "labels": toks.to(device)}
+        metrics.append(step(state, batch)[1])
+    for k in ("loss", "ce", "grad_norm"):
+        c, g = float(metrics[0][k]), float(metrics[1][k])
+        assert abs(g - c) <= 1e-5 * abs(c), (k, c, g)
 
 
 def test_generate_on_the_card_equals_the_cpu(cuda):

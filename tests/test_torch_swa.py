@@ -55,6 +55,10 @@ def _inputs(b, h, hkv, hd, w, pos, seed):
     # hd 32 (the MoE configs' smoke widths): a linear cache and a ring
     (2, 4, 2, 32, 40, 20),
     (2, 4, 4, 32, 16, 30),
+    # recurrentgemma-2b's local attention (hd 256, MQA: H 10 over one kv
+    # head): the serve shape (B 4, W 192) and its 2,048-slot ring, wrapped
+    (4, 10, 1, 256, 192, 150),
+    (1, 10, 1, 256, 2048, 8703),
 ])
 def test_swa_plain_matches_jax(b, h, hkv, hd, w, pos):
     q, k, v, posv = _inputs(b, h, hkv, hd, w, pos, seed=b * h + w + pos)
@@ -111,7 +115,9 @@ def _bad_inputs():
     q, k, v, pos = (t(x) for x in _inputs(2, 8, 2, 64, 16, 5, seed=0))
     return {
         "head dim 48": (q[..., :48], k[..., :48], v[..., :48], pos),
-        "rep 9": (torch.zeros(2, 9, 64), k[:, :, :1], v[:, :, :1], pos),
+        "rep 17": (torch.zeros(2, 17, 64), k[:, :, :1], v[:, :, :1], pos),
+        "head dim 512": (torch.zeros(2, 8, 512), torch.zeros(2, 16, 2, 512),
+                         torch.zeros(2, 16, 2, 512), pos),
         "H not a multiple of Hkv": (q[:, :7], k, v, pos),
         "float16": (q.half(), k.half(), v.half(), pos),
         "mixed dtypes": (q, k.bfloat16(), v, pos),
