@@ -67,7 +67,7 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     GMU given, 200 events; C. the discrete-event engine against A's runner,
     200 events from one ``GeneratorDraws`` seed (integers bitwise, per event
     with the state re-injected); D. constant latency (delay 1.0), the relay
-    race, 2,000 events (message conservation, QE, rounds/s, launches and
+    race, 1,000 events (message conservation, QE, rounds/s, launches and
     host syncs a round); E. a small constant-latency run on the card
     against the CPU; then ``drive_cascade`` after a one-sample merge, and
     the B = 1 rows of the kernel table (``bmu``, ``fused_step`` searching
@@ -188,6 +188,27 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     ``drive_cascade`` a step; ms a step, tokens/s, peak memory, model
     FLOPs beside the bf16 peak; (f) the swa rows at recurrentgemma's two
     decode shapes and the probe's rows at D 2,048 and 2,560;
+11O. the audio family (``audio_phase``), last: (a) whisper-medium at
+    smoke width (f32) on the card against the CPU with seeded frames:
+    forward logits, prefill and 16 greedy decode steps on a linear cache
+    and on a wrapped 16-slot ring (two ``swa_decode`` launches a decoder
+    layer a step: self- and cross-attention), one train step's loss, ce
+    and grad_norm; (b) ``swa_decode`` at whisper's decode shapes (B 4,
+    MHA 16/16, hd 64: the self-attention over W 192, the cross-attention
+    over the 1,500 frames in 5 splits of 300 slots) against its plain
+    version, f32 and bf16, two calls bitwise; (c) served at full width
+    (~821 M parameters, bf16) through ``launch/serve.py``'s ``run`` with
+    zero frames, B 4 x 128 + 64: prefill (the encoder over 1,500 frames,
+    then the prompt), decode ms/step, tok/s, peak memory, the cross K/V
+    cache's bytes, 48 ``swa_decode`` launches a step, the kernel held to
+    its plain version on a layer's cross K/V; (d) trained at full width
+    with an 8x8 probe on the decoder's pooled hidden states through
+    ``launch/train.py``'s ``run`` (B 4 x S 1,024, lr 3e-4, 20 steps):
+    losses and grad norms finite, the loss falling, one ``bmu`` and one
+    ``drive_cascade`` a step; ms a step, tokens/s, peak memory, model
+    FLOPs (the encoder's frames and the cross K/V products counted)
+    beside the bf16 peak; (e) the swa rows at both shapes (SDPA with no
+    mask beside the cross-attention's) and the probe's rows at D 1,024;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -1442,7 +1463,7 @@ ASYNC_EVENTS = 8000
 #: events of phase C (the engine against the fused fast path, per event)
 ASYNC_PAIRED = 200
 #: events of phase D (constant latency, the relay race)
-ASYNC_CONSTANT = 2000
+ASYNC_CONSTANT = 1000
 #: events of phase D's profiled window
 ASYNC_PROFILED = 10
 
@@ -2996,21 +3017,26 @@ def check_swa_kernel(device):
     return worst
 
 
-def attn_layers(cfg) -> int:
-    """The layers of ``cfg``'s plan whose decode attention runs on
-    ``swa_decode`` (all but the SSD and RG-LRU layers)."""
+def swa_per_step(cfg) -> int:
+    """``swa_decode`` calls of one decode step under ``cfg``'s plan: one an
+    attention layer (all but the SSD and RG-LRU layers; the audio encoder's
+    run in the prefill alone), and one more a decoder layer with
+    cross-attention."""
     from repro_torch.models import transformer
     stacks, tail = transformer._layer_plan(cfg)
-    return sum(count for _, kind, count, _ in stacks + tail
-               if kind not in ("ssm", "rglru"))
+    return sum(count * (1 + cross)
+               for name, kind, count, cross in stacks + tail
+               if kind not in ("ssm", "rglru")
+               and name != transformer.ENCODER)
 
 
-def teacher_forced_logits(model, cfg, prompt, tokens, cache_len):
-    """Logits of prefill and then decode steps fed ``tokens`` (another
-    run's choices), (B, new, V)."""
+def teacher_forced_logits(model, cfg, prompt, tokens, cache_len, extra=None):
+    """Logits of prefill (``extra`` joining the prompt in its batch) and then
+    decode steps fed ``tokens`` (another run's choices), (B, new, V)."""
     from repro_torch.models import transformer
     b, s = prompt.shape
-    last, cache = transformer.prefill(model, {"tokens": prompt}, cfg,
+    last, cache = transformer.prefill(model, {"tokens": prompt,
+                                              **(extra or {})}, cfg,
                                       cache_len=cache_len)
     out = [last]
     pos = torch.full((b,), s, dtype=torch.int32, device=prompt.device)
@@ -3023,25 +3049,29 @@ def teacher_forced_logits(model, cfg, prompt, tokens, cache_len):
 
 
 def decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, new, cache_len,
-                       what):
+                       what, extra=None):
     """Greedy generation of ``new`` tokens on the card (decode attention on
-    the kernel, one launch an attention layer a step) and on the CPU (plain
-    version) from the same weights and prompt: the card's logits
-    teacher-forced on the CPU's tokens within LOGIT_TOL; free-running
-    tokens equal, except where the CPU's top two logits lie within it."""
+    the kernel, ``swa_per_step`` launches a step) and on the CPU (plain
+    version) from the same weights, prompt and ``extra`` (the audio
+    family's frames, on the CPU): the card's logits teacher-forced on the
+    CPU's tokens within LOGIT_TOL; free-running tokens equal, except where
+    the CPU's top two logits lie within it."""
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.serving import serve_step
     device = next(gpu_model.parameters()).device
+    extra_g = {k: v.to(device) for k, v in (extra or {}).items()}
     toks_c, logits_c = serve_step.generate(cpu_model, cfg, prompt, new,
-                                           cache_len, return_logits=True)
+                                           cache_len, extra_batch=extra,
+                                           return_logits=True)
     before = swa_ops.launches
     toks_g = serve_step.generate(gpu_model, cfg, prompt.to(device), new,
-                                 cache_len).cpu()
-    if swa_ops.launches - before != attn_layers(cfg) * (new - 1):
+                                 cache_len, extra_batch=extra_g).cpu()
+    if swa_ops.launches - before != swa_per_step(cfg) * (new - 1):
         raise AssertionError(f"{what}: swa_decode launched "
                              f"{swa_ops.launches - before} times")
     forced = teacher_forced_logits(gpu_model, cfg, prompt.to(device),
-                                   toks_c.to(device), cache_len).cpu()
+                                   toks_c.to(device), cache_len,
+                                   extra_g).cpu()
     tol = LOGIT_TOL * (1 + float(logits_c.abs().max()))
     err = float((forced - logits_c).abs().max())
     if not err <= tol:
@@ -3078,14 +3108,15 @@ def check_decode_card_vs_cpu(device):
                            f"{window}")
 
 
-def _serve_run(serve, model, cfg, prompts, new, cache_len, what):
+def _serve_run(serve, model, cfg, prompts, new, cache_len, what,
+               extra=None):
     """One timed ``serve.run`` with the launch counts reset just before."""
     _reset_launch_counts()
     torch.cuda.synchronize()
     out = serve.run(model, cfg, prompts, max_new=new, cache_len=cache_len,
-                    return_logits=True)
+                    extra_batch=extra, return_logits=True)
     counts = _launch_counts()
-    expect = attn_layers(cfg) * (new - 1)
+    expect = swa_per_step(cfg) * (new - 1)
     if counts["swa_decode"] != expect:
         raise AssertionError(f"{what}: swa_decode launched "
                              f"{counts['swa_decode']} times, not {expect}")
@@ -3179,10 +3210,12 @@ def swa_rows(device, runs, worst, long_inputs):
                                         long_inputs))]
 
 
-def swa_row(device, shape, inputs, launches, max_err):
+def swa_row(device, shape, inputs, launches, max_err, masked=True):
     """The kernel table's row of ``swa_decode`` at one decode shape:
     ``inputs`` a list of (q, k, v, pos) cycled through by the timed calls;
-    ``launches`` from the shape's serve run."""
+    ``launches`` from the shape's serve run. The library call is SDPA with
+    the ring's boolean mask, or with none when not ``masked`` (a
+    cross-attention, where every slot is valid)."""
     from repro_torch.device import sm_count
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.swa import ref as swa_ref
@@ -3199,7 +3232,10 @@ def swa_row(device, shape, inputs, launches, max_err):
     posl = pos.long()[:, None]
     j = torch.arange(w, device=device)[None, :]
     valid = torch.remainder(posl - j, w) < torch.clamp(posl + 1, max=w)
-    mask = valid[:, None, None, :]
+    mask = valid[:, None, None, :] if masked else None
+    if not masked and not bool(valid.all()):
+        raise AssertionError(f"swa_decode {label}: an unmasked row with "
+                             f"invalid slots")
 
     def library(q, k, v, pos):
         return torch.nn.functional.scaled_dot_product_attention(
@@ -3482,12 +3518,15 @@ def probe_kernel_checks(device, arch=TRAIN_ARCH):
 
 def _active_block_params(cfg):
     """The block parameters one token's forward multiplies by: all of a
-    dense layer's; of an MoE layer the attention, the router, the shared
-    experts and k of the E routed experts (the active parameters)."""
+    dense layer's (a GELU MLP has two matrices, SwiGLU three; the audio
+    decoder's cross-attention is counted apart, by ``_train_flops``); of an
+    MoE layer the attention, the router, the shared experts and k of the E
+    routed experts (the active parameters)."""
     d = cfg.d_model
     attn = 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
     if cfg.arch_type != "moe":
-        return cfg.num_layers * (attn + 3 * d * cfg.d_ff)
+        mlp = (2 if cfg.mlp_kind == "gelu" else 3) * d * cfg.d_ff
+        return cfg.num_layers * (attn + mlp)
     nd = cfg.first_dense_layers
     fe = cfg.moe_d_ff or cfg.d_ff
     moe = attn + d * cfg.num_experts + 3 * d * fe * (
@@ -3502,17 +3541,28 @@ def _train_flops(cfg, b, s):
     backward and the blocks' 2 T N again under remat, N the active
     parameters (``_active_block_params``); the attention's QK and PV over
     the whole S x S square, 4 B H S^2 hd a layer forward, as many again
-    under remat and twice in backward. Model FLOPs: forward and backward
-    once, no remat."""
+    under remat and twice in backward. The audio family adds its encoder
+    over B x encoder_seq frames (its blocks' matrices, its Se x Se
+    attention) and each decoder layer's cross-attention (Q and O on the T
+    tokens, K and V on the B Se frames, QK and PV over the S x Se
+    rectangle). Model FLOPs: forward and backward once, no remat."""
     t = b * s
-    d, hd = cfg.d_model, cfg.hd
+    d, hd, h = cfg.d_model, cfg.hd, cfg.num_heads
     blocks = _active_block_params(cfg)
     head = cfg.vocab_size * d
-    attn_fwd = 4 * b * cfg.num_heads * s * s * hd * cfg.num_layers
+    attn_fwd = 4 * b * h * s * s * hd * cfg.num_layers
+    mats_fwd = 0                   # the encoder's and cross-attention's
+    if cfg.is_encoder_decoder:
+        se, le = cfg.encoder_seq, cfg.encoder_layers or cfg.num_layers
+        enc = _active_block_params(dataclasses.replace(cfg, num_layers=le))
+        mats_fwd = (2 * b * se * (enc + cfg.num_layers * 2 * d * cfg.kv_dim)
+                    + 2 * t * cfg.num_layers * 2 * d * cfg.q_dim)
+        attn_fwd += 4 * b * h * hd * (se * se * le + s * se * cfg.num_layers)
     remat = 1 if cfg.remat else 0
-    bf16 = 6 * t * (blocks + head) + remat * 2 * t * blocks
+    bf16 = (6 * t * (blocks + head) + remat * 2 * t * blocks
+            + (3 + remat) * mats_fwd)
     attn = (3 + remat) * attn_fwd
-    return bf16, attn, 6 * t * (blocks + head) + 3 * attn_fwd
+    return bf16, attn, 6 * t * (blocks + head) + 3 * (mats_fwd + attn_fwd)
 
 
 def train_full_width(device):
@@ -4250,16 +4300,16 @@ def recurrent_card_vs_cpu(device):
             + f" (<= {TRAIN_TOL})")
 
 
-def recurrent_swa_checks(device):
-    """Phase N (b): ``swa_decode`` at REC_SWA_CASES against its plain
-    version on the card, f32 and bf16, two calls bitwise equal. Returns the
-    worst bf16 error per label."""
+def swa_case_checks(device, cases, seed):
+    """``swa_decode`` at ``cases`` (label, B, H, Hkv, hd, W, first pos)
+    against its plain version on the card, f32 and bf16, two calls bitwise
+    equal. Returns the worst bf16 error per label."""
     from repro_torch.device import sm_count
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.kernels.swa import ref as swa_ref
-    gen = torch.Generator().manual_seed(SEED + 71)
+    gen = torch.Generator().manual_seed(seed)
     worst = {}
-    for label, b, h, hkv, hd, w, pos0 in REC_SWA_CASES:
+    for label, b, h, hkv, hd, w, pos0 in cases:
         plan = swa_ops.plan(b, hkv, w, sm_count(device))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, pos = swa_inputs(gen, b, h, hkv, hd, w, pos0, dtype,
@@ -4277,6 +4327,11 @@ def recurrent_swa_checks(device):
             print(f"swa_decode {what}: {plan.splits} split(s) of "
                   f"{plan.slots}, max|d| {err:.3g}")
     return worst
+
+
+def recurrent_swa_checks(device):
+    """Phase N (b): ``swa_case_checks`` at REC_SWA_CASES."""
+    return swa_case_checks(device, REC_SWA_CASES, SEED + 71)
 
 
 def recurrent_serve(device, arch, worst):
@@ -4306,7 +4361,7 @@ def recurrent_serve(device, arch, worst):
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     print(f"{cfg.name}: {n / 1e9:.4f} B parameters, {nbytes / 1e9:.3f} GB, "
           f"seeded init on the card in {time.perf_counter() - t0:.2f} s; "
-          f"{attn_layers(cfg)} of {cfg.num_layers} layers decode on "
+          f"{swa_per_step(cfg)} of {cfg.num_layers} layers decode on "
           f"swa_decode")
     runs = {}
     prompts = serve.prompts_for(cfg, b, prompt_len, SEED, device)
@@ -4325,13 +4380,13 @@ def recurrent_serve(device, arch, worst):
     last, cache = transformer.prefill(model, {"tokens": prompt}, long_cfg,
                                       cache_len=w)
     zero = _cache_bytes(transformer.init_cache(long_cfg, 1, w))
-    holds = (f"a {w}-slot ring" if attn_layers(cfg)
+    holds = (f"a {w}-slot ring" if swa_per_step(cfg)
              else "the recurrent states alone")
     print(f"{cfg.name} decode cache at B 1 after the {REC_LONG_PROMPT}-token "
           f"prefill: {_cache_bytes(cache) / 1e6:.3f} MB (a zero cache of the "
           f"same config: {zero / 1e6:.3f} MB; {holds})")
     long_inputs = None
-    if attn_layers(cfg):
+    if swa_per_step(cfg):
         k_all, v_all = cache["pat2_attn"]["k"], cache["pat2_attn"]["v"]
         pos = torch.full((1,), REC_LONG_PROMPT - 1, dtype=torch.int32,
                          device=device)
@@ -4396,20 +4451,23 @@ def _rec_flops(cfg, b, s):
     return 3 * (2 * t * mats + extra)
 
 
-def recurrent_train(device, arch):
-    """Phase N (e): ``arch`` at full width, bf16, through
+def train_at_full_width(device, arch, steps, flops_of):
+    """Phase N (e), phase O (d): ``arch`` at full width, bf16, through
     ``launch/train.py``'s ``run`` with the probe (B 4 x S 1,024, an 8x8
-    probe on the pooled hidden states, lr TRAIN_LR, REC_TRAIN_STEPS
-    steps), the kernel counts set to 0 just before and read just after.
-    Every loss and grad norm finite (mamba2's at its own chunk of 256: the
-    reference's SSD gradient is NaN there), the mean of the last 5 losses
-    below the first 5's, one ``bmu`` call and one ``drive_cascade`` launch
-    a step. ms a step, tokens/s, peak memory, model FLOPs beside the bf16
-    peak, and the run's first batch evaluated again with the trained
-    weights beside its loss at step 0. Returns the run's kernel counts."""
+    probe on the pooled hidden states, lr TRAIN_LR, ``steps`` steps; an
+    audio model's batches carry the launcher's zero frames), the kernel
+    counts set to 0 just before and read just after. Every loss and grad
+    norm finite (mamba2's at its own chunk of 256: the reference's SSD
+    gradient is NaN there), the mean of the last 5 losses below the first
+    5's, one ``bmu`` call and one ``drive_cascade`` launch a step. ms a
+    step, tokens/s, peak memory, model FLOPs (``flops_of(cfg, B, S)``)
+    beside the bf16 peak, and the run's first batch evaluated again with
+    the trained weights beside its loss at step 0. Returns the run's
+    kernel counts."""
     from repro_torch import configs
     from repro_torch.data import tokens
     from repro_torch.launch import train
+    from repro_torch.models import transformer
     from repro_torch.training import train_step
     cfg = configs.get(arch)
     name = torch.cuda.get_device_name(0)
@@ -4421,7 +4479,6 @@ def recurrent_train(device, arch):
         norms.append(float(metrics["grad_norm"]))
         last["state"] = state
 
-    steps = REC_TRAIN_STEPS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
@@ -4442,6 +4499,7 @@ def recurrent_train(device, arch):
     batch0 = next(tokens.batches(torch.Generator().manual_seed(SEED + 1),
                                  cfg.vocab_size, TRAIN_B, TRAIN_S, steps,
                                  device=device))
+    batch0.update(transformer.stub_inputs(cfg, TRAIN_B, device))
     with torch.no_grad():
         again = float(train_step.lm_loss(last.pop("state").params, batch0,
                                          cfg)[0])
@@ -4452,7 +4510,7 @@ def recurrent_train(device, arch):
         raise AssertionError(f"{what}: launched {counts} in {steps} steps; "
                              f"bmu and drive_cascade must run once a step")
     step_ms = float(np.median(times[4:]))
-    flops = _rec_flops(cfg, TRAIN_B, TRAIN_S)
+    flops = flops_of(cfg, TRAIN_B, TRAIN_S)
     print(f"{what}, bf16, B {TRAIN_B} x S {TRAIN_S}, {steps} steps, probe "
           f"{TRAIN_PROBE_SIDE}x{TRAIN_PROBE_SIDE}x{cfg.d_model}: "
           f"{seconds:.2f} s with init; losses "
@@ -4504,7 +4562,8 @@ def recurrent_phase(device):
             torch.cuda.empty_cache()
     for arch in REC_ARCHS:
         checks = probe_kernel_checks(device, arch)
-        counts = recurrent_train(device, arch)
+        counts = train_at_full_width(device, arch, REC_TRAIN_STEPS,
+                                     _rec_flops)
         for row in probe_kernel_rows(device, checks, counts):
             row["name"] = f"{row['name']} [{arch}]"
             rows.append(row)
@@ -4517,6 +4576,199 @@ def recurrent_phase(device):
                   f"{run['tok_s']:.1f} tok/s in all, peak "
                   f"{run['peak'] / 1e9:.3f} GB")
     print(f"recurrent phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+#: phase O: the audio family, whisper-medium (an encoder-decoder: 24
+#: bidirectional encoder layers over 1,500 stub frames, 24 decoder layers
+#: with cross-attention, learned positions, no RoPE). Card against the CPU
+#: at smoke width (f32); swa_decode at whisper's two decode shapes (label,
+#: B, H, Hkv, hd, W, first pos; rows step by 21 positions): the decoder's
+#: self-attention over its 192-slot cache, and the cross-attention over the
+#: 1,500 frames (pos 1,499 and past it: every slot valid, as at the path's
+#: pos 1,499; 5 splits of 300 slots on 132 SMs, each ending in a partial
+#: 128-slot chunk); served at full width, bf16, B 4 x 128 + 64 with zero
+#: frames; trained with the 8x8 probe (B 4 x S 1,024, lr TRAIN_LR,
+#: AUDIO_TRAIN_STEPS steps)
+AUDIO_ARCH = "whisper-medium"
+AUDIO_SWA_CASES = [("whisper self", 4, 16, 16, 64, 192, 128),
+                   ("whisper cross", 4, 16, 16, 64, 1500, 1499)]
+AUDIO_SERVE = (4, 128, 64, 192)
+AUDIO_TRAIN_STEPS = 20
+
+
+def audio_card_vs_cpu(device):
+    """Phase O (a): whisper's smoke config (f32) on the card and on the CPU
+    from the same weights and seeded frames (not zeros, so the encoder
+    matters): ``forward_train`` logits within REC_TOL (1 + max|logit|);
+    prefill and 16 greedy decode steps (``decode_card_vs_cpu``: two
+    ``swa_decode`` launches a decoder layer a step) on a linear cache and
+    on a 16-slot ring the prompt has wrapped; one train step from the
+    CPU's state on one batch: loss, ce and grad_norm within TRAIN_TOL
+    relative."""
+    from repro_torch import configs
+    from repro_torch.data import tokens
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import transformer
+    from repro_torch.training import AdamWConfig, train_step
+    cfg = configs.get_smoke(AUDIO_ARCH)
+    what = f"{AUDIO_ARCH} smoke card vs CPU"
+    cpu_model = transformer.init_params(cfg, seed=SEED, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def frames(b):
+        return torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=gen)
+
+    extra = {"frames": frames(2)}
+    prompt = prompts_for(cfg, 2, 32, SEED, "cpu")
+    lc, _ = transformer.forward_train(cpu_model, {"tokens": prompt, **extra},
+                                      cfg)
+    lg, _ = transformer.forward_train(
+        gpu_model, {"tokens": prompt.to(device),
+                    "frames": extra["frames"].to(device)}, cfg)
+    err = float((lg.cpu() - lc).abs().max())
+    tol = REC_TOL * (1 + float(lc.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"{what}: logits off by {err} > {tol}")
+    print(f"{what}: forward logits max|d| {err:.3g} <= {tol:.3g}")
+    decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, 16, 48,
+                       f"{what}, decode", extra)
+    ring = prompts_for(cfg, 2, 40, SEED + 2, "cpu")
+    decode_card_vs_cpu(cpu_model, gpu_model,
+                       dataclasses.replace(cfg, window=16), ring, 16, 16,
+                       f"{what}, decode on a 16-slot ring", extra)
+    batch = next(tokens.batches(torch.Generator().manual_seed(SEED + 3),
+                                cfg.vocab_size, 4, 64, 1, device="cpu"))
+    batch["frames"] = frames(4)
+    step = train_step.make_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2))
+    state = train_step.init_train_state(cfg, seed=SEED, device="cpu")
+    card = _train_state_to(state, device)
+    _, m = step(state, batch)
+    _, mg = step(card, {k: v.to(device) for k, v in batch.items()})
+    errs = {key: _rel_err(mg[key], m[key])
+            for key in ("loss", "ce", "grad_norm")}
+    if not all(e <= TRAIN_TOL for e in errs.values()):
+        raise AssertionError(f"{what}: train step {errs}")
+    print(f"{what}, one train step (B 4 x S 64): " + ", ".join(
+        f"{key} rel {e:.3g}" for key, e in errs.items())
+        + f" (<= {TRAIN_TOL})")
+
+
+def audio_serve(device, worst):
+    """Phase O (c): whisper-medium at full width, bf16, seeded weights,
+    through ``launch/serve.py``'s ``run`` with the launcher's zero frames,
+    warmed up first: B 4 x 128 + 64 on a 192-slot cache. Prefill ms (the
+    encoder over 1,500 frames, then the decoder over the prompt), decode
+    ms/step, tok/s, peak memory, ``swa_decode`` launches (two a decoder
+    layer a step); then a prefill's decode cache (its bytes: the cross
+    K/V and the self K/V) and the kernel held to its plain version on its
+    layer-0 cross K/V at pos 1,499. Returns the run and the 24 layers'
+    cross-attention inputs (for timing)."""
+    from repro_torch import configs
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa import ref as swa_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = configs.get(AUDIO_ARCH)
+    b, prompt_len, new, cache_len = AUDIO_SERVE
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name}: {n / 1e9:.4f} B parameters, {nbytes / 1e9:.3f} GB, "
+          f"seeded init on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{swa_per_step(cfg)} swa_decode launches a decode step (self- "
+          f"and cross-attention of {cfg.num_layers} decoder layers)")
+    prompts = serve.prompts_for(cfg, b, prompt_len, SEED, device)
+    extra = transformer.stub_inputs(cfg, b, device)
+    serve.run(model, cfg, prompts, max_new=4, cache_len=cache_len,
+              extra_batch=extra)
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_run(serve, model, cfg, prompts, new, cache_len,
+                     f"{cfg.name} serve B={b} x {prompt_len} + {new}, "
+                     f"cache {cache_len}, {cfg.encoder_seq} zero frames",
+                     extra)
+    run["peak"] = torch.cuda.max_memory_allocated()
+    run.pop("logits", None)
+    _, cache = transformer.prefill(model, {"tokens": prompts, **extra}, cfg,
+                                   cache_len=cache_len)
+    dec = cache["dec_blocks"]
+    cross = sum(dec[k].numel() * dec[k].element_size()
+                for k in ("cross_k", "cross_v"))
+    print(f"{cfg.name} decode cache at B {b}: {_cache_bytes(cache) / 1e6:.3f}"
+          f" MB ({cross / 1e6:.3f} MB of it the cross K/V over "
+          f"{cfg.encoder_seq} frames, {cross / cfg.num_layers / 1e6:.3f} MB "
+          f"a layer)")
+    se = cfg.encoder_seq
+    pos = torch.full((b,), se - 1, dtype=torch.int32, device=device)
+    gen = torch.Generator().manual_seed(SEED + 83)
+    q = torch.randn(b, cfg.num_heads, cfg.hd, generator=gen).to(device,
+                                                                cfg.dtype)
+    err = swa_error(swa_ops.swa_decode(q, dec["cross_k"][0],
+                                       dec["cross_v"][0], pos),
+                    swa_ref.swa_decode_ref(q, dec["cross_k"][0],
+                                           dec["cross_v"][0], pos,
+                                           window=se),
+                    f"{cfg.name} layer-0 cross K/V")
+    worst["whisper cross"] = max(worst.get("whisper cross", 0.0), err)
+    print(f"swa_decode on {cfg.name}'s layer-0 cross K/V after a prefill "
+          f"(W {se}, pos {se - 1}): max|d| {err:.3g}")
+    cross_inputs = [(q, dec["cross_k"][i], dec["cross_v"][i], pos)
+                    for i in range(cfg.num_layers)]
+    del model, prompts, extra, cache
+    torch.cuda.empty_cache()
+    return run, cross_inputs
+
+
+def audio_phase(device):
+    """Phase O: the audio family (``audio_card_vs_cpu``, ``swa_case_checks``
+    at AUDIO_SWA_CASES, ``audio_serve``, the probe's kernels at D 1,024,
+    ``train_at_full_width``). Returns the phase's kernel rows: swa_decode
+    at whisper's self- and cross-attention shapes (each half the serve
+    run's launches: one of each a decoder layer a step) and the probe's
+    rows (launches from the training run)."""
+    import gc
+    from repro_torch import configs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    audio_card_vs_cpu(device)
+    worst = swa_case_checks(device, AUDIO_SWA_CASES, SEED + 89)
+    run, cross_inputs = audio_serve(device, worst)
+    cfg = configs.get(AUDIO_ARCH)
+    b, _, new, cache_len = AUDIO_SERVE
+    launches = run["launches"]["swa_decode"]
+    per_kind = cfg.num_layers * (new - 1)
+    if launches != 2 * per_kind:
+        raise AssertionError(f"{AUDIO_ARCH} serve: {launches} swa_decode "
+                             f"launches, not {2 * per_kind}")
+    gen = torch.Generator().manual_seed(SEED + 97)
+    self_inputs = [swa_inputs(gen, b, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.hd, cache_len, cache_len - 64,
+                              torch.bfloat16, device)]
+    rows = [swa_row(device, f"{AUDIO_ARCH} self", self_inputs, per_kind,
+                    worst["whisper self"]),
+            swa_row(device, f"{AUDIO_ARCH} cross", cross_inputs, per_kind,
+                    worst["whisper cross"], masked=False)]
+    del cross_inputs, self_inputs
+    torch.cuda.empty_cache()
+    checks = probe_kernel_checks(device, AUDIO_ARCH)
+    counts = train_at_full_width(
+        device, AUDIO_ARCH, AUDIO_TRAIN_STEPS,
+        lambda cfg, b, s: _train_flops(cfg, b, s)[2])
+    for row in probe_kernel_rows(device, checks, counts):
+        row["name"] = f"{row['name']} [{AUDIO_ARCH}]"
+        rows.append(row)
+    del checks
+    print(f"{AUDIO_ARCH} serve: prefill {run['prefill_ms']:.3f} ms, decode "
+          f"{run['decode_ms_per_step']:.4f} ms/step, "
+          f"{run['decode_tok_s']:.1f} decode tok/s, {run['tok_s']:.1f} "
+          f"tok/s in all, peak {run['peak'] / 1e9:.3f} GB")
+    print(f"audio phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -4612,6 +4864,7 @@ def main() -> int:
     rows += training_phase(device)
     rows += moe_phase(device)
     rows += recurrent_phase(device)
+    rows += audio_phase(device)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

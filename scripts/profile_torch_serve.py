@@ -3,14 +3,15 @@
 NVIDIA card.
 
     PYTHONPATH=src python3 scripts/profile_torch_serve.py [--steps 32] \
-        [--shape serve|long_500k] [--arch llama3.2-1b] \
+        [--shape serve|long_500k] [--arch llama3.2-1b|whisper-medium|...] \
         [--moe-impl dense|ragged|ep]
 
 Builds ``--arch`` at full width (bf16, seeded weights; an MoE config's
 path set by ``--moe-impl``) and prefills it as
 ``chip_smoke.py`` does: ``serve`` is B 4 with a 128-token prompt on a
 192-slot linear cache, ``long_500k`` B 1 with an 8,704-token prompt
-(chunked) on the 8,192-slot ring. After a few warm-up steps it runs
+(chunked) on the 8,192-slot ring; an audio model's prefill runs its
+encoder over the launcher's zero frames. After a few warm-up steps it runs
 ``--steps`` greedy decode steps under ``torch.profiler`` and reports the
 wall time a step, the device's busy time a step (sum of kernel and copy
 times) and so its idle share, kernel launches a step, and the kernels and
@@ -64,8 +65,10 @@ def main() -> int:
         batch, prompt_len = 1, cache_len + 512
     model = transformer.init_params(cfg, seed=0, device=device)
     prompt = prompts_for(cfg, batch, prompt_len, 0, device)
-    last, cache = transformer.prefill(model, {"tokens": prompt}, cfg,
-                                      cache_len=cache_len)
+    last, cache = transformer.prefill(
+        model, {"tokens": prompt,
+                **transformer.stub_inputs(cfg, batch, device)}, cfg,
+        cache_len=cache_len)
     step = serve_step.make_decode_step(cfg)
     tok = last.argmax(-1)
     pos = torch.full((batch,), prompt_len, dtype=torch.int32, device=device)

@@ -4,12 +4,13 @@ one NVIDIA card.
 
     PYTHONPATH=src python3 scripts/profile_torch_train.py [--steps 30] \
         [--optimized] [--lr 1e-3] [--batch 4] [--seq 1024] [--probe-side 8] \
-        [--arch llama3.2-1b] [--moe-impl dense|ragged|ep]
+        [--arch llama3.2-1b|whisper-medium|...] [--moe-impl dense|ragged|ep]
 
 Builds ``--arch`` at full width (bf16, seeded weights, ``configs.get``,
 or ``configs.get_optimized`` with ``--optimized``; an MoE config's path
-set by ``--moe-impl``) with the AFM probe, as ``launch/train.py`` does,
-and runs ``--steps`` steps on the synthetic corpus, printing each step's
+set by ``--moe-impl``) with the AFM probe, as ``launch/train.py`` does
+(an audio model's batches carry its zero frames), and runs ``--steps``
+steps on the synthetic corpus, printing each step's
 loss and time (CUDA events). Then, from the trained state:
 
 - the step's parts apart, each with CUDA events (median of 3): the
@@ -73,6 +74,7 @@ def main() -> int:
     from repro_torch.core import probe
     from repro_torch.data import tokens
     from repro_torch.draws import GeneratorDraws
+    from repro_torch.models import transformer
     from repro_torch.training import (AdamWConfig, adamw_update,
                                       init_train_state, make_train_step)
     from repro_torch.training.train_step import lm_loss
@@ -91,9 +93,11 @@ def main() -> int:
                       warmup_steps=max(args.steps // 20, 5))
     state = init_train_state(cfg, pcfg, seed=0, device=device)
     step = make_train_step(cfg, opt, pcfg)
-    data = list(tokens.batches(torch.Generator().manual_seed(1),
-                               cfg.vocab_size, b, s, args.steps,
-                               device=device))
+    extra = transformer.stub_inputs(cfg, b, device)
+    data = [{**batch, **extra}
+            for batch in tokens.batches(torch.Generator().manual_seed(1),
+                                        cfg.vocab_size, b, s, args.steps,
+                                        device=device)]
     torch.cuda.reset_peak_memory_stats()
     losses = []
     for i, batch in enumerate(data):

@@ -9,7 +9,8 @@ for CPU tests). ``ALIASES`` names every architecture of the JAX package;
 ``get_optimized(name)`` adds the chunked-attention and chunked-CE settings
 under which the JAX package trains (``OPTIMIZED``).
 ``for_shape(cfg, shape)`` specialises a config for one of the four input
-shapes (the sliding window of long-context serving) and
+shapes (the sliding window of long-context serving; a learned-position
+table long enough for the shape) and
 ``cache_len_for(cfg, shape)`` gives its KV-cache length.
 """
 from __future__ import annotations
@@ -19,9 +20,9 @@ import importlib
 
 import torch
 
-#: the architectures the port runs (the dense, MoE, SSM and hybrid
+#: the architectures the port runs (the dense, MoE, SSM, hybrid and audio
 #: families)
-ARCHS = ["smollm_360m", "llama3_2_1b", "recurrentgemma_2b",
+ARCHS = ["smollm_360m", "whisper_medium", "llama3_2_1b", "recurrentgemma_2b",
          "deepseek_moe_16b", "deepseek_coder_33b", "yi_9b",
          "granite_moe_1b_a400m", "mamba2_1_3b"]
 

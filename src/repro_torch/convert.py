@@ -7,17 +7,20 @@ package's ``AFMState`` gives (a mapping or a namedtuple of ``w``, ``c``,
 ``state_to_numpy`` is its inverse.
 
 ``lm_params_from_numpy`` takes the JAX package's ``init_params`` tree of a
-dense, MoE, SSM or hybrid LM as numpy (``embed``, ``ln_f``, optional
-``unembed``, one entry a stack of the layer plan, such as ``blocks``,
-``dense_blocks`` or ``pat0_rglru``, whose leaves carry a leading layer
+dense, MoE, SSM, hybrid or audio LM as numpy (``embed``, ``ln_f``,
+optional ``unembed``; the audio family's ``pos_embed``, ``enc_pos_embed``
+and ``enc_ln_f``; one entry a stack of the layer plan, such as ``blocks``,
+``dense_blocks``, ``pat0_rglru``, ``enc_blocks`` or ``dec_blocks`` (whose
+blocks hold ``ln_cross`` and ``cross``), whose leaves carry a leading layer
 axis, and one entry a tail layer, such as ``tail0_rglru``, whose leaves
 do not) and returns the port's ``Transformer``, each leaf in its own
 dtype (the f32 leaves of a bf16 block stay f32); dense weights are (d_in,
 d_out) and expert stacks (E, d_in, d_out) in both packages, so nothing is
 transposed. ``lm_cache_from_numpy`` does the same for a cache (one entry
-a stack or tail: ``{"k", "v"}``, ``{"conv", "h"}`` or ``{"conv",
-"state"}``). The ``*_to_numpy`` functions are their inverses; bf16
-leaves come back as float32 (exact). ``lm_params_tree`` keeps each
+a stack or tail: ``{"k", "v"}``, plus ``{"cross_k", "cross_v"}`` on the
+audio decoder's, ``{"conv", "h"}`` or ``{"conv", "state"}``). The
+``*_to_numpy`` functions are their inverses; bf16 leaves come back as
+float32 (exact). ``lm_params_tree`` keeps each
 leaf's own dtype, as CPU tensors: the tree a checkpoint of the weights is
 written from.
 """

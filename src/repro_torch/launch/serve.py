@@ -1,6 +1,6 @@
 """Serving launcher: batched prefill and a decode loop for an LM of the
-dense, MoE, SSM or hybrid family, on the card unless asked otherwise. The
-port of ``repro.launch.serve``:
+dense, MoE, SSM, hybrid or audio family, on the card unless asked
+otherwise. The port of ``repro.launch.serve``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --batch 4 --prompt-len 128 --max-new 64
@@ -12,12 +12,16 @@ port of ``repro.launch.serve``:
         --batch 4 --prompt-len 128 --max-new 64
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --batch 4 --prompt-len 128 --max-new 64
 
 Weights come from the port's seeded init (no checkpoint) and prompts from a
 seeded ``torch.Generator``. Every decode step's attention (the hybrid's
 local-attention layers; the SSM family has none) runs on the
-``kernels.swa`` kernel on CUDA (its plain version on the CPU). An SSM
-config whose chunk does not divide the prompt is served at a chunk of
+``kernels.swa`` kernel on CUDA (its plain version on the CPU), whisper's
+cross-attention over the encoder's 1,500 frames too. An audio model's
+frames are zeros (``transformer.stub_inputs``), as in JAX's launcher. An
+SSM config whose chunk does not divide the prompt is served at a chunk of
 ``min(ssm_chunk, 16)``, as JAX's launcher does (``config_for``).
 """
 from __future__ import annotations
@@ -54,7 +58,7 @@ def config_for(cfg, prompt_len: int):
 
 
 def run(model, cfg, prompts: torch.Tensor, *, max_new: int, cache_len: int,
-        draws=None, temperature: float = 0.0,
+        draws=None, temperature: float = 0.0, extra_batch: dict | None = None,
         return_logits: bool = False) -> dict:
     """One ``generate`` call, timed on the host clock with a device
     synchronise after the prefill and after the last step. Returns the
@@ -62,13 +66,22 @@ def run(model, cfg, prompts: torch.Tensor, *, max_new: int, cache_len: int,
     ``prefill_ms``, ``decode_ms_per_step``, ``decode_tok_s`` (tokens of the
     decode steps per second) and ``tok_s`` (all new tokens over the whole
     call, as the JAX launcher reports). ``cfg`` goes through
-    ``config_for`` first."""
+    ``config_for`` first. ``extra_batch`` joins the prompts in the
+    prefill's batch (an audio model's ``frames``). A model with learned
+    positions refuses a run past its table (``prompt_len + max_new >
+    max_positions``): JAX's gather would clamp the index silently, the
+    card's would fault."""
     cfg = config_for(cfg, prompts.shape[1])
+    npos = cfg.max_positions or 8192
+    if cfg.learned_positions and prompts.shape[1] + max_new > npos:
+        raise ValueError(f"{cfg.name}: a {prompts.shape[1]}-token prompt and "
+                         f"{max_new} new tokens pass its {npos} learned "
+                         f"positions")
     timings = {}
     t0 = time.perf_counter()
     out = serve_step.generate(model, cfg, prompts, max_new, cache_len, draws,
-                              temperature, return_logits=return_logits,
-                              timings=timings)
+                              temperature, extra_batch,
+                              return_logits=return_logits, timings=timings)
     seconds = time.perf_counter() - t0
     tokens, logits = out if return_logits else (out, None)
     b, steps = prompts.shape[0], max_new - 1
@@ -100,7 +113,8 @@ def main(argv=None) -> None:
              else None)
     out = run(model, cfg, prompts, max_new=args.max_new,
               cache_len=args.prompt_len + args.max_new, draws=draws,
-              temperature=args.temperature)
+              temperature=args.temperature,
+              extra_batch=transformer.stub_inputs(cfg, args.batch, device))
     tokens = out["tokens"]
     print(f"arch={cfg.name} device={device} generated {tuple(tokens.shape)} "
           f"in {out['seconds']:.3f}s ({out['tok_s']:.1f} tok/s); prefill "

@@ -1,5 +1,6 @@
-"""Training launcher: end-to-end LM training of a dense, MoE, SSM or hybrid
-architecture (full or smoke config) on the card unless asked otherwise, with
+"""Training launcher: end-to-end LM training of a dense, MoE, SSM, hybrid or
+audio architecture (full or smoke config) on the card unless asked
+otherwise, with
 the optional AFM probe and a checkpoint of the weights. The port of
 ``repro.launch.train``:
 
@@ -11,16 +12,20 @@ the optional AFM probe and a checkpoint of the weights. The port of
         --arch granite-moe-1b-a400m --probe --batch 4 --seq 1024 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
         --probe --batch 4 --seq 1024 --steps 20 --lr 3e-4
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch whisper-medium --probe --batch 4 --seq 1024 --steps 20
 
 Weights come from the port's seeded init, tokens from the synthetic Markov
 corpus (``data.tokens``) on a seeded CPU generator. With ``--probe`` every
 step feeds the mean-pooled final hidden states to a ``probe-side`` squared
 AFM whose search and cascade run on the ``bmu`` and ``drive_cascade``
 kernels on CUDA (their plain versions on the CPU). An MoE model's loss
-adds ``router_aux_coef`` times its router loss. An SSM config whose chunk
-does not divide ``seq`` trains at a chunk of ``min(ssm_chunk, seq)``, as
-JAX's launcher does. The families the port lacks (audio, VLM) raise "not
-ported yet".
+adds ``router_aux_coef`` times its router loss. An audio model's batches
+carry zero frames (``transformer.stub_inputs``), as JAX's launcher makes
+them, and its probe taps the decoder's hidden states. An SSM config whose
+chunk does not divide ``seq`` trains at a chunk of ``min(ssm_chunk,
+seq)``, as JAX's launcher does. The family the port lacks (VLM) raises
+"not ported yet".
 """
 from __future__ import annotations
 
@@ -53,9 +58,13 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     launches (read after the loss, which waits for the step anyway), on the
     CPU from the host clock. The host makes the next batch while the card
     runs the step."""
-    # the audio and vlm families' extra inputs (frames; vision embeds and
-    # M-RoPE positions) come with those families, which raise here
+    # the vlm family's extra inputs (vision embeds and M-RoPE positions)
+    # come with that family, which raises here
     transformer._layer_plan(cfg)
+    npos = cfg.max_positions or 8192
+    if cfg.learned_positions and seq > npos:
+        raise ValueError(f"{cfg.name}: seq {seq} passes its {npos} learned "
+                         f"positions")
     if cfg.arch_type == "ssm" and seq % cfg.ssm_chunk:
         cfg = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, seq))
     device = resolve_device(device)
@@ -73,6 +82,7 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     data = tokens_lib.batches(torch.Generator().manual_seed(seed + 1),
                               cfg.vocab_size, batch, seq, steps,
                               device=device)
+    extra = transformer.stub_inputs(cfg, batch, device)
     t0 = time.time()
     losses = []
     nxt = next(data, None)
@@ -85,7 +95,7 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
             start.record()
         else:
             t_step = time.perf_counter()
-        state, metrics = step_fn(state, nxt, draws)
+        state, metrics = step_fn(state, {**nxt, **extra}, draws)
         if cuda:
             end.record()
         nxt = next(data, None)

@@ -1,11 +1,14 @@
-"""Attention layers of the dense family: GQA causal or sliding-window
-self-attention over a full sequence (prefill, and training, which
-differentiates it), and single-token decode over a KV cache, whose
-attention runs on the ``kernels.swa`` kernel.
+"""Attention layers: GQA causal or sliding-window self-attention over a
+full sequence (prefill, and training, which differentiates it), the
+encoder's bidirectional self-attention and the decoder's cross-attention
+(the audio family), and single-token decode over a KV cache or over the
+cross-attention's cache of the encoder's K/V, both on the ``kernels.swa``
+kernel.
 
 A copy of ``repro.models.attention``. Projections are stored flattened,
 (d_model, heads * head_dim); activations are reshaped to (B, S, H, hd).
-Cross-attention waits for the audio family.
+RoPE applies unless ``cfg.learned_positions`` (the audio family adds
+learned position embeddings to its inputs instead).
 """
 from __future__ import annotations
 
@@ -125,17 +128,20 @@ def attend_chunked(q, k, v, *, window: int, chunk: int,
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
-def self_attention(p: Attention, x, positions, cfg: ModelConfig):
-    """Causal full-sequence self-attention (prefill and training),
-    sliding-window when
-    ``cfg.window > 0``. x: (B, S, D); positions: (B, S). Returns
-    (out (B, S, D), (k, v) before the GQA repeat)."""
+def self_attention(p: Attention, x, positions, cfg: ModelConfig, *,
+                   causal: bool = True):
+    """Full-sequence self-attention (prefill and training): causal,
+    sliding-window when ``cfg.window > 0``; with ``causal=False`` (the
+    audio encoder) bidirectional, a zero mask and never the chunked path.
+    x: (B, S, D); positions: (B, S). Returns (out (B, S, D), (k, v) before
+    the GQA repeat)."""
     b, s, _ = x.shape
     q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
     k = _split_heads(dense(x, p.wk), cfg.num_kv_heads, cfg.hd)
     v = _split_heads(dense(x, p.wv), cfg.num_kv_heads, cfg.hd)
-    q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
-    k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+    if not cfg.learned_positions:
+        q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
+        k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
     k_pre, v_pre = k, v
     k = _repeat_kv(k, cfg.num_heads // cfg.num_kv_heads)
     v = _repeat_kv(v, cfg.num_heads // cfg.num_kv_heads)
@@ -150,15 +156,39 @@ def self_attention(p: Attention, x, positions, cfg: ModelConfig):
         k = torch.nn.functional.pad(k, pads)
         v = torch.nn.functional.pad(v, pads)
         wo = torch.nn.functional.pad(wo, (0, 0, 0, n_pad * cfg.hd))
-    if cfg.attention_impl == "chunked":
+    if cfg.attention_impl == "chunked" and causal:
         out = attend_chunked(q, k, v, window=cfg.window,
                              chunk=min(cfg.attention_chunk, s),
                              probs_bf16=cfg.attention_probs_bf16)
     else:
-        mask = _causal_mask(s, s, cfg.window, device=x.device)[None, None]
+        mask = (_causal_mask(s, s, cfg.window, device=x.device) if causal
+                else torch.zeros((s, s), device=x.device))[None, None]
         out = attend(q, k, v, mask)
     out = out.reshape(b, s, (cfg.num_heads + n_pad) * cfg.hd)
     return dense(out, wo), (k_pre, v_pre)
+
+
+def cross_kv(p: Attention, kv_src, cfg: ModelConfig):
+    """The cross-attention's K and V of the encoder's output kv_src (B, Se,
+    D): (B, Se, Hkv, hd) each, no RoPE. Prefill computes them once a layer
+    for both the attention and the decode cache."""
+    k = _split_heads(dense(kv_src, p.wk), cfg.num_kv_heads, cfg.hd)
+    v = _split_heads(dense(kv_src, p.wv), cfg.num_kv_heads, cfg.hd)
+    return k, v
+
+
+def cross_attention(p: Attention, x, kv_src, cfg: ModelConfig, kv=None):
+    """Decoder cross-attention (no RoPE, bidirectional) of x (B, S, D) over
+    the encoder's output kv_src (B, Se, D), or over its ``cross_kv`` when
+    ``kv`` is given. Returns (B, S, D)."""
+    b, s, _ = x.shape
+    q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
+    k, v = kv if kv is not None else cross_kv(p, kv_src, cfg)
+    k = _repeat_kv(k, cfg.num_heads // cfg.num_kv_heads)
+    v = _repeat_kv(v, cfg.num_heads // cfg.num_kv_heads)
+    mask = torch.zeros((1, 1, s, k.shape[1]), device=x.device)
+    out = attend(q, k, v, mask)
+    return dense(out.reshape(b, s, cfg.q_dim), p.wo)
 
 
 def decode_attention(p: Attention, x, cache_k, cache_v, pos,
@@ -179,8 +209,9 @@ def decode_attention(p: Attention, x, cache_k, cache_v, pos,
     q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
     k = _split_heads(dense(x, p.wk), cfg.num_kv_heads, cfg.hd)
     v = _split_heads(dense(x, p.wv), cfg.num_kv_heads, cfg.hd)
-    q = rope_lib.apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = rope_lib.apply_rope(k, pos[:, None], cfg.rope_theta)
+    if not cfg.learned_positions:
+        q = rope_lib.apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = rope_lib.apply_rope(k, pos[:, None], cfg.rope_theta)
     slot = (torch.remainder(pos, s_cache) if cfg.window
             else torch.clamp(pos, max=s_cache - 1)).long()
     bidx = torch.arange(b, device=x.device)
@@ -188,3 +219,18 @@ def decode_attention(p: Attention, x, cache_k, cache_v, pos,
     cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
     out = swa_ops.swa_decode(q[:, 0].contiguous(), cache_k, cache_v, pos)
     return dense(out.reshape(b, 1, cfg.q_dim), p.wo), cache_k, cache_v
+
+
+def decode_cross_attention(p: Attention, x, cross_k, cross_v, pos_full,
+                           cfg: ModelConfig):
+    """Single-token cross-attention over one layer's cache of the encoder's
+    K/V. x: (B, 1, D); cross_k/v: (B, Se, Hkv, hd) in x's dtype, contiguous;
+    pos_full: (B,) int32, all Se - 1. The attention is the ``swa_decode``
+    kernel: at pos = Se - 1 its ring mask over W = Se slots keeps every
+    slot (age < min(pos + 1, W) holds for all), which is JAX's zero mask.
+    Returns (B, 1, D)."""
+    b = x.shape[0]
+    q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
+    out = swa_ops.swa_decode(q[:, 0].contiguous(), cross_k, cross_v,
+                             pos_full)
+    return dense(out.reshape(b, 1, cfg.q_dim), p.wo)

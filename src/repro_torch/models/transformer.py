@@ -6,7 +6,12 @@ and single-token decode over a cache.
   layers of a SwiGLU FFN of ``first_dense_d_ff`` (deepseek-moe);
 - ssm: L x Mamba2/SSD block (``models.ssm``; no MLP sublayer);
 - hybrid: the (rglru, rglru, attn) pattern (``models.rglru`` and local
-  attention), each block with an MLP, then the pattern's tail.
+  attention), each block with an MLP, then the pattern's tail;
+- audio: whisper's encoder-decoder: an encoder of L x (bidirectional
+  attention + GELU MLP) over stub frame embeddings (``batch["frames"]``,
+  (B, encoder_seq, D)), then a decoder of L x (causal self-attention +
+  cross-attention to the encoder's output + GELU MLP); learned positions
+  added to both inputs, no RoPE.
 
 A port of those families of ``repro.models.transformer``. The parameters
 live in ``nn.Module``s (a ``Block`` per layer, with its ``Attention``,
@@ -14,7 +19,9 @@ live in ``nn.Module``s (a ``Block`` per layer, with its ``Attention``,
 stack of the layer plan (``blocks``; ``dense_blocks`` before it where the
 MoE family has leading dense layers; the hybrid's ``pat{i}_{kind}``) and
 one ``Block`` attribute a tail layer (the hybrid's ``tail{i}_{kind}``,
-unstacked as in JAX's tree); the layer loop is a Python ``for`` loop
+unstacked as in JAX's tree; the audio family's ``enc_blocks`` and
+``dec_blocks``, the latter with ``ln_cross`` and a ``cross`` attention);
+the layer loop is a Python ``for`` loop
 where JAX scans. The hybrid runs its stacks one after another, as JAX
 does (8 rglru, 8 rglru, 8 attention layers, then the tail, at
 recurrentgemma-2b's 26), not interleaved as Griffin's pattern is. The
@@ -29,8 +36,11 @@ explicitly, so one set of weights can be served under several configs
 The cache holds one entry a stack or tail, as in JAX: ``{"k", "v"}`` (L,
 B, S, Hkv, hd) for attention, ``{"conv", "h"}`` for RG-LRU and ``{"conv",
 "state"}`` for SSD layers (``h`` and ``state`` in f32), with no layer
-axis on a tail; ``decode_step`` writes into it in place and returns it.
-The audio and VLM families raise "not ported yet".
+axis on a tail; the decoder's stack adds ``{"cross_k", "cross_v"}`` (L, B,
+Se, Hkv, hd), the encoder's K/V that prefill computes once (the encoder's
+stack has no cache). ``decode_step`` writes into it in place and returns
+it; its self- and cross-attention both run on ``swa_decode``. The VLM
+family raises "not ported yet".
 
 Training (``repro_torch.training.train_step``) differentiates
 ``forward_train`` or ``forward_hidden`` + ``chunked_ce_loss``. The weights
@@ -55,15 +65,23 @@ from repro_torch.models.common import (ModelConfig, dense, init_dense,
 # Parameters
 
 
+#: the audio family's encoder stack: no cross-attention, no cache, run
+#: once by ``_encode`` and skipped by the decoder's loops
+ENCODER = "enc_blocks"
+
+
 def _layer_plan(cfg: ModelConfig):
     """Returns (stacks, tail), lists of (name, kind, count, cross), as JAX's
-    ``_layer_plan``; the dense, MoE, SSM and hybrid families."""
-    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.mrope_sections or cfg.learned_positions
-            or cfg.is_encoder_decoder):
+    ``_layer_plan``; the dense, MoE, SSM, hybrid and audio families."""
+    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio")
+            or cfg.mrope_sections):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.arch_type!r} family is not ported yet; the "
-            f"port runs the dense, MoE, SSM and hybrid families")
+            f"port runs the dense, MoE, SSM, hybrid and audio families")
+    if (cfg.arch_type == "audio") != cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name}: the audio family, and it alone, is an "
+                         f"encoder-decoder (arch_type {cfg.arch_type!r}, "
+                         f"is_encoder_decoder {cfg.is_encoder_decoder})")
     if cfg.arch_type == "ssm":
         return [("blocks", "ssm", cfg.num_layers, False)], []
     if cfg.arch_type == "hybrid":
@@ -79,20 +97,25 @@ def _layer_plan(cfg: ModelConfig):
         stacks = [("dense_blocks", "dense_ffn", nd, False)] if nd else []
         stacks.append(("blocks", "moe", cfg.num_layers - nd, False))
         return stacks, []
+    if cfg.arch_type == "audio":
+        return ([(ENCODER, "attn", cfg.encoder_layers or cfg.num_layers,
+                  False), ("dec_blocks", "attn", cfg.num_layers, True)], [])
     return [("blocks", "attn", cfg.num_layers, False)], []
 
 
 class Block(nn.Module):
     """One layer, pre-norm residuals: RMS norm, then by ``kind`` the mixer
     (attention for ``attn``, ``dense_ffn`` and ``moe``; ``RGLRU`` for
-    ``rglru``; ``SSM`` for ``ssm``, which ends the block there), RMS norm,
-    and the MLP (``attn``, ``rglru``), a SwiGLU MLP of ``first_dense_d_ff``
-    (``dense_ffn``) or the MoE layer (``moe``)."""
+    ``rglru``; ``SSM`` for ``ssm``, which ends the block there), with
+    ``cross`` an RMS norm and the cross-attention (the audio decoder), RMS
+    norm, and the MLP (``attn``, ``rglru``), a SwiGLU MLP of
+    ``first_dense_d_ff`` (``dense_ffn``) or the MoE layer (``moe``)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str = "attn", device=None):
+    def __init__(self, cfg: ModelConfig, kind: str = "attn", device=None,
+                 cross: bool = False):
         super().__init__()
         d = cfg.d_model
-        self.kind = kind
+        self.kind, self.has_cross = kind, cross
         self.ln1 = nn.Parameter(torch.zeros(d, device=device),
                                 requires_grad=False)
         if kind == "ssm":
@@ -102,6 +125,10 @@ class Block(nn.Module):
             self.rec = rglru_lib.RGLRU(cfg, device)
         else:
             self.attn = attention.Attention(cfg, device)
+        if cross:
+            self.ln_cross = nn.Parameter(torch.zeros(d, device=device),
+                                         requires_grad=False)
+            self.cross = attention.Attention(cfg, device)
         self.ln2 = nn.Parameter(torch.zeros(d, device=device),
                                 requires_grad=False)
         if kind == "moe":
@@ -125,6 +152,9 @@ class Block(nn.Module):
             self.rec.reset_parameters(generator, cfg)
         else:
             self.attn.reset_parameters(generator, cfg)
+        if self.has_cross:
+            self.ln_cross.zero_()
+            self.cross.reset_parameters(generator, cfg)
         if self.kind == "moe":
             self.moe.reset_parameters(generator, cfg)
         else:
@@ -133,8 +163,11 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Token embedding (tied to the output unless ``unembed`` is set), the
-    block stacks of the layer plan and the final norm. Built empty;
-    ``init_params`` or ``convert.lm_params_from_numpy`` fill it."""
+    learned position tables (``pos_embed`` of ``max_positions`` rows, or
+    8,192; the encoder's ``enc_pos_embed`` of ``encoder_seq``) where the
+    config has them, the block stacks of the layer plan, the final norm
+    and the encoder's (``enc_ln_f``). Built empty; ``init_params`` or
+    ``convert.lm_params_from_numpy`` fill it."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -149,9 +182,20 @@ class Transformer(nn.Module):
         self.unembed = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(d, cfg.vocab_size, dtype=dt, device=device),
             requires_grad=False)
-        for name, kind, count, _ in stacks:
+        if cfg.learned_positions:
+            self.pos_embed = nn.Parameter(
+                torch.empty(cfg.max_positions or 8192, d, dtype=dt,
+                            device=device), requires_grad=False)
+            if cfg.is_encoder_decoder:
+                self.enc_pos_embed = nn.Parameter(
+                    torch.empty(cfg.encoder_seq, d, dtype=dt, device=device),
+                    requires_grad=False)
+        if cfg.is_encoder_decoder:
+            self.enc_ln_f = nn.Parameter(torch.zeros(d, device=device),
+                                         requires_grad=False)
+        for name, kind, count, cross in stacks:
             self.add_module(name, nn.ModuleList(
-                Block(cfg, kind, device) for _ in range(count)))
+                Block(cfg, kind, device, cross) for _ in range(count)))
         for name, kind, _, _ in tail:
             self.add_module(name, Block(cfg, kind, device))
 
@@ -164,6 +208,13 @@ class Transformer(nn.Module):
         if self.unembed is not None:
             self.unembed.copy_(init_dense(generator, cfg.d_model,
                                           cfg.vocab_size, cfg.param_dtype))
+        for name in ("pos_embed", "enc_pos_embed"):
+            table = getattr(self, name, None)
+            if table is not None:
+                table.copy_(torch.randn(table.shape, generator=generator,
+                                        device=generator.device) * 0.02)
+        if cfg.is_encoder_decoder:
+            self.enc_ln_f.zero_()
         for _, _, blocks, _ in _groups(self, cfg):
             for blk in blocks:
                 blk.reset_parameters(generator, cfg)
@@ -176,7 +227,8 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device: torch.device | str | None = None) -> Transformer:
     """A model with seeded random weights on ``device`` (CUDA unless asked
-    otherwise): embeddings N(0, 0.02²), dense weights truncated normal in
+    otherwise): embeddings and position tables N(0, 0.02²), dense weights
+    truncated normal in
     ±2σ scaled by 1/√d_in (the output projections by 1/√(2 L d_in)), norm
     scales zero. Drawn from a ``torch.Generator`` on the device, so the
     numbers differ from the JAX package's ``init_params``; tests carry JAX
@@ -212,6 +264,12 @@ def _groups(model: Transformer, cfg: ModelConfig):
                for name, kind, _, _ in tail])
 
 
+def _decoder_groups(model: Transformer, cfg: ModelConfig):
+    """``_groups`` without the audio family's encoder stack: the layers a
+    token's forward, prefill and decode step run."""
+    return [g for g in _groups(model, cfg) if g[0] != ENCODER]
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward
 
@@ -224,29 +282,55 @@ def _ffn(p: Block, h2, cfg: ModelConfig, kind: str):
     return mlp_lib.mlp(p.mlp, h2), None
 
 
-def _block_fwd(p: Block, x, positions, cfg: ModelConfig, kind: str):
-    """One block over the full sequence: (x, aux or None)."""
+def _block_fwd(p: Block, x, positions, cfg: ModelConfig, kind: str,
+               causal: bool = True, enc_out=None):
+    """One block over the full sequence: (x, aux or None). ``causal=False``
+    is the audio encoder's bidirectional attention; with ``enc_out`` (the
+    encoder's output) a decoder block's cross-attention runs between its
+    self-attention and its MLP."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "ssm":
         return x + ssm_lib.ssd_forward(p.ssm, h, cfg), None
     if kind == "rglru":
         x = x + rglru_lib.rglru_forward(p.rec, h, cfg)
     else:
-        att, _ = attention.self_attention(p.attn, h, positions, cfg)
+        att, _ = attention.self_attention(p.attn, h, positions, cfg,
+                                          causal=causal)
         x = x + att
+    if enc_out is not None and p.has_cross:
+        hc = rms_norm(x, p.ln_cross, cfg.norm_eps)
+        x = x + attention.cross_attention(p.cross, hc, enc_out, cfg)
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
     y, aux = _ffn(p, h2, cfg, kind)
     return x + y, aux
 
 
-def _embed(model: Transformer, tokens, cfg: ModelConfig):
-    return model.embed[tokens.long()].to(cfg.dtype)
+def _embed(model: Transformer, tokens, cfg: ModelConfig, positions=None):
+    """Token embeddings in ``cfg.dtype``, plus the learned position
+    embeddings of ``positions`` ((B, S) or a decode step's (B, 1)) where
+    the config has them. A position past the table faults on the card
+    (JAX clamps it): the launchers refuse such a run first."""
+    x = model.embed[tokens.long()].to(cfg.dtype)
+    if cfg.learned_positions and positions is not None:
+        x = x + model.pos_embed[positions.long()].to(cfg.dtype)
+    return x
 
 
 def _logits(model: Transformer, x, cfg: ModelConfig):
     h = rms_norm(x, model.ln_f, cfg.norm_eps)
     w = model.embed.T if cfg.tie_embeddings else model.unembed
     return dense(h, w).float()
+
+
+def stub_inputs(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """What the launchers feed a model besides its tokens, as JAX's do: for
+    the audio family zero frame embeddings (batch, encoder_seq, D) in
+    ``cfg.dtype``, the stub of the mel spectrogram and its conv frontend;
+    nothing for the other families."""
+    if not cfg.is_encoder_decoder:
+        return {}
+    return {"frames": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                  dtype=cfg.dtype, device=device)}
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -260,28 +344,58 @@ def _training(model: Transformer) -> bool:
     return torch.is_grad_enabled() and model.embed.requires_grad
 
 
+def _encode(model: Transformer, frames, cfg: ModelConfig):
+    """The audio encoder over stub frame embeddings (B, Se, D), Se at most
+    ``cfg.encoder_seq``: plus ``enc_pos_embed``, the encoder stack
+    bidirectionally (each block under the non-reentrant checkpoint when
+    ``cfg.remat`` applies in training), then ``enc_ln_f``. Returns (B,
+    Se, D) in ``cfg.dtype``."""
+    b, se, _ = frames.shape
+    x = frames.to(cfg.dtype)
+    if cfg.learned_positions:
+        if se > model.enc_pos_embed.shape[0]:
+            raise ValueError(f"{cfg.name}: {se} frames, more than the "
+                             f"encoder's {model.enc_pos_embed.shape[0]} "
+                             f"positions")
+        x = x + model.enc_pos_embed[:se][None].to(cfg.dtype)
+    positions = _positions(b, se, frames.device)
+    remat = cfg.remat and _training(model)
+    for blk in getattr(model, ENCODER):
+        if remat:
+            x, _ = checkpoint(_block_fwd, blk, x, positions, cfg, "attn",
+                              False, use_reentrant=False)
+        else:
+            x, _ = _block_fwd(blk, x, positions, cfg, "attn", causal=False)
+    return rms_norm(x, model.enc_ln_f, cfg.norm_eps)
+
+
 def forward_hidden(model: Transformer, batch: dict, cfg: ModelConfig):
-    """Full forward up to the (pre-ln_f) hidden states. Returns (x (B, S,
-    D), aux): aux the 0-d f32 sum of the MoE layers' router losses, in
-    JAX's order (zero for the dense family).
+    """Full forward up to the (pre-ln_f) hidden states. batch: tokens (B,
+    S) [+ frames (B, Se, D) for the audio family, whose encoder runs once
+    here]. Returns (x (B, S, D), aux): aux the 0-d f32 sum of the MoE
+    layers' router losses, in JAX's order (zero for the dense family).
 
     In training with ``cfg.remat`` each block runs under a non-reentrant
     ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of the scanned
-    block body): only the block's input is kept, and the backward pass
-    recomputes the rest."""
+    block body): only the block's inputs are kept (a decoder block's
+    include the encoder's output, so its gradient reaches the encoder),
+    and the backward pass recomputes the rest."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    x = _embed(model, tokens, cfg)
+    x = _embed(model, tokens, cfg, positions)
+    enc_out = (_encode(model, batch["frames"], cfg) if cfg.is_encoder_decoder
+               else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and _training(model)
-    for _, kind, blocks, _ in _groups(model, cfg):
+    for _, kind, blocks, _ in _decoder_groups(model, cfg):
         for blk in blocks:
+            enc = enc_out if blk.has_cross else None
             if remat:
                 x, a = checkpoint(_block_fwd, blk, x, positions, cfg, kind,
-                                  use_reentrant=False)
+                                  True, enc, use_reentrant=False)
             else:
-                x, a = _block_fwd(blk, x, positions, cfg, kind)
+                x, a = _block_fwd(blk, x, positions, cfg, kind, enc_out=enc)
             if a is not None:
                 aux = aux + a
     return x, aux
@@ -289,10 +403,10 @@ def forward_hidden(model: Transformer, batch: dict, cfg: ModelConfig):
 
 def forward_train(model: Transformer, batch: dict, cfg: ModelConfig,
                   return_hidden: bool = False):
-    """batch: tokens (B, S). Returns (logits (B, S, V) f32, aux) [, the
-    pre-ln_f hidden states (B, S, D) when ``return_hidden``]. ``aux`` is
-    the MoE router's auxiliary loss summed over the layers, a 0-d f32 (zero
-    for the dense family)."""
+    """batch: tokens (B, S) [+ frames]. Returns (logits (B, S, V) f32, aux)
+    [, the pre-ln_f hidden states (B, S, D) when ``return_hidden``].
+    ``aux`` is the MoE router's auxiliary loss summed over the layers, a
+    0-d f32 (zero for the dense family)."""
     x, aux = forward_hidden(model, batch, cfg)
     if return_hidden:
         return _logits(model, x, cfg), aux, x
@@ -300,8 +414,8 @@ def forward_train(model: Transformer, batch: dict, cfg: ModelConfig,
 
 
 def forward(model: Transformer, batch: dict, cfg: ModelConfig):
-    """batch: tokens (B, S). Returns logits (B, S, V) f32 (``forward_train``
-    without its auxiliary loss)."""
+    """batch: tokens (B, S) [+ frames]. Returns logits (B, S, V) f32
+    (``forward_train`` without its auxiliary loss)."""
     return _logits(model, forward_hidden(model, batch, cfg)[0], cfg)
 
 
@@ -353,14 +467,25 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
+               encoder_seq: int | None = None):
     """Zeroed cache: one entry a stack of the layer plan, each leaf with a
     leading layer axis (``{"blocks": {"k": (L, B, S, Hkv, hd), ...}}``),
-    then one a tail, without it (``_layer_cache``)."""
+    then one a tail, without it (``_layer_cache``). The audio encoder's
+    stack has none; a stack with cross-attention adds ``cross_k`` and
+    ``cross_v`` (L, B, Se, Hkv, hd) in ``cfg.dtype``, Se ``encoder_seq``
+    (``cfg.encoder_seq`` unless given)."""
     stacks, tail = _layer_plan(cfg)
     cache = {}
-    for name, kind, count, _ in stacks:
+    for name, kind, count, cross in stacks:
+        if name == ENCODER:
+            continue
         one = _layer_cache(cfg, kind, batch, cache_len, device)
+        if cross:
+            shape = (batch, encoder_seq or cfg.encoder_seq, cfg.num_kv_heads,
+                     cfg.hd)
+            for key in ("cross_k", "cross_v"):
+                one[key] = torch.zeros(shape, dtype=cfg.dtype, device=device)
         cache[name] = {k: v.new_zeros((count,) + tuple(v.shape))
                        for k, v in one.items()}
     for name, kind, _, _ in tail:
@@ -383,10 +508,22 @@ def _write(cache: dict, new: dict) -> None:
         cache[key].copy_(value)
 
 
+def _cross_positions(cache: dict, pos):
+    """The positions ``swa_decode`` takes for the cross-attention: Se - 1
+    in every row, (B,) int32 like ``pos``, made once a decode step; None
+    for a cache without cross K/V."""
+    for entry in cache.values():
+        if "cross_k" in entry:
+            return torch.full_like(pos, entry["cross_k"].shape[-3] - 1)
+    return None
+
+
 def _decode_block(p: Block, x, pos, cache: dict, cfg: ModelConfig,
-                  kind: str):
+                  kind: str, pos_full=None):
     """One block of a decode step; writes the layer's new K/V row or
-    recurrent state into its ``cache`` in place."""
+    recurrent state into its ``cache`` in place. A decoder block with
+    cross-attention attends to its layer's ``cross_k`` / ``cross_v`` at
+    ``pos_full`` (``_cross_positions``)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "ssm":
         y, new = ssm_lib.ssd_decode_step(p.ssm, h, cache, cfg)
@@ -400,6 +537,10 @@ def _decode_block(p: Block, x, pos, cache: dict, cfg: ModelConfig,
         att, _, _ = attention.decode_attention(p.attn, h, cache["k"],
                                                cache["v"], pos, cfg)
         x = x + att
+    if p.has_cross:
+        hc = rms_norm(x, p.ln_cross, cfg.norm_eps)
+        x = x + attention.decode_cross_attention(
+            p.cross, hc, cache["cross_k"], cache["cross_v"], pos_full, cfg)
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
     return x + _ffn(p, h2, cfg, kind)[0]        # the router's aux dropped
 
@@ -408,11 +549,12 @@ def decode_step(model: Transformer, tokens, pos, cache, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); pos: (B,) int32. Writes the new
     K/V rows and recurrent states into ``cache`` in place. Returns (logits
     (B, V) f32, cache)."""
-    x = _embed(model, tokens, cfg)
-    for name, kind, blocks, stacked in _groups(model, cfg):
+    x = _embed(model, tokens, cfg, pos[:, None])
+    pos_full = _cross_positions(cache, pos)
+    for name, kind, blocks, stacked in _decoder_groups(model, cfg):
         for blk, c in zip(blocks, _layer_caches(cache[name], len(blocks),
                                                 stacked)):
-            x = _decode_block(blk, x, pos, c, cfg, kind)
+            x = _decode_block(blk, x, pos, c, cfg, kind, pos_full)
     return _logits(model, x, cfg)[:, 0], cache
 
 
@@ -424,15 +566,22 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
     the prompt is linear (slot = position); a shorter one is a ring buffer
     holding the last ``cache_len`` positions at slot = position % cache_len.
     A recurrent layer's cache holds its state after the prompt (its
-    forward's ``return_state``), cast to each leaf's dtype.
+    forward's ``return_state``), cast to each leaf's dtype. The audio
+    family runs its encoder once over ``batch["frames"]``; each decoder
+    layer computes the cross-attention's K/V of the encoder's output once,
+    for its attention and its ``cross_k`` / ``cross_v`` cache.
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache_len = cache_len or s
     positions = _positions(b, s, tokens.device)
-    x = _embed(model, tokens, cfg)
-    cache = init_cache(cfg, b, cache_len, device=tokens.device)
-    for name, kind, blocks, stacked in _groups(model, cfg):
+    x = _embed(model, tokens, cfg, positions)
+    enc_out = (_encode(model, batch["frames"], cfg) if cfg.is_encoder_decoder
+               else None)
+    cache = init_cache(cfg, b, cache_len, device=tokens.device,
+                       encoder_seq=None if enc_out is None
+                       else enc_out.shape[1])
+    for name, kind, blocks, stacked in _decoder_groups(model, cfg):
         for blk, c in zip(blocks, _layer_caches(cache[name], len(blocks),
                                                 stacked)):
             h = rms_norm(x, blk.ln1, cfg.norm_eps)
@@ -461,6 +610,13 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
                                             s % cache_len, dims=1))
                     c["v"].copy_(torch.roll(v[:, -cache_len:],
                                             s % cache_len, dims=1))
+                if blk.has_cross:
+                    hc = rms_norm(x, blk.ln_cross, cfg.norm_eps)
+                    kv = attention.cross_kv(blk.cross, enc_out, cfg)
+                    x = x + attention.cross_attention(blk.cross, hc, enc_out,
+                                                      cfg, kv=kv)
+                    c["cross_k"].copy_(kv[0])
+                    c["cross_v"].copy_(kv[1])
             h2 = rms_norm(x, blk.ln2, cfg.norm_eps)
             x = x + _ffn(blk, h2, cfg, kind)[0]   # the router's aux dropped
     return _logits(model, x[:, -1:], cfg)[:, 0], cache

@@ -53,21 +53,23 @@ def _sync(device: torch.device) -> None:
 
 def generate(model, cfg: ModelConfig, prompt_tokens: torch.Tensor,
              max_new: int, cache_len: int, draws=None,
-             temperature: float = 0.0, *, return_logits: bool = False,
-             timings: dict | None = None):
+             temperature: float = 0.0, extra_batch: dict | None = None, *,
+             return_logits: bool = False, timings: dict | None = None):
     """Prefill, then ``max_new - 1`` decode steps: returns the (B, max_new)
     int64 tokens (the first is the prefill's argmax), and with
     ``return_logits`` also the (B, max_new, V) f32 logits each token was
-    chosen from. ``timings``, when given, receives ``prefill_s`` and
-    ``decode_s`` on the host clock, each ended by a device synchronise (the
-    only syncs the loop makes)."""
+    chosen from. ``extra_batch`` joins the prompt in the prefill's batch
+    (the audio family's ``frames``). ``timings``, when given, receives
+    ``prefill_s`` and ``decode_s`` on the host clock, each ended by a
+    device synchronise (the only syncs the loop makes)."""
     b, s = prompt_tokens.shape
     device = prompt_tokens.device
+    batch = {"tokens": prompt_tokens, **(extra_batch or {})}
     if timings is not None:
         _sync(device)
         t0 = time.perf_counter()
-    last_logits, cache = transformer.prefill(model, {"tokens": prompt_tokens},
-                                             cfg, cache_len=cache_len)
+    last_logits, cache = transformer.prefill(model, batch, cfg,
+                                             cache_len=cache_len)
     tok = torch.argmax(last_logits, dim=-1)
     if timings is not None:
         _sync(device)

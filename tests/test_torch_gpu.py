@@ -538,7 +538,12 @@ SWA_SHAPES = [(1, 32, 8, 64, 8192, p)
     # and rep 16 at hd 256 and 64
     (4, 10, 1, 256, 192, 150), (1, 10, 1, 256, 2048, 8703),
     (2, 12, 1, 256, 300, 250), (2, 24, 2, 256, 64, 70),
-    (2, 32, 2, 64, 512, 400), (1, 12, 1, 128, 1024, 900)]
+    (2, 32, 2, 64, 512, 400), (1, 12, 1, 128, 1024, 900),
+    # whisper-medium's decode (MHA 16/16, hd 64): the self-attention over
+    # its 192-slot cache, and the cross-attention over the 1,500 frames at
+    # pos 1,499 and past it (every slot valid; 5 splits of 300 slots, each
+    # ending in a partial 128-slot chunk)
+    (4, 16, 16, 64, 192, 128), (4, 16, 16, 64, 1500, 1499)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -626,6 +631,50 @@ def test_recurrent_decode_on_the_card_equals_the_cpu(cuda, arch):
         got, gcache = transformer.decode_step(gpu, tok.to(cuda),
                                               pos.to(cuda), gcache, cfg)
         assert swa_ops.launches == before + attn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_is_bitwise_repeatable_over_whisper_s_frames(cuda, dtype):
+    """The cross-attention's shape (B 4 x W 1,500, 5 splits combined in a
+    fixed order): two calls bitwise equal."""
+    gen = torch.Generator().manual_seed(26)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((4, 16, 64), (4, 1500, 16, 64),
+                             (4, 1500, 16, 64)))
+    pos = torch.full((4,), 1499, dtype=torch.int32, device=cuda)
+    assert swa_ops.plan(4, 16, 1500, sm_count(cuda)).splits > 1
+    assert torch.equal(swa_ops.swa_decode(q, k, v, pos),
+                       swa_ops.swa_decode(q, k, v, pos))
+
+
+def test_whisper_decode_on_the_card_equals_the_cpu(cuda):
+    """Prefill (the encoder over seeded frames) and 6 decode steps of
+    whisper's smoke config (f32) on the card and on the CPU from the same
+    weights: logits within 2e-4 (1 + max|logit|) at each step (fed the
+    CPU's tokens); each step launches ``swa_decode`` twice a decoder layer
+    (self- and cross-attention)."""
+    import copy
+    cfg = configs.get_smoke("whisper-medium")
+    model = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu = copy.deepcopy(model).to(cuda)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+    frames = torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=gen)
+    want, cache = transformer.prefill(
+        model, {"tokens": prompt, "frames": frames}, cfg, cache_len=32)
+    got, gcache = transformer.prefill(
+        gpu, {"tokens": prompt.to(cuda), "frames": frames.to(cuda)}, cfg,
+        cache_len=32)
+    for i in range(6):
+        tol = 2e-4 * (1 + float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) <= tol, i
+        tok = want.argmax(-1)[:, None]
+        pos = torch.full((2,), 20 + i, dtype=torch.int32)
+        want, cache = transformer.decode_step(model, tok, pos, cache, cfg)
+        before = swa_ops.launches
+        got, gcache = transformer.decode_step(gpu, tok.to(cuda),
+                                              pos.to(cuda), gcache, cfg)
+        assert swa_ops.launches == before + 2 * cfg.num_layers
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])

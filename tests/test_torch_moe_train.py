@@ -34,7 +34,8 @@ from repro.training import train_step as jtrain
 from repro_torch import configs, convert
 from repro_torch.launch import train as train_cli
 from repro_torch.training import adamw, checkpoint, train_step
-from torch_parity import F32_EPS, run_ranks, t
+from torch_parity import (F32_EPS, full_width_gradients_match_jax,
+                          run_ranks, t)
 import torch_ranks
 
 ARCHS = ["granite-moe-1b-a400m", "deepseek-moe-16b"]
@@ -136,6 +137,22 @@ def test_moe_loss_and_gradients_match_jax(batch, case):
         assert err <= GRAD_TOL * scale, (name, err, scale)
     router = grads[list(params).index("blocks.0.moe.router")]
     assert float(router.abs().max()) > 0
+
+
+@pytest.mark.parametrize("impl", ["dense", "ragged"])
+def test_full_width_moe_block_gradients_match_jax(impl):
+    """One granite-moe-1b-a400m block at full width (d 1,024, GQA 16/8, 32
+    experts of d_ff 512, top 8; vocab cut to 4,096), f32, B 2 x S 256, on
+    each ``moe_impl``: the loss (with the router's aux) and every leaf's
+    gradient, the router's and the expert stacks' included, within
+    GRAD_TOL of JAX's ``value_and_grad``."""
+    kw = dict(num_layers=1, vocab_size=4096, remat=False, moe_impl=impl)
+    jc = dataclasses.replace(jconfigs.get("granite-moe-1b-a400m"),
+                             dtype=jnp.float32, param_dtype=jnp.float32, **kw)
+    tc = dataclasses.replace(configs.get("granite-moe-1b-a400m"),
+                             dtype=torch.float32, param_dtype=torch.float32,
+                             **kw)
+    full_width_gradients_match_jax(jc, tc, seq=256, batch=2, tol=GRAD_TOL)
 
 
 # ---------------------------------------------------------------------------

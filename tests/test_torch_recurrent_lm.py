@@ -37,7 +37,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer
 from repro_torch.serving import serve_step
 from repro_torch.training import adamw, checkpoint, train_step
-from torch_parity import t
+from torch_parity import full_width_gradients_match_jax, t
 
 ARCHS = ["mamba2-1.3b", "recurrentgemma-2b"]
 B, S = 2, 32
@@ -304,6 +304,24 @@ def test_full_width_ssd_gradients_match_jax():
         assert np.isfinite(w).all(), name
         scale = float(np.abs(w).max())
         assert float(np.abs(mu.numpy() - w).max()) <= GRAD_TOL * scale, name
+
+
+def test_full_width_rglru_and_local_attention_gradients_match_jax():
+    """One RG-LRU block and one local-attention block at recurrentgemma-2b's
+    width (d 2,560, lru width 2,560, d_ff 7,680, MQA 10/1 at hd 256,
+    window 2,048; vocab cut to 4,096), f32, B 1 x S 1,024: the loss and
+    every leaf's gradient within GRAD_TOL of JAX's ``value_and_grad`` of
+    the same loss."""
+    kw = dict(num_layers=2, block_pattern=("rglru", "attn"), pattern_tail=(),
+              vocab_size=4096, remat=False)
+    jc = dataclasses.replace(jconfigs.get("recurrentgemma-2b"),
+                             dtype=jnp.float32, param_dtype=jnp.float32, **kw)
+    tc = dataclasses.replace(configs.get("recurrentgemma-2b"),
+                             dtype=torch.float32, param_dtype=torch.float32,
+                             **kw)
+    assert [s[:3] for s in transformer._layer_plan(tc)[0]] == [
+        ("pat0_rglru", "rglru", 1), ("pat1_attn", "attn", 1)]
+    full_width_gradients_match_jax(jc, tc, seq=1024, tol=GRAD_TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

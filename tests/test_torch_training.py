@@ -476,7 +476,7 @@ def test_get_optimized_matches_jax(arch):
     assert configs.OPTIMIZED == jconfigs.OPTIMIZED
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b"])
 def test_get_optimized_refuses_unported_families(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         configs.get_optimized(arch)
@@ -569,10 +569,10 @@ def test_train_launcher_refuses():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_cli.main(["--arch", ARCH, "--smoke", "--steps", "1"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.main(["--arch", "whisper-medium", "--smoke", "--device",
+        train_cli.main(["--arch", "qwen2-vl-72b", "--smoke", "--device",
                         "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.run(torch_cfg(arch_type="audio"), steps=1, device="cpu")
+        train_cli.run(torch_cfg(arch_type="vlm"), steps=1, device="cpu")
 
 
 @pytest.mark.slow

@@ -274,3 +274,44 @@ def run_ranks(fn, k: int, timeout: float, *args) -> list:
     collective fails the test instead of hanging the suite. ``fn`` lives in
     ``torch_ranks``, which imports no JAX, so the ranks start quickly."""
     return spawn_ranks(fn, k, args, dist_backend="gloo", timeout=timeout)
+
+
+def full_width_gradients_match_jax(jc, tc, *, seq: int, tol: float,
+                                   batch: int = 1) -> None:
+    """The loss (next-token CE + ``router_aux_coef`` * aux) and its
+    gradient leaf by leaf, the port's ``lm_loss`` against
+    ``jax.value_and_grad`` of JAX's same loss, from JAX's weights at seed
+    0 on one seeded batch of (batch, seq) tokens: the loss within 1e-5
+    relative, each leaf within ``tol`` of that leaf's max |g|. ``jc`` and
+    ``tc`` are one config in each package (f32, to compare the math)."""
+    import jax.numpy as jnp
+    from repro.models import transformer as jtr
+    from repro_torch import convert
+    from repro_torch.training import train_step
+
+    params = jtr.init_params(jax.random.PRNGKey(0), jc)
+    toks = np.random.default_rng(0).integers(
+        0, jc.vocab_size, (batch, seq)).astype(np.int32)
+
+    def jloss(p):
+        logits, aux = jtr.forward_train(p, {"tokens": jnp.asarray(toks)}, jc)
+        lp = jax.nn.log_softmax(logits[:, :-1], axis=-1)
+        gold = jnp.take_along_axis(lp, jnp.asarray(toks)[:, 1:, None], -1)
+        return -jnp.mean(gold) + jc.router_aux_coef * aux
+
+    want_loss, jgrads = jax.jit(jax.value_and_grad(jloss))(params)
+    model = convert.lm_params_from_numpy(jax.tree.map(np.asarray, params),
+                                         tc, "cpu").requires_grad_(True)
+    named = dict(model.named_parameters())
+    loss = train_step.lm_loss(model, {"tokens": t(toks), "labels": t(toks)},
+                              tc)[0]
+    grads = torch.autograd.grad(loss, list(named.values()))
+    got_loss = float(loss.detach())
+    assert abs(got_loss - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    want = jax.tree.map(np.asarray, jgrads)
+    for name, g in zip(named, grads):
+        w = convert._leaf(want, name)
+        assert np.isfinite(w).all(), name
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= tol * scale, (name, err, scale)
