@@ -209,6 +209,28 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     FLOPs (the encoder's frames and the cross K/V products counted)
     beside the bf16 peak; (e) the swa rows at both shapes (SDPA with no
     mask beside the cross-attention's) and the probe's rows at D 1,024;
+11P. the VLM family (``vlm_phase``), last: (a) qwen2-vl-72b at smoke
+    width (f32) on the card against the CPU: forward logits with seeded
+    patch embeddings over a 4 x 4 grid of M-RoPE positions, prefill and 16
+    greedy decode steps with the patches, text-only, and with the patches
+    on a 16-slot ring the prompt has wrapped, one train step's loss, ce
+    and grad_norm; (b) ``swa_decode`` at its decode shapes (GQA 64/8 at
+    hd 128, rep 8: B 4 x W 192, one split; B 1 x W 8,192, 32 splits)
+    against its plain version, f32 and bf16, two calls bitwise; (c) served
+    at full width cut to 24 of its 80 layers (23.56 B parameters, 47.1 GB
+    in bf16) through ``launch/serve.py``'s ``run``
+    (``serve_step.generate(extra_batch=)``): B 4 x 128 + 64 with 64 seeded
+    patches as an 8 x 8 grid, then long_500k, B 1 x 8,704 + 64 on the
+    8,192-slot ring with 1,024 patches as a 32 x 32 grid; prefill ms,
+    decode ms/step, tok/s, 24 ``swa_decode`` launches a step, the decode
+    cache's bytes, peak memory, the kernel held to its plain version on
+    the layer-0 cache after the long prefill; (d) trained at 2 of its 80
+    layers with an 8x8 probe through ``launch/train.py``'s ``run`` (B 4 x
+    S 1,024, the launcher's zero patches and text positions, lr 1e-4, 20
+    steps): losses and grad norms finite, the loss falling, one ``bmu``
+    and one ``drive_cascade`` a step; ms a step, tokens/s, peak memory,
+    model FLOPs beside the bf16 peak; (e) the swa rows at both shapes and
+    the probe's rows at D 8,192;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -4451,12 +4473,15 @@ def _rec_flops(cfg, b, s):
     return 3 * (2 * t * mats + extra)
 
 
-def train_at_full_width(device, arch, steps, flops_of):
-    """Phase N (e), phase O (d): ``arch`` at full width, bf16, through
-    ``launch/train.py``'s ``run`` with the probe (B 4 x S 1,024, an 8x8
-    probe on the pooled hidden states, lr TRAIN_LR, ``steps`` steps; an
-    audio model's batches carry the launcher's zero frames), the kernel
-    counts set to 0 just before and read just after. Every loss and grad
+def train_at_full_width(device, arch, steps, flops_of, num_layers=None,
+                        lr=TRAIN_LR):
+    """Phase N (e), phase O (d), phase P (d): ``arch`` at full width (cut
+    to ``num_layers`` when given), bf16, through ``launch/train.py``'s
+    ``run`` with the probe (B 4 x S 1,024, an 8x8 probe on the pooled
+    hidden states, lr ``lr``, ``steps`` steps; an audio model's batches
+    carry the launcher's zero frames, a VLM's its zero patch embeddings and
+    text positions3), the kernel counts set to 0 just before and read just
+    after. Every loss and grad
     norm finite (mamba2's at its own chunk of 256: the reference's SSD
     gradient is NaN there), the mean of the last 5 losses below the first
     5's, one ``bmu`` call and one ``drive_cascade`` launch a step. ms a
@@ -4470,6 +4495,8 @@ def train_at_full_width(device, arch, steps, flops_of):
     from repro_torch.models import transformer
     from repro_torch.training import train_step
     cfg = configs.get(arch)
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     name = torch.cuda.get_device_name(0)
     peak = BF16_PEAKS["PCIe" if "PCIe" in name else "SXM"]
     times, norms, last = [], [], {}
@@ -4485,13 +4512,15 @@ def train_at_full_width(device, arch, steps, flops_of):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = train.run(cfg, steps=steps, batch=TRAIN_B, seq=TRAIN_S,
-                       lr=TRAIN_LR, probe=True, probe_side=TRAIN_PROBE_SIDE,
+                       lr=lr, probe=True, probe_side=TRAIN_PROBE_SIDE,
                        seed=SEED, device=device, on_step=on_step)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _launch_counts()
     peak_mem = torch.cuda.max_memory_allocated()
-    what = f"{cfg.name} training"
+    what = f"{cfg.name} training" + (
+        f" (cut to {num_layers} of {configs.get(arch).num_layers} layers)"
+        if num_layers else "")
     if (len(losses) != steps or not all(np.isfinite(losses))
             or not all(np.isfinite(norms))):
         raise AssertionError(f"{what}: losses {losses}, grad norms {norms}")
@@ -4499,7 +4528,8 @@ def train_at_full_width(device, arch, steps, flops_of):
     batch0 = next(tokens.batches(torch.Generator().manual_seed(SEED + 1),
                                  cfg.vocab_size, TRAIN_B, TRAIN_S, steps,
                                  device=device))
-    batch0.update(transformer.stub_inputs(cfg, TRAIN_B, device))
+    batch0.update(transformer.stub_inputs(cfg, TRAIN_B, device,
+                                          seq=TRAIN_S))
     with torch.no_grad():
         again = float(train_step.lm_loss(last.pop("state").params, batch0,
                                          cfg)[0])
@@ -4511,7 +4541,8 @@ def train_at_full_width(device, arch, steps, flops_of):
                              f"bmu and drive_cascade must run once a step")
     step_ms = float(np.median(times[4:]))
     flops = flops_of(cfg, TRAIN_B, TRAIN_S)
-    print(f"{what}, bf16, B {TRAIN_B} x S {TRAIN_S}, {steps} steps, probe "
+    print(f"{what}, bf16, B {TRAIN_B} x S {TRAIN_S}, {steps} steps, lr "
+          f"{lr:g}, probe "
           f"{TRAIN_PROBE_SIDE}x{TRAIN_PROBE_SIDE}x{cfg.d_model}: "
           f"{seconds:.2f} s with init; losses "
           f"{' '.join(f'{x:.4f}' for x in losses)} (mean of the first 5 "
@@ -4772,6 +4803,257 @@ def audio_phase(device):
     return rows
 
 
+#: phase P: the VLM family, qwen2-vl-72b (the dense family with M-RoPE over
+#: (t, h, w) positions and the stub vision frontend's patch embeddings
+#: spliced over the prompt's first tokens). Card against the CPU at smoke
+#: width (f32); swa_decode at its decode shapes (label, B, H, Hkv, hd, W,
+#: first pos; rows step by 21 positions; GQA 64/8 at hd 128: rep 8), the
+#: serve shape and the long_500k ring; served at full width cut to
+#: VLM_SERVE_LAYERS of its 80 layers (72.7 B parameters, ~145 GB in bf16,
+#: do not fit one card; 24 layers are 23.56 B, 47.1 GB), B 4 x 128 + 64
+#: with an 8 x 8 grid of patches (min(num_patches, prompt // 2), as JAX's
+#: train launcher sizes them) and B 1 x 8,704 + 64 on the 8,192-slot ring
+#: with all 1,024 patches as a 32 x 32 grid; trained with the 8x8 probe at
+#: VLM_TRAIN_LAYERS layers (4.25 B parameters, ~51 GB with bf16 gradients
+#: and f32 moments; three layers would leave too little of 80 GB for the
+#: activations), B 4 x S 1,024, VLM_TRAIN_STEPS steps at VLM_TRAIN_LR
+VLM_ARCH = "qwen2-vl-72b"
+VLM_SWA_CASES = [("qwen2-vl serve", 4, 64, 8, 128, 192, 128),
+                 ("qwen2-vl long_500k", 1, 64, 8, 128, 8192, 8703)]
+VLM_SERVE = (4, 128, 64, 192)
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 24, 2
+VLM_LONG_PROMPT = 8704
+VLM_TRAIN_STEPS = 20
+#: a third of TRAIN_LR: at 3e-4 this width's loss rises over the 20 steps
+#: with the launcher's zero patches over half of every sequence (12.14 ->
+#: 12.35 on an H100), and falls at 1e-4 (scripts/lr_sweep_torch.py,
+#: PERF.md)
+VLM_TRAIN_LR = 1e-4
+#: the seeded patch embeddings' scale: the token embeddings' N(0, 0.02^2)
+VLM_PATCH_STD = 0.02
+
+
+def vlm_inputs(cfg, b, s, side, gen, device, std=1.0):
+    """A VLM prompt's extra inputs: seeded non-zero patch embeddings (b,
+    side^2, D) in ``cfg.dtype`` (drawn on the CPU) and the M-RoPE positions
+    of a side x side grid of them followed by text
+    (``rope.grid_positions3``)."""
+    from repro_torch.models import rope
+    vis = std * torch.randn(b, side * side, cfg.d_model, generator=gen)
+    return {"vision_embeds": vis.to(device, cfg.dtype),
+            "positions3": rope.grid_positions3(b, s, side, side, device)}
+
+
+def vlm_card_vs_cpu(device):
+    """Phase P (a): qwen2-vl-72b's smoke config (f32) on the card and on the
+    CPU from the same weights: ``forward_train`` logits with seeded
+    non-zero patch embeddings over its 16 patches as a 4 x 4 grid of
+    positions (within REC_TOL (1 + max|logit|)); prefill and 16 greedy
+    decode steps (``decode_card_vs_cpu``: one ``swa_decode`` launch a
+    layer a step, the steps at text positions) with those patches, of the
+    same prompt text-only, and with the patches on a 16-slot ring the
+    40-token prompt has wrapped; one train step from the CPU's state on
+    one batch with patches: loss, ce and grad_norm within TRAIN_TOL
+    relative."""
+    from repro_torch import configs
+    from repro_torch.data import tokens
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import transformer
+    from repro_torch.training import AdamWConfig, train_step
+    cfg = configs.get_smoke(VLM_ARCH)
+    side = int(round(cfg.num_patches ** 0.5))
+    what = f"{VLM_ARCH} smoke card vs CPU"
+    cpu_model = transformer.init_params(cfg, seed=SEED, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    prompt = prompts_for(cfg, 2, 32, SEED, "cpu")
+    extra = vlm_inputs(cfg, 2, 32, side, gen, "cpu")
+    lc, _ = transformer.forward_train(cpu_model, {"tokens": prompt, **extra},
+                                      cfg)
+    lg, _ = transformer.forward_train(
+        gpu_model, {"tokens": prompt.to(device),
+                    **{k: v.to(device) for k, v in extra.items()}}, cfg)
+    err = float((lg.cpu() - lc).abs().max())
+    tol = REC_TOL * (1 + float(lc.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"{what}: logits off by {err} > {tol}")
+    print(f"{what}: forward logits with {cfg.num_patches} patches over a "
+          f"{side} x {side} grid, max|d| {err:.3g} <= {tol:.3g}")
+    decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, 16, 48,
+                       f"{what}, decode after {cfg.num_patches} patches",
+                       extra)
+    decode_card_vs_cpu(cpu_model, gpu_model, cfg, prompt, 16, 48,
+                       f"{what}, decode text-only")
+    ring = prompts_for(cfg, 2, 40, SEED + 2, "cpu")
+    decode_card_vs_cpu(cpu_model, gpu_model,
+                       dataclasses.replace(cfg, window=16), ring, 16, 16,
+                       f"{what}, decode after {cfg.num_patches} patches on "
+                       f"a 16-slot ring", vlm_inputs(cfg, 2, 40, side, gen,
+                                                     "cpu"))
+    batch = next(tokens.batches(torch.Generator().manual_seed(SEED + 3),
+                                cfg.vocab_size, 4, 64, 1, device="cpu"))
+    batch.update(vlm_inputs(cfg, 4, 64, side, gen, "cpu"))
+    step = train_step.make_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2))
+    state = train_step.init_train_state(cfg, seed=SEED, device="cpu")
+    card = _train_state_to(state, device)
+    _, m = step(state, batch)
+    _, mg = step(card, {k: v.to(device) for k, v in batch.items()})
+    errs = {key: _rel_err(mg[key], m[key])
+            for key in ("loss", "ce", "grad_norm")}
+    if not all(e <= TRAIN_TOL for e in errs.values()):
+        raise AssertionError(f"{what}: train step {errs}")
+    print(f"{what}, one train step (B 4 x S 64, patches): " + ", ".join(
+        f"{key} rel {e:.3g}" for key, e in errs.items())
+        + f" (<= {TRAIN_TOL})")
+
+
+def vlm_serve(device, worst):
+    """Phase P (c): qwen2-vl-72b at full width cut to VLM_SERVE_LAYERS
+    layers, bf16, seeded weights, through ``launch/serve.py``'s ``run``
+    (``serve_step.generate(extra_batch=)``), each run warmed up first: B 4
+    x 128 + 64 on a 192-slot cache with 64 seeded patches as an 8 x 8 grid;
+    then long_500k, B 1 x VLM_LONG_PROMPT + 64 on the 8,192-slot ring (the
+    prefill's attention chunked) with all 1,024 patches as a 32 x 32 grid.
+    Prefill ms, decode ms/step, tok/s, ``swa_decode`` launches (one a layer
+    a step), the decode cache's bytes, peak memory; the kernel held to its
+    plain version on the layer-0 cache after the long prefill. Frees the
+    model. Returns the runs and the long run's 24 layers' caches (for
+    timing)."""
+    from repro_torch import configs
+    from repro_torch.kernels.swa import ops as swa_ops
+    from repro_torch.kernels.swa import ref as swa_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    full = configs.get(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_SERVE_LAYERS)
+    b, prompt_len, new, cache_len = VLM_SERVE
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name} cut to {cfg.num_layers} of {full.num_layers} layers: "
+          f"{n / 1e9:.4f} B parameters, {nbytes / 1e9:.3f} GB, seeded init "
+          f"on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{swa_per_step(cfg)} swa_decode launches a decode step")
+    gen = torch.Generator().manual_seed(SEED + 103)
+    runs = {}
+    side = int(round(min(cfg.num_patches, prompt_len // 2) ** 0.5))
+    prompts = serve.prompts_for(cfg, b, prompt_len, SEED, device)
+    extra = vlm_inputs(cfg, b, prompt_len, side, gen, device, VLM_PATCH_STD)
+    serve.run(model, cfg, prompts, max_new=4, cache_len=cache_len,
+              extra_batch=extra)
+    torch.cuda.reset_peak_memory_stats()
+    runs["serve"] = _serve_run(serve, model, cfg, prompts, new, cache_len,
+                               f"{cfg.name} serve B={b} x {prompt_len} + "
+                               f"{new}, cache {cache_len}, {side * side} "
+                               f"patches ({side} x {side})", extra)
+    runs["serve"]["peak"] = torch.cuda.max_memory_allocated()
+    _, cache = transformer.prefill(model, {"tokens": prompts, **extra}, cfg,
+                                   cache_len=cache_len)
+    runs["serve"]["cache_bytes"] = _cache_bytes(cache)
+    del cache
+
+    long_cfg = dataclasses.replace(configs.for_shape(cfg, "long_500k"),
+                                   attention_impl="chunked")
+    w = configs.cache_len_for(long_cfg, "long_500k")
+    side = int(round(cfg.num_patches ** 0.5))
+    prompt = serve.prompts_for(cfg, 1, VLM_LONG_PROMPT, SEED + 1, device)
+    long_extra = vlm_inputs(cfg, 1, VLM_LONG_PROMPT, side, gen, device,
+                            VLM_PATCH_STD)
+    # warm-up: the prefill alone and one decode step; its layer-0 cache, in
+    # which the ring has wrapped, checks the kernel on real K/V
+    last, cache = transformer.prefill(model, {"tokens": prompt,
+                                              **long_extra}, long_cfg,
+                                      cache_len=w)
+    runs_long_cache = _cache_bytes(cache)
+    k_all, v_all = cache["blocks"]["k"], cache["blocks"]["v"]
+    pos = torch.full((1,), VLM_LONG_PROMPT - 1, dtype=torch.int32,
+                     device=device)
+    qgen = torch.Generator().manual_seed(SEED + 107)
+    q = torch.randn(1, cfg.num_heads, cfg.hd, generator=qgen).to(device,
+                                                                 cfg.dtype)
+    err = swa_error(swa_ops.swa_decode(q, k_all[0], v_all[0], pos),
+                    swa_ref.swa_decode_ref(q, k_all[0], v_all[0], pos,
+                                           window=w),
+                    f"{cfg.name} layer-0 cache after the long prefill")
+    worst["qwen2-vl long_500k"] = max(worst.get("qwen2-vl long_500k", 0.0),
+                                      err)
+    print(f"swa_decode on {cfg.name}'s layer-0 cache after the "
+          f"{VLM_LONG_PROMPT}-token prefill with {side * side} patches (ring "
+          f"of {w}, pos {VLM_LONG_PROMPT - 1}): max|d| {err:.3g}")
+    long_inputs = [(q, k_all[i].clone(), v_all[i].clone(), pos)
+                   for i in range(cfg.num_layers)]
+    transformer.decode_step(model, last.argmax(-1)[:, None], pos + 1, cache,
+                            long_cfg)
+    del cache, last, k_all, v_all
+    torch.cuda.reset_peak_memory_stats()
+    runs["long"] = _serve_run(serve, model, long_cfg, prompt, new, w,
+                              f"{cfg.name} long_500k B=1 x {VLM_LONG_PROMPT}"
+                              f" + {new}, ring {w}, {side * side} patches "
+                              f"({side} x {side})", long_extra)
+    runs["long"]["peak"] = torch.cuda.max_memory_allocated()
+    runs["long"]["cache_bytes"] = runs_long_cache
+    for key, run in runs.items():
+        run.pop("logits", None)
+        print(f"{cfg.name} {key}: decode cache {run['cache_bytes'] / 1e6:.3f}"
+              f" MB, peak memory {run['peak'] / 1e9:.3f} GB "
+              f"(max_memory_allocated), swa_decode "
+              f"{run['launches']['swa_decode'] // (new - 1)} launches a step")
+    del model, prompts, prompt, extra, long_extra
+    torch.cuda.empty_cache()
+    return runs, long_inputs
+
+
+def vlm_phase(device):
+    """Phase P: the VLM family (``vlm_card_vs_cpu``, ``swa_case_checks`` at
+    VLM_SWA_CASES, ``vlm_serve``, the probe's kernels at D 8,192,
+    ``train_at_full_width`` at VLM_TRAIN_LAYERS layers). Returns the
+    phase's kernel rows: swa_decode at qwen2-vl-72b's serve and long_500k
+    shapes (launches from the serve runs) and the probe's rows (launches
+    from the training run)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    vlm_card_vs_cpu(device)
+    worst = swa_case_checks(device, VLM_SWA_CASES, SEED + 101)
+    runs, long_inputs = vlm_serve(device, worst)
+    b, _, _, cache_len = VLM_SERVE
+    gen = torch.Generator().manual_seed(SEED + 109)
+    _, _, h, hkv, hd, _, _ = VLM_SWA_CASES[0]
+    serve_inputs = [swa_inputs(gen, b, h, hkv, hd, cache_len, cache_len - 64,
+                               torch.bfloat16, device)]
+    rows = [swa_row(device, f"{VLM_ARCH} serve", serve_inputs,
+                    runs["serve"]["launches"]["swa_decode"],
+                    worst["qwen2-vl serve"]),
+            swa_row(device, f"{VLM_ARCH} long_500k", long_inputs,
+                    runs["long"]["launches"]["swa_decode"],
+                    worst["qwen2-vl long_500k"])]
+    del long_inputs, serve_inputs
+    torch.cuda.empty_cache()
+    checks = probe_kernel_checks(device, VLM_ARCH)
+    counts = train_at_full_width(
+        device, VLM_ARCH, VLM_TRAIN_STEPS,
+        lambda cfg, b, s: _train_flops(cfg, b, s)[2],
+        num_layers=VLM_TRAIN_LAYERS, lr=VLM_TRAIN_LR)
+    for row in probe_kernel_rows(device, checks, counts):
+        row["name"] = f"{row['name']} [{VLM_ARCH}]"
+        rows.append(row)
+    del checks
+    for key, run in runs.items():
+        print(f"{VLM_ARCH} ({VLM_SERVE_LAYERS} layers) {key}: prefill "
+              f"{run['prefill_ms']:.3f} ms, decode "
+              f"{run['decode_ms_per_step']:.4f} ms/step, "
+              f"{run['decode_tok_s']:.1f} decode tok/s, {run['tok_s']:.1f} "
+              f"tok/s in all, decode cache {run['cache_bytes'] / 1e6:.3f} MB,"
+              f" peak {run['peak'] / 1e9:.3f} GB")
+    print(f"vlm phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -4865,6 +5147,7 @@ def main() -> int:
     rows += moe_phase(device)
     rows += recurrent_phase(device)
     rows += audio_phase(device)
+    rows += vlm_phase(device)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

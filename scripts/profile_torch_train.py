@@ -93,7 +93,7 @@ def main() -> int:
                       warmup_steps=max(args.steps // 20, 5))
     state = init_train_state(cfg, pcfg, seed=0, device=device)
     step = make_train_step(cfg, opt, pcfg)
-    extra = transformer.stub_inputs(cfg, b, device)
+    extra = transformer.stub_inputs(cfg, b, device, seq=s)
     data = [{**batch, **extra}
             for batch in tokens.batches(torch.Generator().manual_seed(1),
                                         cfg.vocab_size, b, s, args.steps,

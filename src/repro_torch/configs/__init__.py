@@ -1,17 +1,17 @@
 """Architecture registry of the port.
 
-A copy of ``repro.configs`` for the architectures the port runs: each is a
-module here exposing ``config()`` (the published geometry, source cited in
-its docstring) and ``smoke_config()`` (a reduced variant of the same family
-for CPU tests). ``ALIASES`` names every architecture of the JAX package;
-``get`` of one that is not in ``ARCHS`` raises.
+A copy of ``repro.configs``: every architecture is a module here exposing
+``config()`` (the published geometry, source cited in its docstring) and
+``smoke_config()`` (a reduced variant of the same family for CPU tests).
 
 ``get_optimized(name)`` adds the chunked-attention and chunked-CE settings
 under which the JAX package trains (``OPTIMIZED``).
 ``for_shape(cfg, shape)`` specialises a config for one of the four input
 shapes (the sliding window of long-context serving; a learned-position
 table long enough for the shape) and
-``cache_len_for(cfg, shape)`` gives its KV-cache length.
+``cache_len_for(cfg, shape)`` gives its KV-cache length, and
+``input_specs(cfg, shape)`` the inputs of a step at the shape as tensors on
+the ``meta`` device (shapes and dtypes, no storage).
 """
 from __future__ import annotations
 
@@ -20,13 +20,13 @@ import importlib
 
 import torch
 
-#: the architectures the port runs (the dense, MoE, SSM, hybrid and audio
-#: families)
-ARCHS = ["smollm_360m", "whisper_medium", "llama3_2_1b", "recurrentgemma_2b",
-         "deepseek_moe_16b", "deepseek_coder_33b", "yi_9b",
-         "granite_moe_1b_a400m", "mamba2_1_3b"]
+ARCHS = [
+    "smollm_360m", "whisper_medium", "llama3_2_1b", "qwen2_vl_72b",
+    "recurrentgemma_2b", "deepseek_moe_16b", "deepseek_coder_33b",
+    "yi_9b", "granite_moe_1b_a400m", "mamba2_1_3b",
+]
 
-# canonical ids -> module names (every architecture of the JAX package)
+# canonical ids -> module names
 ALIASES = {
     "smollm-360m": "smollm_360m",
     "whisper-medium": "whisper_medium",
@@ -50,8 +50,7 @@ SHAPES = {
 LONG_WINDOW = 8192  # sliding window used by dense archs for long_500k
 
 # The JAX package's measured optimised variants, applied on top of the
-# faithful config by ``get_optimized``; names whose family the port lacks
-# raise "not ported yet" there, as ``get`` does.
+# faithful config by ``get_optimized``.
 OPTIMIZED = {
     "smollm-360m": dict(pad_heads_to=16, attention_impl="chunked",
                         chunked_ce=True),
@@ -68,12 +67,8 @@ OPTIMIZED = {
 
 
 def _module(name: str):
-    mod = ALIASES.get(name, name)
-    if mod not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet; the port runs "
-            f"{sorted(ARCHS)}")
-    return importlib.import_module(f"repro_torch.configs.{mod}")
+    return importlib.import_module(
+        f"repro_torch.configs.{ALIASES.get(name, name)}")
 
 
 def get(name: str):
@@ -113,3 +108,36 @@ def cache_len_for(cfg, shape: str) -> int:
     if cfg.window:
         return min(cfg.window, seq)
     return seq
+
+
+def input_specs(cfg, shape: str) -> dict:
+    """The batch argument of a step at ``shape`` as tensors on the ``meta``
+    device, JAX's ``input_specs`` key for key: tokens (and labels when
+    training; pos when decoding), the audio family's frames, the VLM's
+    vision embeddings (train and prefill) and M-RoPE positions (3, B, S),
+    or (3, B, 1) at decode."""
+    spec = SHAPES[shape]
+    b, s = spec["batch"], spec["seq"]
+
+    def meta(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    out = {}
+    if spec["kind"] == "train":
+        out["tokens"] = meta((b, s))
+        out["labels"] = meta((b, s))
+    elif spec["kind"] == "prefill":
+        out["tokens"] = meta((b, s))
+    else:  # decode
+        out["tokens"] = meta((b, 1))
+        out["pos"] = meta((b,))
+    if cfg.is_encoder_decoder and spec["kind"] != "decode":
+        out["frames"] = meta((b, cfg.encoder_seq, cfg.d_model), cfg.dtype)
+    if cfg.arch_type == "vlm":
+        if spec["kind"] == "decode":
+            out["positions3"] = meta((3, b, 1))
+        else:
+            out["vision_embeds"] = meta((b, cfg.num_patches, cfg.d_model),
+                                        cfg.dtype)
+            out["positions3"] = meta((3, b, s))
+    return out

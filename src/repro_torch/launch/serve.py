@@ -1,5 +1,5 @@
 """Serving launcher: batched prefill and a decode loop for an LM of the
-dense, MoE, SSM, hybrid or audio family, on the card unless asked
+dense, MoE, SSM, hybrid, audio or VLM family, on the card unless asked
 otherwise. The port of ``repro.launch.serve``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
@@ -14,14 +14,19 @@ otherwise. The port of ``repro.launch.serve``:
         --arch recurrentgemma-2b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-medium --batch 4 --prompt-len 128 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-vl-72b --smoke --device cpu
 
 Weights come from the port's seeded init (no checkpoint) and prompts from a
 seeded ``torch.Generator``. Every decode step's attention (the hybrid's
 local-attention layers; the SSM family has none) runs on the
 ``kernels.swa`` kernel on CUDA (its plain version on the CPU), whisper's
 cross-attention over the encoder's 1,500 frames too. An audio model's
-frames are zeros (``transformer.stub_inputs``), as in JAX's launcher. An
-SSM config whose chunk does not divide the prompt is served at a chunk of
+frames are zeros (``transformer.stub_inputs``), as in JAX's launcher; a
+VLM is served text-only (no patch embeddings, text M-RoPE positions), as
+JAX's launcher serves it. The full qwen2-vl-72b (~145 GB) does not fit one
+card: ``chip_smoke.py`` serves it cut to 24 of its 80 layers. An SSM
+config whose chunk does not divide the prompt is served at a chunk of
 ``min(ssm_chunk, 16)``, as JAX's launcher does (``config_for``).
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Training launcher: end-to-end LM training of a dense, MoE, SSM, hybrid or
-audio architecture (full or smoke config) on the card unless asked
+"""Training launcher: end-to-end LM training of a dense, MoE, SSM, hybrid,
+audio or VLM architecture (full or smoke config) on the card unless asked
 otherwise, with
 the optional AFM probe and a checkpoint of the weights. The port of
 ``repro.launch.train``:
@@ -14,6 +14,8 @@ the optional AFM probe and a checkpoint of the weights. The port of
         --probe --batch 4 --seq 1024 --steps 20 --lr 3e-4
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch whisper-medium --probe --batch 4 --seq 1024 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen2-vl-72b --smoke --probe --device cpu --steps 8
 
 Weights come from the port's seeded init, tokens from the synthetic Markov
 corpus (``data.tokens``) on a seeded CPU generator. With ``--probe`` every
@@ -22,10 +24,11 @@ AFM whose search and cascade run on the ``bmu`` and ``drive_cascade``
 kernels on CUDA (their plain versions on the CPU). An MoE model's loss
 adds ``router_aux_coef`` times its router loss. An audio model's batches
 carry zero frames (``transformer.stub_inputs``), as JAX's launcher makes
-them, and its probe taps the decoder's hidden states. An SSM config whose
-chunk does not divide ``seq`` trains at a chunk of ``min(ssm_chunk,
-seq)``, as JAX's launcher does. The family the port lacks (VLM) raises
-"not ported yet".
+them, and its probe taps the decoder's hidden states. A VLM's batches
+carry zero vision embeddings over ``min(num_patches, seq // 2)`` tokens
+and text M-RoPE positions, as JAX's launcher makes them. An SSM config
+whose chunk does not divide ``seq`` trains at a chunk of ``min(ssm_chunk,
+seq)``, as JAX's launcher does.
 """
 from __future__ import annotations
 
@@ -58,9 +61,6 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     launches (read after the loss, which waits for the step anyway), on the
     CPU from the host clock. The host makes the next batch while the card
     runs the step."""
-    # the vlm family's extra inputs (vision embeds and M-RoPE positions)
-    # come with that family, which raises here
-    transformer._layer_plan(cfg)
     npos = cfg.max_positions or 8192
     if cfg.learned_positions and seq > npos:
         raise ValueError(f"{cfg.name}: seq {seq} passes its {npos} learned "
@@ -82,7 +82,7 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     data = tokens_lib.batches(torch.Generator().manual_seed(seed + 1),
                               cfg.vocab_size, batch, seq, steps,
                               device=device)
-    extra = transformer.stub_inputs(cfg, batch, device)
+    extra = transformer.stub_inputs(cfg, batch, device, seq=seq)
     t0 = time.time()
     losses = []
     nxt = next(data, None)

@@ -2,5 +2,5 @@
 ``rope``, ``attention`` (prefill attention, and decode attention on the
 ``kernels.swa`` kernel), ``mlp`` (the SwiGLU MLP and the MoE layer),
 ``ssm`` (the Mamba2 / SSD layer), ``rglru`` (the RG-LRU block) and
-``transformer``, for the dense, MoE, SSM, hybrid and audio families. The
-VLM family is not ported yet."""
+``transformer``, for the dense, MoE, SSM, hybrid, audio and VLM
+families."""

@@ -7,7 +7,9 @@ kernel.
 
 A copy of ``repro.models.attention``. Projections are stored flattened,
 (d_model, heads * head_dim); activations are reshaped to (B, S, H, hd).
-RoPE applies unless ``cfg.learned_positions`` (the audio family adds
+Positions, in JAX's order: M-RoPE over ``positions3`` (3, B, S) when the
+config has ``mrope_sections`` (the VLM; text positions when none are
+given), else RoPE unless ``cfg.learned_positions`` (the audio family adds
 learned position embeddings to its inputs instead).
 """
 from __future__ import annotations
@@ -128,20 +130,36 @@ def attend_chunked(q, k, v, *, window: int, chunk: int,
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
+def _positional(q, k, positions, positions3, cfg: ModelConfig):
+    """q and k with their positions applied: M-RoPE over ``positions3``
+    (text positions of ``positions`` when None) where the config has
+    ``mrope_sections``, else RoPE unless ``cfg.learned_positions``."""
+    if cfg.mrope_sections:
+        p3 = (positions3 if positions3 is not None
+              else rope_lib.text_positions3(positions))
+        return (rope_lib.apply_mrope(q, p3, cfg.rope_theta,
+                                     cfg.mrope_sections),
+                rope_lib.apply_mrope(k, p3, cfg.rope_theta,
+                                     cfg.mrope_sections))
+    if not cfg.learned_positions:
+        return (rope_lib.apply_rope(q, positions, cfg.rope_theta),
+                rope_lib.apply_rope(k, positions, cfg.rope_theta))
+    return q, k
+
+
 def self_attention(p: Attention, x, positions, cfg: ModelConfig, *,
-                   causal: bool = True):
+                   causal: bool = True, positions3=None):
     """Full-sequence self-attention (prefill and training): causal,
     sliding-window when ``cfg.window > 0``; with ``causal=False`` (the
     audio encoder) bidirectional, a zero mask and never the chunked path.
-    x: (B, S, D); positions: (B, S). Returns (out (B, S, D), (k, v) before
-    the GQA repeat)."""
+    x: (B, S, D); positions: (B, S); positions3: (3, B, S) or None (the
+    VLM's M-RoPE positions). Returns (out (B, S, D), (k, v) before the GQA
+    repeat)."""
     b, s, _ = x.shape
     q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
     k = _split_heads(dense(x, p.wk), cfg.num_kv_heads, cfg.hd)
     v = _split_heads(dense(x, p.wv), cfg.num_kv_heads, cfg.hd)
-    if not cfg.learned_positions:
-        q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
-        k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+    q, k = _positional(q, k, positions, positions3, cfg)
     k_pre, v_pre = k, v
     k = _repeat_kv(k, cfg.num_heads // cfg.num_kv_heads)
     v = _repeat_kv(v, cfg.num_heads // cfg.num_kv_heads)
@@ -192,9 +210,11 @@ def cross_attention(p: Attention, x, kv_src, cfg: ModelConfig, kv=None):
 
 
 def decode_attention(p: Attention, x, cache_k, cache_v, pos,
-                     cfg: ModelConfig):
+                     cfg: ModelConfig, positions3=None):
     """Single-token decode. x: (B, 1, D); cache_k/v: (B, S_cache, Hkv, hd) in
-    x's dtype; pos: (B,) int32 absolute position of the new token.
+    x's dtype; pos: (B,) int32 absolute position of the new token;
+    positions3: (3, B, 1) or None (the VLM's M-RoPE position of the token,
+    text positions of ``pos`` when None).
 
     With ``cfg.window > 0`` the cache is a ring buffer of S_cache slots
     (slot = pos % S_cache); else slot = min(pos, S_cache - 1). The new K/V
@@ -209,9 +229,7 @@ def decode_attention(p: Attention, x, cache_k, cache_v, pos,
     q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
     k = _split_heads(dense(x, p.wk), cfg.num_kv_heads, cfg.hd)
     v = _split_heads(dense(x, p.wv), cfg.num_kv_heads, cfg.hd)
-    if not cfg.learned_positions:
-        q = rope_lib.apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = rope_lib.apply_rope(k, pos[:, None], cfg.rope_theta)
+    q, k = _positional(q, k, pos[:, None], positions3, cfg)
     slot = (torch.remainder(pos, s_cache) if cfg.window
             else torch.clamp(pos, max=s_cache - 1)).long()
     bidx = torch.arange(b, device=x.device)

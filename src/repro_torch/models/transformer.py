@@ -1,7 +1,11 @@
 """The LM families of the port: parameters, full-sequence forward, prefill
 and single-token decode over a cache.
 
-- dense: L x (GQA attention + SwiGLU MLP);
+- dense / vlm: L x (GQA attention + SwiGLU MLP); the VLM (qwen2-vl) adds
+  M-RoPE over 3-D positions (``batch["positions3"]``, (3, B, S)) and
+  splices the stub vision frontend's patch embeddings
+  (``batch["vision_embeds"]``, (B, npatch, D)) over the prompt's first
+  npatch token embeddings;
 - moe: L x (GQA attention + MoE FFN), after ``first_dense_layers`` leading
   layers of a SwiGLU FFN of ``first_dense_d_ff`` (deepseek-moe);
 - ssm: L x Mamba2/SSD block (``models.ssm``; no MLP sublayer);
@@ -39,8 +43,7 @@ B, S, Hkv, hd) for attention, ``{"conv", "h"}`` for RG-LRU and ``{"conv",
 axis on a tail; the decoder's stack adds ``{"cross_k", "cross_v"}`` (L, B,
 Se, Hkv, hd), the encoder's K/V that prefill computes once (the encoder's
 stack has no cache). ``decode_step`` writes into it in place and returns
-it; its self- and cross-attention both run on ``swa_decode``. The VLM
-family raises "not ported yet".
+it; its self- and cross-attention both run on ``swa_decode``.
 
 Training (``repro_torch.training.train_step``) differentiates
 ``forward_train`` or ``forward_hidden`` + ``chunked_ce_loss``. The weights
@@ -57,6 +60,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rope as rope_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ModelConfig, dense, init_dense,
                                        rms_norm, softmax_cross_entropy)
@@ -72,12 +76,7 @@ ENCODER = "enc_blocks"
 
 def _layer_plan(cfg: ModelConfig):
     """Returns (stacks, tail), lists of (name, kind, count, cross), as JAX's
-    ``_layer_plan``; the dense, MoE, SSM, hybrid and audio families."""
-    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio")
-            or cfg.mrope_sections):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type!r} family is not ported yet; the "
-            f"port runs the dense, MoE, SSM, hybrid and audio families")
+    ``_layer_plan``."""
     if (cfg.arch_type == "audio") != cfg.is_encoder_decoder:
         raise ValueError(f"{cfg.name}: the audio family, and it alone, is an "
                          f"encoder-decoder (arch_type {cfg.arch_type!r}, "
@@ -100,6 +99,7 @@ def _layer_plan(cfg: ModelConfig):
     if cfg.arch_type == "audio":
         return ([(ENCODER, "attn", cfg.encoder_layers or cfg.num_layers,
                   False), ("dec_blocks", "attn", cfg.num_layers, True)], [])
+    # dense / vlm
     return [("blocks", "attn", cfg.num_layers, False)], []
 
 
@@ -283,11 +283,12 @@ def _ffn(p: Block, h2, cfg: ModelConfig, kind: str):
 
 
 def _block_fwd(p: Block, x, positions, cfg: ModelConfig, kind: str,
-               causal: bool = True, enc_out=None):
+               causal: bool = True, enc_out=None, positions3=None):
     """One block over the full sequence: (x, aux or None). ``causal=False``
     is the audio encoder's bidirectional attention; with ``enc_out`` (the
     encoder's output) a decoder block's cross-attention runs between its
-    self-attention and its MLP."""
+    self-attention and its MLP; ``positions3`` are the VLM's M-RoPE
+    positions."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "ssm":
         return x + ssm_lib.ssd_forward(p.ssm, h, cfg), None
@@ -295,7 +296,8 @@ def _block_fwd(p: Block, x, positions, cfg: ModelConfig, kind: str,
         x = x + rglru_lib.rglru_forward(p.rec, h, cfg)
     else:
         att, _ = attention.self_attention(p.attn, h, positions, cfg,
-                                          causal=causal)
+                                          causal=causal,
+                                          positions3=positions3)
         x = x + att
     if enc_out is not None and p.has_cross:
         hc = rms_norm(x, p.ln_cross, cfg.norm_eps)
@@ -322,19 +324,45 @@ def _logits(model: Transformer, x, cfg: ModelConfig):
     return dense(h, w).float()
 
 
-def stub_inputs(cfg: ModelConfig, batch: int, device=None) -> dict:
+def stub_inputs(cfg: ModelConfig, batch: int, device=None,
+                seq: int | None = None) -> dict:
     """What the launchers feed a model besides its tokens, as JAX's do: for
     the audio family zero frame embeddings (batch, encoder_seq, D) in
-    ``cfg.dtype``, the stub of the mel spectrogram and its conv frontend;
-    nothing for the other families."""
-    if not cfg.is_encoder_decoder:
-        return {}
-    return {"frames": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
-                                  dtype=cfg.dtype, device=device)}
+    ``cfg.dtype``, the stub of the mel spectrogram and its conv frontend.
+    With ``seq`` (the train launcher's sequence length) a VLM gets zero
+    vision embeddings (batch, min(num_patches, seq // 2), D) in
+    ``cfg.dtype`` and text ``positions3`` (3, batch, seq) int32; JAX's
+    serve launcher feeds a VLM nothing, so without ``seq`` it gets
+    nothing. Nothing for the other families."""
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                    dtype=cfg.dtype, device=device)
+    if cfg.arch_type == "vlm" and seq is not None:
+        npatch = min(cfg.num_patches, seq // 2)
+        out["vision_embeds"] = torch.zeros((batch, npatch, cfg.d_model),
+                                           dtype=cfg.dtype, device=device)
+        out["positions3"] = rope_lib.text_positions3(
+            _positions(batch, seq, device))
+    return out
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _splice_vision(x, batch: dict, cfg: ModelConfig):
+    """The VLM's inputs, as JAX's forward and prefill take them: the token
+    embeddings x (B, S, D) with the first npatch rows replaced by
+    ``batch["vision_embeds"]`` (B, npatch, D) in ``cfg.dtype``, where the
+    batch has them, and ``batch.get("positions3")``. Other families: (x,
+    None)."""
+    if cfg.arch_type != "vlm":
+        return x, None
+    if "vision_embeds" in batch:
+        vis = batch["vision_embeds"]
+        x = torch.cat([vis.to(cfg.dtype), x[:, vis.shape[1]:]], dim=1)
+    return x, batch.get("positions3")
 
 
 def _training(model: Transformer) -> bool:
@@ -372,8 +400,10 @@ def _encode(model: Transformer, frames, cfg: ModelConfig):
 def forward_hidden(model: Transformer, batch: dict, cfg: ModelConfig):
     """Full forward up to the (pre-ln_f) hidden states. batch: tokens (B,
     S) [+ frames (B, Se, D) for the audio family, whose encoder runs once
-    here]. Returns (x (B, S, D), aux): aux the 0-d f32 sum of the MoE
-    layers' router losses, in JAX's order (zero for the dense family).
+    here | vision_embeds (B, npatch, D), positions3 (3, B, S) for the VLM,
+    ``_splice_vision``]. Returns (x (B, S, D), aux): aux the 0-d f32 sum
+    of the MoE layers' router losses, in JAX's order (zero for the dense
+    family).
 
     In training with ``cfg.remat`` each block runs under a non-reentrant
     ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of the scanned
@@ -383,7 +413,8 @@ def forward_hidden(model: Transformer, batch: dict, cfg: ModelConfig):
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    x = _embed(model, tokens, cfg, positions)
+    x, positions3 = _splice_vision(_embed(model, tokens, cfg, positions),
+                                   batch, cfg)
     enc_out = (_encode(model, batch["frames"], cfg) if cfg.is_encoder_decoder
                else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -393,9 +424,10 @@ def forward_hidden(model: Transformer, batch: dict, cfg: ModelConfig):
             enc = enc_out if blk.has_cross else None
             if remat:
                 x, a = checkpoint(_block_fwd, blk, x, positions, cfg, kind,
-                                  True, enc, use_reentrant=False)
+                                  True, enc, positions3, use_reentrant=False)
             else:
-                x, a = _block_fwd(blk, x, positions, cfg, kind, enc_out=enc)
+                x, a = _block_fwd(blk, x, positions, cfg, kind, enc_out=enc,
+                                  positions3=positions3)
             if a is not None:
                 aux = aux + a
     return x, aux
@@ -403,7 +435,8 @@ def forward_hidden(model: Transformer, batch: dict, cfg: ModelConfig):
 
 def forward_train(model: Transformer, batch: dict, cfg: ModelConfig,
                   return_hidden: bool = False):
-    """batch: tokens (B, S) [+ frames]. Returns (logits (B, S, V) f32, aux)
+    """batch: tokens (B, S) [+ frames | vision_embeds, positions3].
+    Returns (logits (B, S, V) f32, aux)
     [, the pre-ln_f hidden states (B, S, D) when ``return_hidden``].
     ``aux`` is the MoE router's auxiliary loss summed over the layers, a
     0-d f32 (zero for the dense family)."""
@@ -414,7 +447,8 @@ def forward_train(model: Transformer, batch: dict, cfg: ModelConfig,
 
 
 def forward(model: Transformer, batch: dict, cfg: ModelConfig):
-    """batch: tokens (B, S) [+ frames]. Returns logits (B, S, V) f32
+    """batch: tokens (B, S) [+ frames | vision_embeds, positions3].
+    Returns logits (B, S, V) f32
     (``forward_train`` without its auxiliary loss)."""
     return _logits(model, forward_hidden(model, batch, cfg)[0], cfg)
 
@@ -519,11 +553,12 @@ def _cross_positions(cache: dict, pos):
 
 
 def _decode_block(p: Block, x, pos, cache: dict, cfg: ModelConfig,
-                  kind: str, pos_full=None):
+                  kind: str, pos_full=None, positions3=None):
     """One block of a decode step; writes the layer's new K/V row or
     recurrent state into its ``cache`` in place. A decoder block with
     cross-attention attends to its layer's ``cross_k`` / ``cross_v`` at
-    ``pos_full`` (``_cross_positions``)."""
+    ``pos_full`` (``_cross_positions``); ``positions3`` (3, B, 1) is the
+    VLM's M-RoPE position of the token."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "ssm":
         y, new = ssm_lib.ssd_decode_step(p.ssm, h, cache, cfg)
@@ -535,7 +570,8 @@ def _decode_block(p: Block, x, pos, cache: dict, cfg: ModelConfig,
         x = x + y
     else:
         att, _, _ = attention.decode_attention(p.attn, h, cache["k"],
-                                               cache["v"], pos, cfg)
+                                               cache["v"], pos, cfg,
+                                               positions3)
         x = x + att
     if p.has_cross:
         hc = rms_norm(x, p.ln_cross, cfg.norm_eps)
@@ -545,16 +581,19 @@ def _decode_block(p: Block, x, pos, cache: dict, cfg: ModelConfig,
     return x + _ffn(p, h2, cfg, kind)[0]        # the router's aux dropped
 
 
-def decode_step(model: Transformer, tokens, pos, cache, cfg: ModelConfig):
-    """One decode step. tokens: (B, 1); pos: (B,) int32. Writes the new
-    K/V rows and recurrent states into ``cache`` in place. Returns (logits
-    (B, V) f32, cache)."""
+def decode_step(model: Transformer, tokens, pos, cache, cfg: ModelConfig,
+                positions3=None):
+    """One decode step. tokens: (B, 1); pos: (B,) int32; positions3: (3,
+    B, 1) or None (a VLM's M-RoPE position of the token; text positions of
+    ``pos`` when None, as in JAX). Writes the new K/V rows and recurrent
+    states into ``cache`` in place. Returns (logits (B, V) f32, cache)."""
     x = _embed(model, tokens, cfg, pos[:, None])
     pos_full = _cross_positions(cache, pos)
     for name, kind, blocks, stacked in _decoder_groups(model, cfg):
         for blk, c in zip(blocks, _layer_caches(cache[name], len(blocks),
                                                 stacked)):
-            x = _decode_block(blk, x, pos, c, cfg, kind, pos_full)
+            x = _decode_block(blk, x, pos, c, cfg, kind, pos_full,
+                              positions3)
     return _logits(model, x, cfg)[:, 0], cache
 
 
@@ -569,13 +608,17 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
     forward's ``return_state``), cast to each leaf's dtype. The audio
     family runs its encoder once over ``batch["frames"]``; each decoder
     layer computes the cross-attention's K/V of the encoder's output once,
-    for its attention and its ``cross_k`` / ``cross_v`` cache.
+    for its attention and its ``cross_k`` / ``cross_v`` cache. The VLM's
+    patch embeddings replace the prompt's first npatch token embeddings,
+    so their K/V land in the cache, rotated by ``positions3``
+    (``_splice_vision``).
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache_len = cache_len or s
     positions = _positions(b, s, tokens.device)
-    x = _embed(model, tokens, cfg, positions)
+    x, positions3 = _splice_vision(_embed(model, tokens, cfg, positions),
+                                   batch, cfg)
     enc_out = (_encode(model, batch["frames"], cfg) if cfg.is_encoder_decoder
                else None)
     cache = init_cache(cfg, b, cache_len, device=tokens.device,
@@ -597,8 +640,8 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
                 _write(c, new)
                 x = x + y
             else:
-                att, (k, v) = attention.self_attention(blk.attn, h,
-                                                       positions, cfg)
+                att, (k, v) = attention.self_attention(
+                    blk.attn, h, positions, cfg, positions3=positions3)
                 x = x + att
                 if cache_len >= s:
                     # linear layout: slot = position

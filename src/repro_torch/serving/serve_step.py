@@ -31,11 +31,13 @@ def make_prefill(cfg: ModelConfig, cache_len: int | None = None):
 def make_decode_step(cfg: ModelConfig, temperature: float = 0.0):
     """Returns step(model, batch, cache, draws=None) -> (next_token (B,)
     int64, logits (B, V) f32, cache). batch: {tokens (B, 1), pos (B,)
-    int32}. With ``temperature > 0`` and a draw source, it samples."""
+    int32[, positions3 (3, B, 1)]}. With ``temperature > 0`` and a draw
+    source, it samples."""
 
     def step(model, batch: dict, cache, draws=None):
         logits, cache = transformer.decode_step(
-            model, batch["tokens"], batch["pos"], cache, cfg)
+            model, batch["tokens"], batch["pos"], cache, cfg,
+            positions3=batch.get("positions3"))
         if temperature > 0.0 and draws is not None:
             noise = draws.gumbel(tuple(logits.shape))
             nxt = torch.argmax(logits / temperature + noise, dim=-1)
@@ -59,7 +61,10 @@ def generate(model, cfg: ModelConfig, prompt_tokens: torch.Tensor,
     int64 tokens (the first is the prefill's argmax), and with
     ``return_logits`` also the (B, max_new, V) f32 logits each token was
     chosen from. ``extra_batch`` joins the prompt in the prefill's batch
-    (the audio family's ``frames``). ``timings``, when given, receives
+    (the audio family's ``frames``; the VLM's ``vision_embeds`` and
+    ``positions3``). The decode steps take text positions from ``pos = S``
+    on, as JAX's loop does, also after an image (Qwen2-VL would continue
+    from the grid's largest coordinate + 1). ``timings``, when given, receives
     ``prefill_s`` and ``decode_s`` on the host clock, each ended by a
     device synchronise (the only syncs the loop makes)."""
     b, s = prompt_tokens.shape

@@ -543,7 +543,10 @@ SWA_SHAPES = [(1, 32, 8, 64, 8192, p)
     # its 192-slot cache, and the cross-attention over the 1,500 frames at
     # pos 1,499 and past it (every slot valid; 5 splits of 300 slots, each
     # ending in a partial 128-slot chunk)
-    (4, 16, 16, 64, 192, 128), (4, 16, 16, 64, 1500, 1499)]
+    (4, 16, 16, 64, 192, 128), (4, 16, 16, 64, 1500, 1499),
+    # qwen2-vl-72b's decode (GQA 64/8, hd 128, rep 8): the serve shape and
+    # the long_500k ring of 8,192 slots (32 splits of 256), wrapped
+    (4, 64, 8, 128, 192, 128), (1, 64, 8, 128, 8192, 8703)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -675,6 +678,37 @@ def test_whisper_decode_on_the_card_equals_the_cpu(cuda):
         got, gcache = transformer.decode_step(gpu, tok.to(cuda),
                                               pos.to(cuda), gcache, cfg)
         assert swa_ops.launches == before + 2 * cfg.num_layers
+
+
+def test_vlm_decode_on_the_card_equals_the_cpu(cuda):
+    """Prefill with seeded patch embeddings over a 4 x 4 grid of M-RoPE
+    positions, then 6 decode steps, of qwen2-vl-72b's smoke config (f32) on
+    the card and on the CPU from the same weights: logits within 2e-4 (1 +
+    max|logit|) at each step (fed the CPU's tokens, at text positions);
+    each step launches ``swa_decode`` once a layer."""
+    import copy
+    from repro_torch.models import rope
+    cfg = configs.get_smoke("qwen2-vl-72b")
+    model = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu = copy.deepcopy(model).to(cuda)
+    gen = torch.Generator().manual_seed(27)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)
+    batch = {"tokens": prompt,
+             "vision_embeds": torch.randn(2, 16, cfg.d_model, generator=gen),
+             "positions3": rope.grid_positions3(2, 24, 4, 4)}
+    want, cache = transformer.prefill(model, batch, cfg, cache_len=32)
+    got, gcache = transformer.prefill(
+        gpu, {k: v.to(cuda) for k, v in batch.items()}, cfg, cache_len=32)
+    for i in range(6):
+        tol = 2e-4 * (1 + float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) <= tol, i
+        tok = want.argmax(-1)[:, None]
+        pos = torch.full((2,), 24 + i, dtype=torch.int32)
+        want, cache = transformer.decode_step(model, tok, pos, cache, cfg)
+        before = swa_ops.launches
+        got, gcache = transformer.decode_step(gpu, tok.to(cuda),
+                                              pos.to(cuda), gcache, cfg)
+        assert swa_ops.launches == before + cfg.num_layers
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])

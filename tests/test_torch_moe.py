@@ -363,9 +363,13 @@ def test_moe_weights_round_trip(arch):
 
 
 def test_unported_families_still_refuse():
-    cfg = torch_cfg("granite-moe-1b-a400m", arch_type="vlm")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        transformer.Transformer(cfg, "cpu")
+    """No family is refused any more: the port's ``_layer_plan`` is JAX's
+    for every architecture, full and smoke configs."""
+    for arch in jconfigs.ALIASES:
+        for get in ("get", "get_smoke"):
+            assert (transformer._layer_plan(getattr(configs, get)(arch))
+                    == jtr._layer_plan(getattr(jconfigs, get)(arch))), (
+                        arch, get)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

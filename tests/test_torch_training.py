@@ -478,8 +478,14 @@ def test_get_optimized_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-72b"])
 def test_get_optimized_refuses_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        configs.get_optimized(arch)
+    """The VLM's optimised config (chunked attention and CE) is JAX's,
+    field for field, now that the family is ported."""
+    ours = dataclasses.asdict(configs.get_optimized(arch))
+    theirs = dataclasses.asdict(jconfigs.get_optimized(arch))
+    for key in ("dtype", "param_dtype"):
+        ours.pop(key), theirs.pop(key)
+    assert ours == theirs
+    assert (ours["attention_impl"], ours["chunked_ce"]) == ("chunked", True)
 
 
 # ---------------------------------------------------------------------------
@@ -564,15 +570,21 @@ def test_train_launcher_runs_on_the_cpu(capsys, with_probe):
     assert out.count("step ") == 3                     # steps 0, 4 and 7
 
 
-def test_train_launcher_refuses():
+def test_train_launcher_refuses(capsys):
+    """Without a card the launcher refuses a run that does not ask for the
+    CPU; the VLM, refused before it was ported, trains on the CPU through
+    ``main`` and ``run``."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_cli.main(["--arch", ARCH, "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.main(["--arch", "qwen2-vl-72b", "--smoke", "--device",
-                        "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.run(torch_cfg(arch_type="vlm"), steps=1, device="cpu")
+    losses = train_cli.main(["--arch", "qwen2-vl-72b", "--smoke", "--device",
+                             "cpu", "--steps", "2", "--batch", "2", "--seq",
+                             "16"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert "arch=qwen2-vl-72b-smoke" in capsys.readouterr().out
+    losses = train_cli.run(configs.get_smoke("qwen2-vl-72b"), steps=1,
+                           batch=2, seq=16, device="cpu")
+    assert len(losses) == 1 and np.isfinite(losses[0])
 
 
 @pytest.mark.slow

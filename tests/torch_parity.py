@@ -315,3 +315,35 @@ def full_width_gradients_match_jax(jc, tc, *, seq: int, tol: float,
         scale = max(float(np.abs(w).max()), 1e-30)
         err = float(np.abs(g.numpy() - w).max())
         assert err <= tol * scale, (name, err, scale)
+
+
+def assert_close(got, want, rtol: float, atol: float) -> None:
+    """A port tensor (or array) against a JAX array, as f32."""
+    if isinstance(got, torch.Tensor):
+        got = got.detach().float().numpy()
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+def assert_caches_close(cache, jcache, rtol: float, atol: float) -> None:
+    """An LM cache of the port against JAX's: the same entries and leaves,
+    each of JAX's shape and within the tolerance."""
+    assert sorted(cache) == sorted(jcache)
+    for name, entry in cache.items():
+        assert sorted(entry) == sorted(jcache[name]), name
+        for leaf, x in entry.items():
+            assert tuple(x.shape) == tuple(jcache[name][leaf].shape)
+            assert_close(x, jcache[name][leaf], rtol, atol)
+
+
+def assert_greedy_agrees(got, want, logits, tol: float) -> None:
+    """Greedy tokens (B, n) of the port equal JAX's ``want``, except from a
+    step whose top-two logits (the port's ``logits`` (B, n, V)) lie within
+    ``tol``: a near tie may break either way."""
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape
+    for row in range(want.shape[0]):
+        differ = np.flatnonzero(got[row].numpy() != want[row])
+        if differ.size:
+            top2 = np.sort(logits[row, differ[0]].numpy())[-2:]
+            assert top2[1] - top2[0] <= tol, (row, differ[0], top2)
