@@ -231,6 +231,16 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     and one ``drive_cascade`` a step; ms a step, tokens/s, peak memory,
     model FLOPs beside the bf16 peak; (e) the swa rows at both shapes and
     the probe's rows at D 8,192;
+11Q. the dry run (``dryrun_phase``), last: (a) ``python -m
+    repro_torch.launch.dryrun`` for llama3.2-1b ``train_4k`` and
+    ``decode_32k`` on the 16 x 16 mesh and qwen2-vl-72b ``decode_32k`` on
+    2 x 16 x 16, each in a subprocess on the CPU (no card visible), all at
+    once: JAX's keys, ``ok``, no replicated op for the dense arch, the
+    roofline line printed; (b) llama3.2-1b without the probe at B 4 x S
+    1,024: the dry run's 1 x 1 tallies against one real train step on the
+    card (FLOPs under ``FlopCounterMode`` within 0.1 %, argument bytes
+    exactly, the peak above the arguments within a band of the predicted
+    temp bytes); (c) its B 4 x 192 decode's argument bytes exactly;
 12. prints ``{"kernels": [...]}``, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -5054,6 +5064,198 @@ def vlm_phase(device):
     return rows
 
 
+#: phase Q: the dry run (``repro_torch.launch.dryrun``), a planning tool on
+#: the CPU: (a) its CLI on the production meshes in subprocesses, (b, c)
+#: its 1 x 1 tallies against one real step on the card
+DRYRUN_CLI = (("llama3.2-1b", "train_4k", False),
+              ("llama3.2-1b", "decode_32k", False),
+              ("qwen2-vl-72b", "decode_32k", True))
+DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "tag", "moe_impl", "remat",
+               "overrides", "ok", "extrapolated", "trace_s", "memory",
+               "flops_per_device", "bytes_per_device", "collectives",
+               "roofline", "model_flops_total", "model_flops_per_device",
+               "useful_flops_ratio", "params_total", "params_active",
+               "replicated_ops", "constants")
+DRYRUN_DENSE = ("llama3.2-1b",)
+#: (c): the serve shape's decode, B 4 over a 192-slot cache
+DRYRUN_DECODE_B, DRYRUN_DECODE_CACHE = 4, 192
+#: the real step's FLOPs within this share of the dry run's
+DRYRUN_FLOPS_TOL = 1e-3
+#: the real step's peak above its arguments (torch.cuda.max_memory_allocated
+#: less the bytes allocated before the step) over the dry run's temp bytes
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+DRYRUN_SMALL = r"""
+import json, sys
+import torch
+from repro_torch import configs
+from repro_torch.launch import dryrun
+arch, b, s, b_dec, cache = sys.argv[1], *map(int, sys.argv[2:6])
+meta = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
+mesh = dryrun.fake_mesh((1, 1), ("data", "model"))
+train = dryrun.measure(configs.get(arch), "train_4k", mesh, batch_shapes={
+    "tokens": meta(b, s), "labels": meta(b, s)})
+decode = dryrun.measure(configs.for_shape(configs.get(arch), "decode_32k"),
+                        "decode_32k", mesh,
+                        batch_shapes={"tokens": meta(b_dec, 1),
+                                      "pos": meta(b_dec)}, cache_len=cache)
+print(json.dumps({"train": train, "decode": decode}))
+"""
+
+
+def _dryrun_env():
+    """The dry run's environment: the port on the path and no card visible
+    (it runs on the CPU by design)."""
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                CUDA_VISIBLE_DEVICES="")
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dryrun_phase(device):
+    """Phase Q: the dry run. (a) ``python -m repro_torch.launch.dryrun`` for
+    each of DRYRUN_CLI in its own subprocess, all at once: every JSON has
+    JAX's keys and ``ok``, the dense arch no replicated op; the roofline
+    line printed. (b) llama3.2-1b without the probe at phase L's B 4 x S
+    1,024 train shape: the dry run's 1 x 1 tallies (in a subprocess, its
+    fake group apart from this process) against one real step on the card:
+    FLOPs (FlopCounterMode) within DRYRUN_FLOPS_TOL, argument bytes (params,
+    moments, the two steps, the batch) exactly, the real peak above the
+    arguments within DRYRUN_PEAK_BAND of the predicted temp bytes. (c) its
+    B 4 x 192 decode: argument bytes (params, cache, batch) exactly."""
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.training import AdamWConfig, train_step
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        procs = []
+        for arch, shape, pod in DRYRUN_CLI:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--outdir", out]
+            procs.append(subprocess.Popen(
+                argv + (["--multi-pod"] if pod else []), env=_dryrun_env(),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        small = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_SMALL, TRAIN_ARCH, str(TRAIN_B),
+             str(TRAIN_S), str(DRYRUN_DECODE_B), str(DRYRUN_DECODE_CACHE)],
+            env=_dryrun_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            outs = [p.communicate(timeout=300) for p in procs + [small]]
+        finally:
+            for p in procs + [small]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for (arch, shape, pod), p, (stdout, stderr) in zip(
+                DRYRUN_CLI + (("1x1", "tallies", False),), procs + [small],
+                outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"dry run {arch} {shape} exited "
+                                   f"{p.returncode}:\n{stderr[-3000:]}")
+        for arch, shape, pod in DRYRUN_CLI:
+            mesh = "2x16x16" if pod else "16x16"
+            res = json.loads(Path(out, f"{arch}__{shape}__{mesh}.json")
+                             .read_text())
+            missing = [k for k in DRYRUN_KEYS if k not in res]
+            if missing or not res["ok"]:
+                raise RuntimeError(f"dry run {arch} {shape} {mesh}: missing "
+                                   f"{missing}, ok {res.get('ok')}")
+            if arch in DRYRUN_DENSE and res["replicated_ops"]:
+                raise RuntimeError(f"dry run {arch} {shape}: replicated ops "
+                                   f"{res['replicated_ops']}")
+            r, mem = res["roofline"], res["memory"]
+            print(f"dry run {arch} {shape} {mesh}: compute "
+                  f"{r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, "
+                  f"collective {r['collective_s']:.4e} s (NVLink "
+                  f"{r['collective_s_nvlink']:.4e} s) -> {r['bottleneck']}; "
+                  f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB + "
+                  f"temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB a device; "
+                  f"traced in {res['trace_s']} s")
+    tallies = json.loads(outs[-1][0].strip().splitlines()[-1])
+
+    # (b) one real train step on the card beside the dry run's 1 x 1 tallies
+    cfg = configs.get(TRAIN_ARCH)
+    gc_collect()
+    state = train_step.init_train_state(cfg, seed=SEED, device=device)
+    gen = torch.Generator().manual_seed(SEED + 131)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S), generator=gen,
+                         dtype=torch.int32).to(device)
+    batch = {"tokens": toks, "labels": toks.clone()}
+    args = _tensor_bytes(list(state.params.parameters())
+                         + list(state.opt.mu.values())
+                         + list(state.opt.nu.values())
+                         + [state.opt.step, state.step]
+                         + list(batch.values()))
+    step = train_step.make_train_step(cfg, AdamWConfig(total_steps=10_000))
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    with FlopCounterMode(display=False) as fc:
+        _, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) - before
+    t = tallies["train"]
+    flops, pred = fc.get_total_flops(), t["flops_per_device"]
+    print(f"dry run 1x1 {TRAIN_ARCH} B {TRAIN_B} x S {TRAIN_S} train step: "
+          f"FLOPs {pred:.6e} predicted, {flops:.6e} on the card; arguments "
+          f"{t['memory']['argument_size_in_bytes']} predicted, {args} on the "
+          f"card; temp {t['memory']['temp_size_in_bytes'] / 1e9:.3f} GB "
+          f"predicted, peak above the arguments {peak / 1e9:.3f} GB on the "
+          f"card (max_memory_allocated {(peak + before) / 1e9:.3f} GB); "
+          f"loss {loss:.4f}")
+    if not np.isfinite(loss) or abs(flops - pred) > DRYRUN_FLOPS_TOL * flops:
+        raise RuntimeError(f"dry run train FLOPs {pred} against {flops} on "
+                           f"the card (loss {loss})")
+    if t["memory"]["argument_size_in_bytes"] != args:
+        raise RuntimeError(f"dry run train arguments "
+                           f"{t['memory']['argument_size_in_bytes']} bytes "
+                           f"against {args} on the card")
+    ratio = peak / t["memory"]["temp_size_in_bytes"]
+    lo, hi = DRYRUN_PEAK_BAND
+    if not lo <= ratio <= hi:
+        raise RuntimeError(f"the card's peak over the dry run's temp bytes is "
+                           f"{ratio:.3f}, outside [{lo}, {hi}]")
+    model = state.params
+    del state, metrics, step
+    gc_collect()
+
+    # (c) the decode step's arguments: params, cache, batch
+    dcfg = configs.for_shape(cfg, "decode_32k")
+    cache = transformer.init_cache(dcfg, DRYRUN_DECODE_B, DRYRUN_DECODE_CACHE,
+                                   device=device)
+    dbatch = [torch.zeros((DRYRUN_DECODE_B, 1), dtype=torch.int32,
+                          device=device),
+              torch.zeros((DRYRUN_DECODE_B,), dtype=torch.int32,
+                          device=device)]
+    dargs = _tensor_bytes(list(model.parameters())
+                          + [v for c in cache.values() for v in c.values()]
+                          + dbatch)
+    d = tallies["decode"]["memory"]["argument_size_in_bytes"]
+    print(f"dry run 1x1 {TRAIN_ARCH} B {DRYRUN_DECODE_B} x "
+          f"{DRYRUN_DECODE_CACHE} decode: arguments {d} predicted, {dargs} "
+          f"on the card")
+    if d != dargs:
+        raise RuntimeError(f"dry run decode arguments {d} bytes against "
+                           f"{dargs} on the card")
+    del model, cache
+    gc_collect()
+    print(f"dry run phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def gc_collect():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -5148,6 +5350,7 @@ def main() -> int:
     rows += recurrent_phase(device)
     rows += audio_phase(device)
     rows += vlm_phase(device)
+    dryrun_phase(device)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ learned position embeddings to its inputs instead).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -22,7 +23,9 @@ from torch import nn
 from repro_torch.device import no_tf32
 from repro_torch.kernels.swa import ops as swa_ops
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.common import ModelConfig, dense, init_dense
+from repro_torch.models.common import (ModelConfig, dense, init_dense,
+                                       per_shard, replicate_partial,
+                                       shard_block, whole_groups)
 
 NEG_INF = -1e30
 
@@ -55,6 +58,7 @@ class Attention(nn.Module):
 
 
 def _split_heads(x, n_heads, hd):
+    x = whole_groups(x, -1, n_heads)
     return x.reshape(x.shape[:-1] + (n_heads, hd))
 
 
@@ -74,10 +78,19 @@ def _causal_mask(s_q: int, s_k: int, window: int, device=None):
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
 
 
+#: the (batch, head) dims of attention's (B, S, H, hd) operands
+_BH = (0, 2)
+
+
 def attend(q, k, v, mask):
-    """q: (B,Sq,H,hd), k/v: (B,Sk,H,hd); mask broadcastable to (B,H,Sq,Sk).
-    Logits and softmax in f32; the probabilities are cast to q's dtype
-    before the PV product, as in the JAX package."""
+    """q: (B,Sq,H,hd), k/v: (B,Sk,H,hd); mask (1, 1, Sq, Sk). Logits and
+    softmax in f32; the probabilities are cast to q's dtype before the PV
+    product, as in the JAX package. Each (batch row, head) is independent:
+    on DTensors it runs on the local shards (``per_shard``)."""
+    return per_shard(_attend, (q, k, v, mask), (_BH, _BH, _BH, None), _BH)
+
+
+def _attend(q, k, v, mask):
     scale = 1.0 / math.sqrt(q.shape[-1])
     with no_tf32():
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -89,6 +102,15 @@ def attend(q, k, v, mask):
 
 def attend_chunked(q, k, v, *, window: int, chunk: int,
                    probs_bf16: bool = False):
+    """Flash-style causal attention in plain tensor ops (``_attend_chunked``),
+    on the local shards of DTensors as ``attend``."""
+    return per_shard(functools.partial(_attend_chunked, window=window,
+                                       chunk=chunk, probs_bf16=probs_bf16),
+                     (q, k, v), (_BH, _BH, _BH), _BH)
+
+
+def _attend_chunked(q, k, v, *, window: int, chunk: int,
+                    probs_bf16: bool = False):
     """Flash-style causal attention in plain tensor ops: a loop over KV
     chunks with an online-softmax accumulator, so the largest buffer is
     (B, Sq, H, chunk) instead of (B, H, Sq, Sk). Nothing here is
@@ -209,6 +231,132 @@ def cross_attention(p: Attention, x, kv_src, cfg: ModelConfig, kv=None):
     return dense(out.reshape(b, s, cfg.q_dim), p.wo)
 
 
+def _swa(q, k, v, pos):
+    """``swa_ops.swa_decode``; on a DTensor cache, its plain arithmetic
+    split over the mesh (``_swa_sharded``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(k, DTensor):
+        return _swa_sharded(q, k, v, pos)
+    return swa_ops.swa_decode(q, k, v, pos)
+
+
+def _swa_sharded(q, k, v, pos):
+    """``swa_decode`` (window = the W slots) on a DTensor cache k, v (B, W,
+    Hkv, hd) sharded over batch, kv heads and/or slots, as the kernel
+    splits the slots across blocks: each rank keeps (m, l, acc) of the
+    valid slots it holds (m -1e30, l and acc 0 where it holds none), and
+    the slot shards combine as the kernel's splits do (M = max m, all-
+    reduced; l and acc scaled by exp(m - M) and all-reduced). q (B, H, hd)
+    and pos (B,) follow the batch and heads. Returns (B, H, hd) in q's
+    dtype."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = k.device_mesh, k.placements
+    w = k.shape[1]
+    role = ["b" if p == Shard(0) else "h" if p == Shard(2)
+            else "s" if p == Shard(1) else None for p in pl]
+    q_pl = [Shard(0) if r == "b" else Shard(1) if r == "h" else Replicate()
+            for r in role]
+    pos_pl = [Shard(0) if r == "b" else Replicate() for r in role]
+    # (splits, B, H[, hd]): the slot shards on a leading dim
+    split_pl = [Shard(0) if r == "s" else Shard(1) if r == "b"
+                else Shard(2) if r == "h" else Replicate() for r in role]
+    block = shard_block(mesh, [m for m, r in enumerate(role) if r == "s"])
+
+    def local(qq, kk, vv, pp):
+        rep = qq.shape[1] // kk.shape[2]
+        ks = kk.repeat_interleave(rep, dim=2).float()        # (b, ws, h, hd)
+        vs = vv.repeat_interleave(rep, dim=2).float()
+        with no_tf32():
+            logits = torch.einsum("bhd,bshd->bhs", qq.float(), ks)
+        logits = logits / math.sqrt(qq.shape[-1])
+        j = block * kk.shape[1] + torch.arange(kk.shape[1],
+                                               device=kk.device)[None]
+        p64 = pp.to(torch.int64)[:, None]
+        valid = (torch.remainder(p64 - j, w)
+                 < torch.clamp(p64 + 1, max=w))[:, None, :]
+        logits = torch.where(valid, logits, NEG_INF)
+        m = logits.amax(dim=-1)
+        e = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+        with no_tf32():
+            acc = torch.einsum("bhs,bshd->bhd", e, vs)
+        return m[None], e.sum(-1)[None], acc[None]
+
+    m, l, acc = local_map(
+        local, out_placements=(split_pl, split_pl, split_pl),
+        in_placements=(q_pl, pl, pl, pos_pl), device_mesh=mesh,
+        redistribute_inputs=True)(q, k, v, pos)
+    big_m = replicate_partial(m.amax(dim=0))
+    scale = torch.exp(m - big_m)
+    big_l = replicate_partial((l * scale).sum(dim=0))
+    big_a = replicate_partial((acc * scale[..., None]).sum(dim=0))
+    return (big_a / torch.clamp(big_l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def fill_cache(cache, k) -> None:
+    """A prefill's K (or V) of S positions, k (B, S, Hkv, hd), into a zeroed
+    cache (B, W, Hkv, hd), in place: a cache at least as long as the prompt
+    is linear (slot = position); a shorter one is a ring buffer holding the
+    last W positions at slot = position % W. On a DTensor cache each rank
+    writes the slots it holds."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    s, w = k.shape[1], cache.shape[1]
+
+    def fill(c, kk, lo=0):
+        wl = c.shape[1]
+        if w >= s:
+            hi = min(lo + wl, s)
+            if hi > lo:
+                c[:, :hi - lo] = kk[:, lo:hi]
+        else:
+            c.copy_(torch.roll(kk[:, -w:], s % w, dims=1)[:, lo:lo + wl])
+        return c
+
+    if not isinstance(cache, DTensor):
+        fill(cache, k)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    lo = shard_block(mesh, [m for m, p in enumerate(pl) if p == Shard(1)]) \
+        * (w // math.prod(mesh.size(m) for m, p in enumerate(pl)
+                          if p == Shard(1)))
+    k_pl = [Replicate() if p == Shard(1) else p for p in pl]
+    from torch.distributed.tensor.experimental import local_map
+    local_map(functools.partial(fill, lo=lo), out_placements=(pl,),
+              in_placements=(pl, k_pl), device_mesh=mesh,
+              redistribute_inputs=True)(cache, k)
+
+
+def write_rows(cache, slot, new) -> None:
+    """``cache[b, slot[b]] = new[b]`` for every row b, in place, cast to the
+    cache's dtype. cache (B, S, Hkv, hd); slot (B,); new (B, Hkv, hd). On a
+    DTensor cache each rank writes the rows and slots it holds, the others
+    left as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache, DTensor):
+        cache[torch.arange(cache.shape[0], device=cache.device), slot] = \
+            new.to(cache.dtype)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    on_slots = [m for m, p in enumerate(pl) if p == Shard(1)]
+    block = shard_block(mesh, on_slots)
+    # new (B, Hkv, hd) follows the cache's batch and heads; slot its batch
+    new_pl = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+              else Replicate() for p in pl]
+    slot_pl = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+
+    def local(c, s, n):
+        j = s.long() - block * c.shape[1]
+        ok = (j >= 0) & (j < c.shape[1])
+        j = torch.where(ok, j, 0)
+        rows = torch.arange(c.shape[0], device=c.device)
+        c[rows, j] = torch.where(ok[:, None, None], n.to(c.dtype), c[rows, j])
+        return c
+
+    from torch.distributed.tensor.experimental import local_map
+    local_map(local, out_placements=(pl,), in_placements=(pl, slot_pl, new_pl),
+              device_mesh=mesh, redistribute_inputs=True)(cache, slot, new)
+
+
 def decode_attention(p: Attention, x, cache_k, cache_v, pos,
                      cfg: ModelConfig, positions3=None):
     """Single-token decode. x: (B, 1, D); cache_k/v: (B, S_cache, Hkv, hd) in
@@ -232,10 +380,9 @@ def decode_attention(p: Attention, x, cache_k, cache_v, pos,
     q, k = _positional(q, k, pos[:, None], positions3, cfg)
     slot = (torch.remainder(pos, s_cache) if cfg.window
             else torch.clamp(pos, max=s_cache - 1)).long()
-    bidx = torch.arange(b, device=x.device)
-    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
-    out = swa_ops.swa_decode(q[:, 0].contiguous(), cache_k, cache_v, pos)
+    write_rows(cache_k, slot, k[:, 0])
+    write_rows(cache_v, slot, v[:, 0])
+    out = _swa(q[:, 0].contiguous(), cache_k, cache_v, pos)
     return dense(out.reshape(b, 1, cfg.q_dim), p.wo), cache_k, cache_v
 
 
@@ -249,6 +396,5 @@ def decode_cross_attention(p: Attention, x, cross_k, cross_v, pos_full,
     Returns (B, 1, D)."""
     b = x.shape[0]
     q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
-    out = swa_ops.swa_decode(q[:, 0].contiguous(), cross_k, cross_v,
-                             pos_full)
+    out = _swa(q[:, 0].contiguous(), cross_k, cross_v, pos_full)
     return dense(out.reshape(b, 1, cfg.q_dim), p.wo)

@@ -135,12 +135,191 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     A bf16 product goes to cuBLAS, which accumulates in f32 and rounds once
     to bf16, as the JAX package's ``preferred_element_type=f32`` followed by
-    a cast does; an f32 product runs in full f32 (``no_tf32``)."""
+    a cast does; an f32 product runs in full f32 (``no_tf32``). On
+    DTensors a row-parallel product's partial sums are all-reduced here
+    (``replicate_partial``), as Megatron does after ``wo`` and ``wd``."""
     w = w.to(x.dtype)
     if x.dtype == torch.float32:
         with no_tf32():
-            return x @ w
-    return x @ w
+            return replicate_partial(x @ w)
+    return replicate_partial(x @ w)
+
+
+def replicate_partial(y: torch.Tensor) -> torch.Tensor:
+    """``y``, with a DTensor's partial sums reduced to a replicated value;
+    a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(y, DTensor) and any(p.is_partial() for p in y.placements):
+        return y.redistribute(placements=[Replicate() if p.is_partial()
+                                          else p for p in y.placements])
+    return y
+
+
+def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` (a gradient) with ``p``'s (its parameter's) placements where
+    both are DTensors: its partial sums over the data axes all-reduced, or
+    reduce-scattered onto a sharded parameter, once; else ``g``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and isinstance(p, DTensor) \
+            and g.placements != p.placements:
+        return g.redistribute(placements=p.placements)
+    return g
+
+
+def shard_block(mesh, mesh_dims) -> int:
+    """Which block of a tensor dim sharded over ``mesh_dims`` (in mesh
+    order) this rank holds."""
+    coord = mesh.get_coordinate()
+    block = 0
+    for m in mesh_dims:
+        block = block * mesh.size(m) + coord[m]
+    return block
+
+
+def take_sharded(take, x: torch.Tensor, dim: int, idx: torch.Tensor):
+    """``take(x, idx)`` (rows of ``x`` along ``dim`` at integer ``idx``) on
+    the local shards of a DTensor ``x``; None for a plain tensor. Where
+    ``x`` is sharded along ``dim`` (a vocab-sharded table or logits) each
+    rank takes the rows it holds, zeros the others, and the ranks' results
+    are all-reduced, as Megatron's vocab-parallel layers do. ``idx`` shards
+    as the result does on the other mesh dims. DTensor's own indexing and
+    gather would gather, or scatter in the backward pass, at the full
+    global size."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return None
+    mesh, dim = x.device_mesh, dim % x.dim()
+    on = [m for m, p in enumerate(x.placements)
+          if isinstance(p, Shard) and p.dim == dim]
+    if not isinstance(idx, DTensor):        # a replicated value
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    idx = idx.redistribute(placements=[Replicate() if m in on else p
+                                       for m, p in enumerate(idx.placements)])
+    block = shard_block(mesh, on)
+
+    def local(t, i):
+        if not on:
+            return take(t, i)
+        j = i.long() - block * t.shape[dim]
+        ok = (j >= 0) & (j < t.shape[dim])
+        out = take(t, torch.where(ok, j, 0))
+        return out * ok.reshape(ok.shape + (1,) * (out.dim() - ok.dim())
+                                ).to(out.dtype)
+
+    def summed(t, i):
+        from repro_torch.sharding.compat import SumOver
+        return SumOver.apply(local(t, i), mesh, tuple(on))
+
+    from torch.distributed.tensor.experimental import local_map
+    out_pl = [Replicate() if m in on else p
+              for m, p in enumerate(idx.placements)]
+    # x's local gradient sums over the mesh dims that split idx alone
+    x_grad = [Partial() if m not in on and isinstance(q, Shard)
+              and not isinstance(p, Shard) else p
+              for m, (p, q) in enumerate(zip(x.placements, idx.placements))]
+    return local_map(summed, out_placements=(out_pl,),
+                     in_placements=(x.placements, idx.placements),
+                     in_grad_placements=(x_grad, idx.placements),
+                     device_mesh=mesh)(x, idx)
+
+
+def whole_groups(x: torch.Tensor, dim: int, groups: int) -> torch.Tensor:
+    """``x``, with a DTensor's ``dim`` gathered (replicated) where its
+    shards would cut one of ``groups`` equal groups of that dim (heads of a
+    projection about to be split); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.dim()
+    on = [m for m, p in enumerate(x.placements)
+          if isinstance(p, Shard) and p.dim == dim]
+    if groups % math.prod(x.device_mesh.size(m) for m in on) == 0:
+        return x
+    return replicate_dim(x, dim)
+
+
+def replicate_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``, with a DTensor's ``dim`` gathered (replicated on every mesh
+    dim that shards it); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.dim()
+    return x.redistribute(placements=[
+        Replicate() if isinstance(p, Shard) and p.dim == dim else p
+        for p in x.placements])
+
+
+def per_shard(fn, args: tuple, dims: tuple, out_dims):
+    """``fn(*args)``; where ``args[0]`` is a DTensor (the dry run,
+    ``repro_torch.launch.dryrun``), ``fn`` runs on each rank's local shards
+    instead, under ``local_map``. ``dims[i]`` names, for argument i, its
+    dims in a fixed order of roles (say (batch, head)), None for a role it
+    lacks (replicated along it), or is None for an argument passed as it
+    is; ``out_dims`` the same for the output, or a tuple of them for
+    several. A mesh dim that shards ``args[0]`` on a role's dim shards
+    every argument and output on theirs, so ``fn`` must be independent
+    along those roles; other mesh dims, and a role some argument cannot
+    split evenly, replicate. An argument that lacks a role gets a partial
+    gradient over that role's mesh dims. On plain tensors it is exactly
+    ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    x = args[0]
+    if not isinstance(x, DTensor):
+        return fn(*args)
+    mesh = x.device_mesh
+    # plain tensors among the sharded arguments are replicated values
+    args = tuple(DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+                 if d is not None and not isinstance(a, DTensor) else a
+                 for a, d in zip(args, dims))
+    role_of = {d: r for r, d in enumerate(dims[0])}
+    roles = [role_of.get(p.dim) if isinstance(p, Shard) else None
+             for p in x.placements]
+    for r in set(roles) - {None}:
+        ways = math.prod(mesh.size(m) for m, q in enumerate(roles) if q == r)
+        if any(d is not None and d[r] is not None and a.shape[d[r]] % ways
+               for a, d in zip(args, dims)):
+            roles = [None if q == r else q for q in roles]
+
+    def placements(ds):
+        return tuple(Replicate() if r is None or ds[r] is None
+                     else Shard(ds[r]) for r in roles)
+
+    def grad_placements(ds):
+        # an argument the shards of a role all read: its local gradient is
+        # a partial sum over that role's mesh dims
+        return tuple(Partial() if r is not None and ds[r] is None
+                     else Replicate() if r is None else Shard(ds[r])
+                     for r in roles)
+
+    in_pl = tuple(None if d is None else placements(d) for d in dims)
+    grad_pl = tuple(None if d is None else grad_placements(d) for d in dims)
+    many = isinstance(out_dims[0], tuple)
+    out_pl = tuple(placements(d) for d in (out_dims if many else (out_dims,)))
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the last dim. On a DTensor sharded along it
+    it is spelled out as max, shift, exp-sum and log, so that the sharded
+    (vocab) dim reduces with two all-reduces of (..., 1), max then sum, as
+    Megatron's vocab-parallel cross-entropy does, where DTensor's
+    ``logsumexp`` would all-gather the logits."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor) or Shard(x.dim() - 1) not in x.placements:
+        return torch.logsumexp(x, dim=-1)
+    m = replicate_partial(x.amax(dim=-1, keepdim=True)).detach()
+    s = replicate_partial(torch.exp(x - m).sum(dim=-1, keepdim=True))
+    return (m + torch.log(s))[..., 0]
+
+
+def _gather_last(logits, labels):
+    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -149,8 +328,10 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``mask`` (...) weights each position, the mean taken over its sum (at
     least 1)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    logz = _logsumexp(logits)
+    gold = take_sharded(_gather_last, logits, -1, labels)
+    if gold is None:
+        gold = _gather_last(logits, labels)
     nll = logz - gold
     if mask is not None:
         mask = mask.float()

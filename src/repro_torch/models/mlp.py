@@ -22,14 +22,16 @@ and the capacity slots stay on the device.
 """
 from __future__ import annotations
 
+import functools
 import math
+import types
 
 import torch
 from torch import nn
 
 from repro_torch.device import no_tf32
 from repro_torch.models.common import (ModelConfig, dense, init_dense,
-                                       trunc_normal)
+                                       per_shard, trunc_normal)
 
 #: the MoE execution paths (``ModelConfig.moe_impl``)
 MOE_IMPLS = ("dense", "ragged", "ep")
@@ -254,6 +256,11 @@ def moe_ragged_path(p: MoE, x2d: torch.Tensor, top_i: torch.Tensor,
     return (ys * top_p.float()[:, :, None]).sum(1).to(dtype)
 
 
+def _ragged(x2d, top_i, top_p, wg, wu, wd, *, cfg: ModelConfig, dtype):
+    return moe_ragged_path(types.SimpleNamespace(wg=wg, wu=wu, wd=wd), x2d,
+                           top_i, top_p, cfg, dtype)
+
+
 def moe_ep_path(w, x2d: torch.Tensor, top_i: torch.Tensor,
                 top_p: torch.Tensor, cfg: ModelConfig, dtype, mesh=None,
                 model_axis: str = "model",
@@ -308,16 +315,13 @@ def moe_ep_path(w, x2d: torch.Tensor, top_i: torch.Tensor,
     return y.to(dtype)
 
 
-def _moe_ep_mesh(p: MoE, x2d: torch.Tensor, cfg: ModelConfig, dtype, mesh):
-    """``moe_ep_path`` on this rank's slice of the experts (the module
-    holds all E on every rank); the aux loss averaged over the ``model``
-    axis and the data axes, as JAX's ``shard_map`` body does."""
-    n = mesh.shape["model"]
-    e_loc = cfg.num_experts // n
-    lo = mesh.axis_index("model") * e_loc
-    local = {name: getattr(p, name)[lo:lo + e_loc]
-             for name in ("wg", "wu", "wd")}
-    _, top_i, top_p, aux = _routing(p, x2d, cfg)
+def _ep_body(router, local, x2d, cfg: ModelConfig, dtype, mesh):
+    """One rank's expert parallelism: routing over all E, ``moe_ep_path``
+    on its experts ``local`` (``wg``, ``wu``, ``wd``); the aux loss averaged
+    over the ``model`` axis and the data axes, as JAX's ``shard_map`` body
+    does."""
+    _, top_i, top_p, aux = _routing(types.SimpleNamespace(router=router),
+                                    x2d, cfg)
     y = moe_ep_path(local, x2d, top_i, top_p, cfg, dtype, mesh,
                     capacity_factor=cfg.moe_capacity_factor)
     for axis in ("model", "pod", "data"):
@@ -326,10 +330,64 @@ def _moe_ep_mesh(p: MoE, x2d: torch.Tensor, cfg: ModelConfig, dtype, mesh):
     return y, aux
 
 
+def _moe_ep_mesh(p: MoE, x2d: torch.Tensor, cfg: ModelConfig, dtype, mesh):
+    """``moe_ep_path`` on this rank's slice of the experts (the module
+    holds all E on every rank)."""
+    e_loc = cfg.num_experts // mesh.shape["model"]
+    lo = mesh.axis_index("model") * e_loc
+    local = {name: getattr(p, name)[lo:lo + e_loc]
+             for name in ("wg", "wu", "wd")}
+    return _ep_body(p.router, local, x2d, cfg, dtype, mesh)
+
+
+def _moe_ep_dtensor(p: MoE, x2d, cfg: ModelConfig, dtype):
+    """Expert parallelism on DTensor weights (the dry run), JAX's
+    ``shard_map`` of the body: ``_ep_body`` under ``local_map`` with the
+    expert stacks sharded over ``model`` on E, the router replicated, the
+    tokens sharded over the data axes and replicated over ``model``, its
+    collectives over the ``DeviceMesh``'s dims (``DeviceMeshAxes``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.compat import DeviceMeshAxes
+    mesh = DeviceMeshAxes(p.wg.device_mesh)
+    names = mesh.axis_names
+    experts = [Shard(0) if a == "model" else Replicate() for a in names]
+    tokens = [Shard(0) if a in ("pod", "data") else Replicate()
+              for a in names]
+    rep = [Replicate()] * len(names)
+    # local gradients: the experts' sum over the data axes' tokens, the
+    # tokens' over the model axis's experts, the router's over both
+    experts_grad = [Shard(0) if a == "model" else Partial() for a in names]
+    tokens_grad = [Shard(0) if a in ("pod", "data") else Partial()
+                   for a in names]
+    router_grad = [Partial()] * len(names)
+
+    def body(router, wg, wu, wd, x_loc):
+        return _ep_body(router, {"wg": wg, "wu": wu, "wd": wd}, x_loc, cfg,
+                        dtype, mesh)
+
+    return local_map(body, out_placements=(tokens, rep),
+                     in_placements=(rep, experts, experts, experts, tokens),
+                     in_grad_placements=(router_grad, experts_grad,
+                                         experts_grad, experts_grad,
+                                         tokens_grad),
+                     device_mesh=mesh.mesh, redistribute_inputs=True)(
+        p.router, p.wg, p.wu, p.wd, x2d)
+
+
+def _on_model_axis(w) -> bool:
+    """Whether ``w`` is a DTensor on a mesh with a ``model`` dim."""
+    from torch.distributed.tensor import DTensor
+    return (isinstance(w, DTensor)
+            and "model" in (w.device_mesh.mesh_dim_names or ()))
+
+
 def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None):
     """x: (B, S, D) -> ((B, S, D), aux). ``cfg.moe_impl`` picks the path;
-    ``ep`` runs over ``mesh``'s ``model`` axis, and without a mesh that has
-    one it is routing and the dense path (JAX's single-shard fallback).
+    ``ep`` runs over ``mesh``'s ``model`` axis, or over the ``model`` dim
+    of DTensor weights' ``DeviceMesh`` (the dry run), and without either
+    it is routing and the dense path (JAX's single-shard fallback).
     The shared experts, if any, run on every token (``mlp``)."""
     if cfg.moe_impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
@@ -338,10 +396,17 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None):
     x2d = x.reshape(b * s, d)
     if cfg.moe_impl == "ep" and mesh is not None and "model" in mesh.shape:
         y, aux = _moe_ep_mesh(p, x2d, cfg, x.dtype, mesh)
+    elif cfg.moe_impl == "ep" and _on_model_axis(p.wg):
+        y, aux = _moe_ep_dtensor(p, x2d, cfg, x.dtype)
     else:
         gates, top_i, top_p, aux = _routing(p, x2d, cfg)
         if cfg.moe_impl == "ragged":
-            y = moe_ragged_path(p, x2d, top_i, top_p, cfg, x.dtype)
+            # tokens are independent: on DTensors each data shard runs the
+            # sort and the grouped products on its own tokens, all experts
+            y = per_shard(
+                functools.partial(_ragged, cfg=cfg, dtype=x.dtype),
+                (x2d, top_i, top_p, p.wg, p.wu, p.wd),
+                ((0,), (0,), (0,), (None,), (None,), (None,)), (0,))
         else:
             y = moe_dense_path(p, x2d, gates, x.dtype)
     if p.shared is not None:

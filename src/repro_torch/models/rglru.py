@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import no_tf32
-from repro_torch.models.common import ModelConfig, dense, init_dense
+from repro_torch.models.common import (ModelConfig, dense, init_dense,
+                                       per_shard, replicate_dim)
 from repro_torch.models.ssm import causal_conv
 
 RG_LRU_C = 8.0
@@ -81,11 +82,15 @@ class RGLRU(nn.Module):
 
 def _gates(p: RGLRU, xc):
     """xc: (..., W) f32 -> (a_t, sqrt(1 - a_t^2) i_t x_t), the
-    coefficients of the recurrence; the gate products in full f32."""
+    coefficients of the recurrence; the gate products in full f32. On
+    DTensors xc's width is gathered first: the gates are column-parallel
+    products of the whole width."""
+    xc = replicate_dim(xc, -1)
     with no_tf32():
         r = torch.sigmoid(xc @ p.w_a + p.b_a)
         i = torch.sigmoid(xc @ p.w_i + p.b_i)
-    log_a = RG_LRU_C * r * F.logsigmoid(p.lam)               # log a_t <= 0
+    # log a_t <= 0; logsigmoid runs on the local shards of a DTensor lam
+    log_a = RG_LRU_C * r * per_shard(F.logsigmoid, (p.lam,), ((0,),), (0,))
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, beta * i * xc

@@ -25,6 +25,7 @@ where the mask holds, exactly 0 elsewhere, and a finite gradient.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -32,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import no_tf32
-from repro_torch.models.common import ModelConfig, dense, init_dense
+from repro_torch.models.common import (ModelConfig, dense, init_dense,
+                                       per_shard)
 
 
 class SSM(nn.Module):
@@ -106,7 +108,14 @@ def _gated_out(p: SSM, y, z, cfg: ModelConfig):
 
 def causal_conv(x, conv_w, conv_b, conv_width: int):
     """Depthwise causal conv over the sequence in x's dtype, as JAX sums
-    it: (B, S, C) with (cw, C) taps and a (C,) bias."""
+    it: (B, S, C) with (cw, C) taps and a (C,) bias. Each (batch row,
+    channel) is independent: on DTensors it runs on the local shards."""
+    return per_shard(functools.partial(_causal_conv, conv_width=conv_width),
+                     (x, conv_w, conv_b), ((0, 2), (None, 1), (None, 0)),
+                     (0, 2))
+
+
+def _causal_conv(x, conv_w, conv_b, conv_width: int):
     s = x.shape[1]
     xp = F.pad(x, (0, 0, conv_width - 1, 0))
     out = xp[:, 0:s] * conv_w[0]
@@ -136,6 +145,23 @@ def _chunk(state, xk, bk, ck, segk, dtk, causal):
     return state, y_intra + y_state
 
 
+def _chunks(xh, bt, ct, dtc, a_log, causal):
+    """The log-decays within each chunk, then the chunk loop from a zero
+    state: (the last state (b, h, p, n), y (b, nc, q, h, p)). xh (b, nc, q,
+    h, p); bt, ct (b, nc, q, n); dtc (b, nc, q, h); a_log (h,)."""
+    seg = torch.cumsum(dtc * -torch.exp(a_log), dim=2)       # log-decays
+    b, nc, _, h, hp = xh.shape
+    state = torch.zeros((b, h, hp, bt.shape[-1]), dtype=torch.float32,
+                        device=xh.device)
+    ys = []
+    with no_tf32():
+        for c in range(nc):
+            state, y = _chunk(state, xh[:, c], bt[:, c], ct[:, c], seg[:, c],
+                              dtc[:, c], causal)
+            ys.append(y)
+    return state, torch.stack(ys, dim=1)
+
+
 def ssd_forward(p: SSM, u, cfg: ModelConfig, return_state: bool = False):
     """Training and prefill forward. u: (B, S, D) -> (B, S, D).
 
@@ -161,16 +187,13 @@ def ssd_forward(p: SSM, u, cfg: ModelConfig, return_state: bool = False):
     bt = bmat.reshape(b, nc, q, n)
     ct = cmat.reshape(b, nc, q, n)
     dtc = dt.reshape(b, nc, q, h)
-    seg = torch.cumsum(dtc * -torch.exp(p.a_log), dim=2)     # log-decays
     causal = torch.ones((q, q), dtype=torch.bool, device=u.device).tril()
-    state = torch.zeros((b, h, hp, n), dtype=torch.float32, device=u.device)
-    ys = []
-    with no_tf32():
-        for c in range(nc):
-            state, y = _chunk(state, xh[:, c], bt[:, c], ct[:, c], seg[:, c],
-                              dtc[:, c], causal)
-            ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, s, h, hp)
+    # every (batch row, head) is independent: on DTensors the chunks run
+    # on the local shards
+    state, y = per_shard(_chunks, (xh, bt, ct, dtc, p.a_log, causal),
+                         ((0, 3), (0, None), (0, None), (0, 3), (None, 0),
+                          None), ((0, 1), (0, 3)))
+    y = y.reshape(b, s, h, hp)
     y = y + p.d_skip[None, None, :, None] * xc.reshape(b, s, h, hp)
     y = y.reshape(b, s, di).to(u.dtype)
     out = _gated_out(p, y, z, cfg)

@@ -63,7 +63,8 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rope as rope_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ModelConfig, dense, init_dense,
-                                       rms_norm, softmax_cross_entropy)
+                                       rms_norm, softmax_cross_entropy,
+                                       take_sharded)
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -312,10 +313,21 @@ def _embed(model: Transformer, tokens, cfg: ModelConfig, positions=None):
     embeddings of ``positions`` ((B, S) or a decode step's (B, 1)) where
     the config has them. A position past the table faults on the card
     (JAX clamps it): the launchers refuse such a run first."""
-    x = model.embed[tokens.long()].to(cfg.dtype)
+    x = lookup(model.embed, tokens).to(cfg.dtype)
     if cfg.learned_positions and positions is not None:
-        x = x + model.pos_embed[positions.long()].to(cfg.dtype)
+        x = x + lookup(model.pos_embed, positions).to(cfg.dtype)
     return x
+
+
+def lookup(table, ids):
+    """The rows ``table[ids]``; on a vocab-sharded DTensor table, each rank
+    looks up the rows it holds (``take_sharded``)."""
+    rows = take_sharded(_rows, table, 0, ids)
+    return _rows(table, ids) if rows is None else rows
+
+
+def _rows(table, ids):
+    return table[ids.long()]
 
 
 def _logits(model: Transformer, x, cfg: ModelConfig):
@@ -598,8 +610,10 @@ def decode_step(model: Transformer, tokens, pos, cache, cfg: ModelConfig,
 
 
 def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
-            cache_len: int | None = None):
-    """Run the full-sequence forward and fill the cache.
+            cache_len: int | None = None, cache: dict | None = None):
+    """Run the full-sequence forward and fill the cache: ``cache``, a
+    zeroed ``init_cache`` of ``cache_len`` (the dry run passes one of
+    DTensors), or a new one.
 
     Returns (last_logits (B, V) f32, cache). A KV cache at least as long as
     the prompt is linear (slot = position); a shorter one is a ring buffer
@@ -621,9 +635,10 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
                                    batch, cfg)
     enc_out = (_encode(model, batch["frames"], cfg) if cfg.is_encoder_decoder
                else None)
-    cache = init_cache(cfg, b, cache_len, device=tokens.device,
-                       encoder_seq=None if enc_out is None
-                       else enc_out.shape[1])
+    if cache is None:
+        cache = init_cache(cfg, b, cache_len, device=tokens.device,
+                           encoder_seq=None if enc_out is None
+                           else enc_out.shape[1])
     for name, kind, blocks, stacked in _decoder_groups(model, cfg):
         for blk, c in zip(blocks, _layer_caches(cache[name], len(blocks),
                                                 stacked)):
@@ -643,16 +658,8 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
                 att, (k, v) = attention.self_attention(
                     blk.attn, h, positions, cfg, positions3=positions3)
                 x = x + att
-                if cache_len >= s:
-                    # linear layout: slot = position
-                    c["k"][:, :s] = k
-                    c["v"][:, :s] = v
-                else:
-                    # ring buffer: position t lives at slot t % cache_len
-                    c["k"].copy_(torch.roll(k[:, -cache_len:],
-                                            s % cache_len, dims=1))
-                    c["v"].copy_(torch.roll(v[:, -cache_len:],
-                                            s % cache_len, dims=1))
+                attention.fill_cache(c["k"], k)
+                attention.fill_cache(c["v"], v)
                 if blk.has_cross:
                     hc = rms_norm(x, blk.ln_cross, cfg.norm_eps)
                     kv = attention.cross_kv(blk.cross, enc_out, cfg)

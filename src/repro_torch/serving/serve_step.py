@@ -23,8 +23,9 @@ def init_serving_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def make_prefill(cfg: ModelConfig, cache_len: int | None = None):
-    def prefill(model, batch: dict):
-        return transformer.prefill(model, batch, cfg, cache_len=cache_len)
+    def prefill(model, batch: dict, cache: dict | None = None):
+        return transformer.prefill(model, batch, cfg, cache_len=cache_len,
+                                   cache=cache)
     return prefill
 
 

@@ -45,6 +45,7 @@ import queue
 import tempfile
 import time
 import traceback
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -227,6 +228,89 @@ class ShardMesh:
                 self.all_gather(x, axis)       # every rank joins
             return torch.zeros_like(x)
         return self.all_gather(x, axis)[src]
+
+
+class SumOver(torch.autograd.Function):
+    """``SumOver.apply(x, mesh, dims)``: the sum of a local tensor over the
+    ``DeviceMesh`` dims ``dims`` (a functional all-reduce of each), whose
+    gradient is the incoming one unchanged: Megatron's reduce from the
+    model-parallel region, for code on local shards under ``local_map``
+    (the functional collectives carry no gradient, and a ``Partial``
+    output of ``local_map`` hands each rank 1/n of it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        import torch.distributed._functional_collectives as funcol
+        for m in dims:
+            x = funcol.all_reduce(x, "sum", (mesh, m))
+            x = x.wait() if hasattr(x, "wait") else x
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class DeviceMeshAxes:
+    """``ShardMesh``'s collective interface (``shape``, ``axis_index``,
+    ``psum``, ``all_gather``) over the named dims of a
+    ``DeviceMesh``, for code that runs on local shards under
+    ``local_map`` (the MoE layer's ``moe_ep_path`` in the dry run, as JAX
+    runs it under ``shard_map``). The collectives are functional
+    collectives over one mesh dim, which ``CommDebugMode`` counts;
+    ``psum`` is differentiable (``SumOver``)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.axis_names = tuple(mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names, mesh.shape))
+        self.size = math.prod(mesh.shape)
+
+    def axis_index(self, axis: str) -> int:
+        return self.mesh.get_local_rank(axis)
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def _group(self, axis: str):
+        return (self.mesh, self.axis_names.index(axis))
+
+    @staticmethod
+    def _wait(x):
+        return x.wait() if hasattr(x, "wait") else x
+
+    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum over ``axis``; its gradient passes through unchanged
+        (``SumOver``), as the sum of a replicated consumer's partials."""
+        return SumOver.apply(x, self.mesh, (self.axis_names.index(axis),))
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """(axis size, *x.shape), every rank's ``x`` along ``axis``."""
+        import torch.distributed._functional_collectives as funcol
+        out = self._wait(funcol.all_gather_tensor(x.contiguous(), 0,
+                                                  self._group(axis)))
+        return out.reshape((self.shape[axis],) + tuple(x.shape))
+
+
+class AbstractMesh(NamedTuple):
+    """Axis names and sizes with no ranks behind them, JAX's
+    ``AbstractMesh``: enough for the sharding rules (``shape``)."""
+    axis_sizes: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def abstract_mesh(axis_sizes: tuple[int, ...],
+                  axis_names: tuple[str, ...]) -> AbstractMesh:
+    """``abstract_mesh((16, 16), ("data", "model"))``, JAX's
+    ``compat.abstract_mesh``: a mesh shape and no process group."""
+    if len(axis_sizes) != len(axis_names):
+        raise ValueError(f"a mesh needs one name an axis, got sizes "
+                         f"{axis_sizes} and names {axis_names}")
+    return AbstractMesh(tuple(int(s) for s in axis_sizes), tuple(axis_names))
 
 
 def _unravel(index: int, sizes: tuple[int, ...]) -> list[int]:

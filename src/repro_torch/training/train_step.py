@@ -21,7 +21,8 @@ import torch
 from repro_torch.core import probe as probe_lib
 from repro_torch.draws import GeneratorDraws
 from repro_torch.models import transformer
-from repro_torch.models.common import ModelConfig, softmax_cross_entropy
+from repro_torch.models.common import (ModelConfig, placed_like,
+                                       softmax_cross_entropy)
 from repro_torch.training.adamw import (AdamWConfig, AdamWState, adamw_init,
                                         adamw_update)
 
@@ -81,8 +82,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, probe_cfg=None):
         params = dict(model.named_parameters())
         loss, ce, aux, hidden = lm_loss(model, batch, cfg,
                                         return_hidden=probe_cfg is not None)
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
+        grads = {name: placed_like(g, params[name]) for name, g in zip(
+            params, torch.autograd.grad(loss, list(params.values())))}
         _, opt, m = adamw_update(params, grads, state.opt, opt_cfg)
         del grads
         metrics = {"loss": loss.detach(), "ce": ce.detach(),

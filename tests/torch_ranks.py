@@ -128,6 +128,15 @@ def collectives(rank):
         "calls": m.calls}
 
 
+def host_mesh(rank):
+    """``launch.mesh.make_host_mesh(1, 2)`` over the ranks' group."""
+    from repro_torch.launch import mesh as mesh_lib
+    m = mesh_lib.make_host_mesh(1, 2)
+    return {"shape": m.shape, "coords": m.coords,
+            "data_axes": mesh_lib.data_axes(m),
+            "psum": m.psum(torch.tensor([0.5, rank + 0.5]), "model").tolist()}
+
+
 def async_mesh_fit(rank, faults):
     """``TopoMap(backend="async", placement="mesh")`` from one seed on every
     rank, twice, and a run with a fault plan: results and reports."""
@@ -445,4 +454,126 @@ def moe_ep(rank, cases, factors):
             y, aux = mlp.moe(p, x[None], cfg, mesh=mesh)
             out[arch].append({"body": body.numpy(), "moe": y[0].numpy(),
                               "aux": float(aux)})
+    return out
+
+
+def _dtensor_batch(batch, specs, mesh):
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding import rules
+    return {k: distribute_tensor(v, mesh, rules.placements(specs[k], mesh))
+            for k, v in batch.items()}
+
+
+def _full(x):
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def dtensor_routing(rank, cases):
+    """The model code's DTensor routing with real values: for each (arch,
+    moe_impl) of ``cases``, its smoke config (f32, seed 0) on a 2 x 2
+    (data, model) ``DeviceMesh`` of the gloo ranks, every parameter, batch
+    and cache leaf distributed with its spec's placements, against the
+    same model on plain tensors: the loss and every gradient of a train
+    step's loss, a prefill's last logits and cache, and three greedy
+    decode steps' logits. Returns each case's largest differences, each
+    over the largest magnitude of its reference."""
+    import copy
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.sharding import rules
+    from repro_torch.training.train_step import lm_loss
+    from repro_torch.sharding.compat import DeviceMeshAxes
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    axes = DeviceMeshAxes(mesh)
+    out = {"axes": {
+        "index": [axes.axis_index("data"), axes.axis_index("model")],
+        "psum": axes.psum(torch.tensor([float(rank)]), "model").tolist(),
+        "gather": axes.all_gather(torch.tensor([rank, 10 * rank]),
+                                  "data").tolist()}}
+    b, s, new, cache_len = 4, 16, 3, 24
+
+    def rel(a, ref):
+        a, ref = _full(a).detach().float(), ref.detach().float()
+        return float((a - ref).abs().max()) / max(float(ref.abs().max()),
+                                                  1e-30)
+
+    for arch, impl in cases:
+        cfg = configs.get_smoke(arch)
+        if impl == "ep":
+            # no assignment dropped and no aux loss (averaged over the
+            # shards, as JAX's pmean does): the dense path's numbers
+            cfg = dataclasses.replace(cfg, moe_impl=impl,
+                                      moe_capacity_factor=64.0,
+                                      router_aux_coef=0.0)
+        elif impl:
+            cfg = dataclasses.replace(cfg, moe_impl=impl)
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             dtype=torch.int32)
+        extra = transformer.stub_inputs(cfg, b, "cpu", seq=s)
+        for k, v in extra.items():
+            if v.is_floating_point():
+                extra[k] = torch.randn(v.shape, generator=gen)
+        batch = {"tokens": toks, "labels": toks, **extra}
+        model = transformer.init_params(cfg, seed=0, device="cpu")
+        model.requires_grad_(True)
+        dmodel = copy.deepcopy(model)
+        specs = rules.param_specs(model, mesh)
+        for name, p in list(dmodel.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            module = dmodel.get_submodule(owner) if owner else dmodel
+            setattr(module, leaf, torch.nn.Parameter(distribute_tensor(
+                p.detach(), mesh, rules.placements(specs[name], mesh))))
+        dbatch = _dtensor_batch(batch, rules.batch_specs(batch, mesh), mesh)
+        res = {}
+        loss = lm_loss(model, batch, cfg)[0]
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        with implicit_replication():
+            dloss = lm_loss(dmodel, dbatch, cfg)[0]
+            dparams = dict(dmodel.named_parameters())
+            dgrads = torch.autograd.grad(dloss, list(dparams.values()))
+        res["loss"] = rel(dloss, loss)
+        res["grads"] = max(rel(dg, g) for dg, g in zip(dgrads, grads))
+        model.requires_grad_(False)
+        dmodel.requires_grad_(False)
+        prompt = {"tokens": toks, **{k: v for k, v in extra.items()}}
+        dprompt = {k: v for k, v in dbatch.items() if k != "labels"}
+        with torch.no_grad(), implicit_replication():
+            last, cache = transformer.prefill(model, prompt, cfg,
+                                              cache_len=cache_len)
+            meta = transformer.init_cache(cfg, b, cache_len, device="cpu",
+                                          encoder_seq=None)
+            cspecs = rules.cache_specs(meta, mesh)
+            dcache = {st: {k: distribute_tensor(
+                v, mesh, rules.placements(cspecs[st][k], mesh))
+                for k, v in leaves.items()} for st, leaves in meta.items()}
+            dlast, dcache = transformer.prefill(dmodel, dprompt, cfg,
+                                                cache_len=cache_len,
+                                                cache=dcache)
+            res["prefill"] = rel(dlast, last)
+            res["cache"] = max(rel(dcache[st][k], v) for st, leaves in
+                               cache.items() for k, v in leaves.items())
+            tok = torch.argmax(last, -1)
+            pos = torch.full((b,), s, dtype=torch.int32)
+            steps = []
+            for _ in range(new):
+                step_batch = {"tokens": tok[:, None], "pos": pos}
+                dstep = _dtensor_batch(step_batch, rules.batch_specs(
+                    step_batch, mesh), mesh)
+                logits, cache = transformer.decode_step(
+                    model, tok[:, None], pos, cache, cfg)
+                dlogits, dcache = transformer.decode_step(
+                    dmodel, dstep["tokens"], dstep["pos"], dcache, cfg)
+                steps.append(rel(dlogits, logits))
+                tok, pos = torch.argmax(logits, -1), pos + 1
+            res["decode"] = max(steps)
+        out[f"{arch}:{impl}"] = res
     return out
