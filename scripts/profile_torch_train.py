@@ -13,47 +13,25 @@ set by ``--moe-impl``) with the AFM probe, as ``launch/train.py`` does
 steps on the synthetic corpus, printing each step's
 loss and time (CUDA events). Then, from the trained state:
 
-- the step's parts apart, each with CUDA events (median of 3): the
-  forward pass with its graph, the forward and backward passes
-  (``lm_loss`` and ``torch.autograd.grad``), the optimizer
-  (``adamw_update``) and the probe's update;
-- the host syncs of 2 steps (``set_sync_debug_mode("warn")``), each with
-  the innermost lines of Python on the stack where it was made, then 2
-  steps without the probe under ``set_sync_debug_mode("error")``;
-- 2 steps under ``torch.profiler``: wall and device busy a step, so the
-  idle share, kernel launches a step, and the kernels that take most of
-  the device's time.
+- 2 steps without the probe under ``set_sync_debug_mode("error")``;
+- 2 steps under ``torch.profiler``, read by ``gpubench/trace.py`` and
+  ``gpubench/spans.py``: wall and device busy a step (the union of device
+  intervals), so the idle share, kernel launches a step, the kernels that
+  take most of the device's time; then, a step, each of the port's spans
+  (``repro_torch.analysis.spans``) with its self device ms, its host syncs
+  and the device-idle ms under it.
 """
 import argparse
-import collections
 import dataclasses
 import subprocess
 import sys
-import time
 import traceback
-import warnings
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-
-def _events_ms(fn, reps: int = 3) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs, from CUDA events
-    around each (the card may idle inside, as it does in a step)."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
 def main() -> int:
@@ -70,14 +48,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    from gpubench import spans
     from repro_torch import configs
     from repro_torch.core import probe
     from repro_torch.data import tokens
     from repro_torch.draws import GeneratorDraws
     from repro_torch.models import transformer
-    from repro_torch.training import (AdamWConfig, adamw_update,
-                                      init_train_state, make_train_step)
-    from repro_torch.training.train_step import lm_loss
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
     device = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -120,34 +98,6 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
     batch = data[-1]
-    model = state.params
-    params = dict(model.named_parameters())
-    grads = {}
-
-    def forward():
-        return lm_loss(model, batch, cfg, return_hidden=True)
-
-    def forward_backward():
-        loss = forward()[0]
-        grads.update(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
-
-    def optimizer():
-        adamw_update(params, grads, state.opt, opt)
-
-    with torch.no_grad():
-        hidden = forward()[3]
-    vecs = probe.pool_hidden(hidden.float()).contiguous()
-    del hidden
-
-    def probe_update():
-        probe.update(state.probe, vecs, GeneratorDraws(7, device), pcfg)
-
-    parts = {"forward (with its graph)": lambda: forward()[0],
-             "forward + backward": forward_backward,
-             "optimizer": optimizer, "probe update": probe_update}
-    for name, fn in parts.items():
-        print(f"part {name}: {_events_ms(fn):.3f} ms")
 
     def two_steps():
         nonlocal state
@@ -156,26 +106,6 @@ def main() -> int:
                 0, 5000 + i, device))
 
     two_steps()
-    torch.cuda.synchronize()
-    where = collections.Counter()
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "called a synchronizing CUDA operation" in str(message):
-            stack = traceback.extract_stack()[:-1][-4:]
-            where[" <- ".join(f"{Path(f.filename).name}:{f.lineno} {f.name}"
-                              for f in reversed(stack))] += 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            two_steps()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    print(f"host syncs in 2 steps: {sum(where.values())}")
-    for stack, n in where.most_common():
-        print(f"  x{n}: {stack}")
     # the same steps without the probe, where any host sync raises
     lm_step = make_train_step(cfg, opt)
     torch.cuda.synchronize()
@@ -191,33 +121,23 @@ def main() -> int:
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        two_steps()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    attr = ("self_device_time_total" if hasattr(events[0],
-            "self_device_time_total") else "self_cuda_time_total")
-    device_us = sum(getattr(e, attr) for e in events
-                    if e.device_type == DeviceType.CUDA
-                    and not e.is_user_annotation)
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                                "cudaLaunchCooperativeKernel"))
-    print(f"profiled 2 steps: wall {wall * 1e3 / 2:.3f} ms a step, device "
-          f"busy {device_us / 1e3 / 2:.3f} ms a step, idle share "
-          f"{100 * (1 - device_us / 1e6 / wall):.1f} %, "
-          f"{launches / 2:.1f} kernel launches a step")
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                      and not e.is_user_annotation),
-                     key=lambda e: -getattr(e, attr))
-    for e in kernels[:25]:
-        print(f"  {getattr(e, attr) / 1e3 / 2:9.3f} ms a step  "
-              f"{e.count / 2:7.1f} calls  {e.key[:110]}")
+    _, summary, read = spans.profile(two_steps)
+    print(f"profiled 2 steps: wall {summary.window_s * 1e3 / 2:.3f} ms a "
+          f"step, device busy {summary.busy_s * 1e3 / 2:.3f} ms a step, "
+          f"idle share {100 * (1 - summary.busy_s / summary.window_s):.1f} "
+          f"%, {summary.launches / 2:.1f} kernel launches a step")
+    for name, seconds in summary.device_ops:
+        print(f"  {seconds * 1e3 / 2:9.3f} ms a step  "
+              f"{summary.by_name[name][1] / 2:7.1f} calls  {name[:110]}")
+    print("a step, by span (innermost at the launch call): self device ms, "
+          "host syncs, device-idle ms")
+    for name in sorted(set(read.span_s) | set(read.span_idle_s)
+                       | set(read.span_syncs),
+                       key=lambda n: -read.span_s.get(n, 0.0)):
+        print(f"  {name or '(outside every span)':24}"
+              f" {read.span_s.get(name, 0.0) * 500:9.3f}"
+              f" {read.span_syncs.get(name, 0) / 2:5.1f}"
+              f" {read.span_idle_s.get(name, 0.0) * 500:9.3f}")
     return 0
 
 

@@ -21,6 +21,11 @@ Runtime side (``analysis.runtime``): ``TraceGuard`` asserts how many new
 signatures a block may introduce; ``LockOrderRecorder`` records lock
 acquisition order across threads and flags ordering inversions.
 
+Tracing (``analysis.spans``): ``span`` and ``mark_backward`` name each
+layer's forward and backward in a ``torch.profiler`` trace
+(``repro_torch::<layer>``), and cost one flag check when no profiler
+collects.
+
 Escape hatches are inline comments of the form ``# lint: <name>-ok(reason)``
 where ``<name>`` is ``sync``, ``prng``, ``unlocked``, or ``retrace``.
 ``python -m repro_torch.launch.lint`` runs the checks against the
@@ -36,6 +41,7 @@ from repro_torch.analysis.base import (
     write_baseline,
 )
 from repro_torch.analysis.runtime import LockOrderRecorder, TraceGuard
+from repro_torch.analysis.spans import mark_backward, span
 
 __all__ = [
     "CODE_TO_HATCH",
@@ -45,5 +51,7 @@ __all__ = [
     "check_source",
     "escape_hatches",
     "load_baseline",
+    "mark_backward",
+    "span",
     "write_baseline",
 ]

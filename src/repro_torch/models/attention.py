@@ -20,6 +20,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.analysis import spans
 from repro_torch.device import no_tf32
 from repro_torch.kernels.swa import ops as swa_ops
 from repro_torch.models import rope as rope_lib
@@ -177,35 +178,37 @@ def self_attention(p: Attention, x, positions, cfg: ModelConfig, *,
     x: (B, S, D); positions: (B, S); positions3: (3, B, S) or None (the
     VLM's M-RoPE positions). Returns (out (B, S, D), (k, v) before the GQA
     repeat)."""
-    b, s, _ = x.shape
-    q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
-    k = _split_heads(dense(x, p.wk), cfg.num_kv_heads, cfg.hd)
-    v = _split_heads(dense(x, p.wv), cfg.num_kv_heads, cfg.hd)
-    q, k = _positional(q, k, positions, positions3, cfg)
-    k_pre, v_pre = k, v
-    k = _repeat_kv(k, cfg.num_heads // cfg.num_kv_heads)
-    v = _repeat_kv(v, cfg.num_heads // cfg.num_kv_heads)
-    wo = p.wo
-    n_pad = 0
-    if cfg.pad_heads_to > cfg.num_heads:
-        # exact zero-padding of the head axis: padded heads attend to zero
-        # values and write through zero wo rows
-        n_pad = cfg.pad_heads_to - cfg.num_heads
-        pads = (0, 0, 0, n_pad)                    # (hd, heads) of (B,S,H,hd)
-        q = torch.nn.functional.pad(q, pads)
-        k = torch.nn.functional.pad(k, pads)
-        v = torch.nn.functional.pad(v, pads)
-        wo = torch.nn.functional.pad(wo, (0, 0, 0, n_pad * cfg.hd))
-    if cfg.attention_impl == "chunked" and causal:
-        out = attend_chunked(q, k, v, window=cfg.window,
-                             chunk=min(cfg.attention_chunk, s),
-                             probs_bf16=cfg.attention_probs_bf16)
-    else:
-        mask = (_causal_mask(s, s, cfg.window, device=x.device) if causal
-                else torch.zeros((s, s), device=x.device))[None, None]
-        out = attend(q, k, v, mask)
-    out = out.reshape(b, s, (cfg.num_heads + n_pad) * cfg.hd)
-    return dense(out, wo), (k_pre, v_pre)
+    with spans.span("attention"):
+        b, s, _ = x.shape
+        q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
+        k = _split_heads(dense(x, p.wk), cfg.num_kv_heads, cfg.hd)
+        v = _split_heads(dense(x, p.wv), cfg.num_kv_heads, cfg.hd)
+        q, k = _positional(q, k, positions, positions3, cfg)
+        k_pre, v_pre = k, v
+        k = _repeat_kv(k, cfg.num_heads // cfg.num_kv_heads)
+        v = _repeat_kv(v, cfg.num_heads // cfg.num_kv_heads)
+        wo = p.wo
+        n_pad = 0
+        if cfg.pad_heads_to > cfg.num_heads:
+            # exact zero-padding of the head axis: padded heads attend to
+            # zero values and write through zero wo rows
+            n_pad = cfg.pad_heads_to - cfg.num_heads
+            pads = (0, 0, 0, n_pad)                # (hd, heads) of (B,S,H,hd)
+            q = torch.nn.functional.pad(q, pads)
+            k = torch.nn.functional.pad(k, pads)
+            v = torch.nn.functional.pad(v, pads)
+            wo = torch.nn.functional.pad(wo, (0, 0, 0, n_pad * cfg.hd))
+        if cfg.attention_impl == "chunked" and causal:
+            out = attend_chunked(q, k, v, window=cfg.window,
+                                 chunk=min(cfg.attention_chunk, s),
+                                 probs_bf16=cfg.attention_probs_bf16)
+        else:
+            mask = (_causal_mask(s, s, cfg.window, device=x.device) if causal
+                    else torch.zeros((s, s), device=x.device))[None, None]
+            out = attend(q, k, v, mask)
+        out = out.reshape(b, s, (cfg.num_heads + n_pad) * cfg.hd)
+        out = spans.mark_backward("attention", x, dense(out, wo))
+        return out, (k_pre, v_pre)
 
 
 def cross_kv(p: Attention, kv_src, cfg: ModelConfig):

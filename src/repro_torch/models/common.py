@@ -17,6 +17,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.analysis import spans
 from repro_torch.device import no_tf32
 
 # ---------------------------------------------------------------------------
@@ -327,16 +328,19 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token CE in f32. logits: (..., V); labels integers (...);
     ``mask`` (...) weights each position, the mean taken over its sum (at
     least 1)."""
-    logits = logits.float()
-    logz = _logsumexp(logits)
-    gold = take_sharded(_gather_last, logits, -1, labels)
-    if gold is None:
-        gold = _gather_last(logits, labels)
-    nll = logz - gold
-    if mask is not None:
-        mask = mask.float()
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+    with spans.span("cross_entropy"):
+        f32 = logits.float()
+        logz = _logsumexp(f32)
+        gold = take_sharded(_gather_last, f32, -1, labels)
+        if gold is None:
+            gold = _gather_last(f32, labels)
+        nll = logz - gold
+        if mask is not None:
+            mask = mask.float()
+            ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        else:
+            ce = torch.mean(nll)
+        return spans.mark_backward("cross_entropy", logits, ce)
 
 
 def trunc_normal(generator: torch.Generator,

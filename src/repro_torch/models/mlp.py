@@ -29,6 +29,7 @@ import types
 import torch
 from torch import nn
 
+from repro_torch.analysis import spans
 from repro_torch.device import no_tf32
 from repro_torch.models.common import (ModelConfig, dense, init_dense,
                                        per_shard, trunc_normal)
@@ -389,26 +390,27 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None):
     of DTensor weights' ``DeviceMesh`` (the dry run), and without either
     it is routing and the dense path (JAX's single-shard fallback).
     The shared experts, if any, run on every token (``mlp``)."""
-    if cfg.moe_impl not in MOE_IMPLS:
-        raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
-                         f"{cfg.moe_impl!r}")
-    b, s, d = x.shape
-    x2d = x.reshape(b * s, d)
-    if cfg.moe_impl == "ep" and mesh is not None and "model" in mesh.shape:
-        y, aux = _moe_ep_mesh(p, x2d, cfg, x.dtype, mesh)
-    elif cfg.moe_impl == "ep" and _on_model_axis(p.wg):
-        y, aux = _moe_ep_dtensor(p, x2d, cfg, x.dtype)
-    else:
-        gates, top_i, top_p, aux = _routing(p, x2d, cfg)
-        if cfg.moe_impl == "ragged":
-            # tokens are independent: on DTensors each data shard runs the
-            # sort and the grouped products on its own tokens, all experts
-            y = per_shard(
-                functools.partial(_ragged, cfg=cfg, dtype=x.dtype),
-                (x2d, top_i, top_p, p.wg, p.wu, p.wd),
-                ((0,), (0,), (0,), (None,), (None,), (None,)), (0,))
+    with spans.span("moe"):
+        if cfg.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
+                             f"{cfg.moe_impl!r}")
+        b, s, d = x.shape
+        x2d = x.reshape(b * s, d)
+        if cfg.moe_impl == "ep" and mesh is not None and "model" in mesh.shape:
+            y, aux = _moe_ep_mesh(p, x2d, cfg, x.dtype, mesh)
+        elif cfg.moe_impl == "ep" and _on_model_axis(p.wg):
+            y, aux = _moe_ep_dtensor(p, x2d, cfg, x.dtype)
         else:
-            y = moe_dense_path(p, x2d, gates, x.dtype)
-    if p.shared is not None:
-        y = y + mlp(p.shared, x2d)
-    return y.reshape(b, s, d), aux
+            gates, top_i, top_p, aux = _routing(p, x2d, cfg)
+            if cfg.moe_impl == "ragged":
+                # tokens are independent: on DTensors each data shard runs the
+                # sort and the grouped products on its own tokens, all experts
+                y = per_shard(
+                    functools.partial(_ragged, cfg=cfg, dtype=x.dtype),
+                    (x2d, top_i, top_p, p.wg, p.wu, p.wd),
+                    ((0,), (0,), (0,), (None,), (None,), (None,)), (0,))
+            else:
+                y = moe_dense_path(p, x2d, gates, x.dtype)
+        if p.shared is not None:
+            y = y + mlp(p.shared, x2d)
+        return spans.mark_backward("moe", x, y.reshape(b, s, d)), aux

@@ -56,6 +56,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis import spans
 from repro_torch.device import resolve_device
 from repro_torch.models import attention
 from repro_torch.models import mlp as mlp_lib
@@ -331,9 +332,10 @@ def _rows(table, ids):
 
 
 def _logits(model: Transformer, x, cfg: ModelConfig):
-    h = rms_norm(x, model.ln_f, cfg.norm_eps)
-    w = model.embed.T if cfg.tie_embeddings else model.unembed
-    return dense(h, w).float()
+    with spans.span("lm_head"):
+        h = rms_norm(x, model.ln_f, cfg.norm_eps)
+        w = model.embed.T if cfg.tie_embeddings else model.unembed
+        return spans.mark_backward("lm_head", x, dense(h, w).float())
 
 
 def stub_inputs(cfg: ModelConfig, batch: int, device=None,

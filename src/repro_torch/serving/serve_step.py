@@ -13,6 +13,7 @@ import time
 
 import torch
 
+from repro_torch.analysis import spans
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 
@@ -68,33 +69,34 @@ def generate(model, cfg: ModelConfig, prompt_tokens: torch.Tensor,
     from the grid's largest coordinate + 1). ``timings``, when given, receives
     ``prefill_s`` and ``decode_s`` on the host clock, each ended by a
     device synchronise (the only syncs the loop makes)."""
-    b, s = prompt_tokens.shape
-    device = prompt_tokens.device
-    batch = {"tokens": prompt_tokens, **(extra_batch or {})}
-    if timings is not None:
-        _sync(device)
-        t0 = time.perf_counter()
-    last_logits, cache = transformer.prefill(model, batch, cfg,
-                                             cache_len=cache_len)
-    tok = torch.argmax(last_logits, dim=-1)
-    if timings is not None:
-        _sync(device)
-        t1 = time.perf_counter()
-        timings["prefill_s"] = t1 - t0
-    step = make_decode_step(cfg, temperature)
-    toks, logits = [tok], [last_logits]
-    pos = torch.full((b,), s, dtype=torch.int32, device=device)
-    for _ in range(max_new - 1):
-        tok, step_logits, cache = step(
-            model, {"tokens": tok[:, None], "pos": pos}, cache, draws)
-        toks.append(tok)
+    with spans.span("generate"):
+        b, s = prompt_tokens.shape
+        device = prompt_tokens.device
+        batch = {"tokens": prompt_tokens, **(extra_batch or {})}
+        if timings is not None:
+            _sync(device)
+            t0 = time.perf_counter()
+        last_logits, cache = transformer.prefill(model, batch, cfg,
+                                                 cache_len=cache_len)
+        tok = torch.argmax(last_logits, dim=-1)
+        if timings is not None:
+            _sync(device)
+            t1 = time.perf_counter()
+            timings["prefill_s"] = t1 - t0
+        step = make_decode_step(cfg, temperature)
+        toks, logits = [tok], [last_logits]
+        pos = torch.full((b,), s, dtype=torch.int32, device=device)
+        for _ in range(max_new - 1):
+            tok, step_logits, cache = step(
+                model, {"tokens": tok[:, None], "pos": pos}, cache, draws)
+            toks.append(tok)
+            if return_logits:
+                logits.append(step_logits)
+            pos = pos + 1
+        out = torch.stack(toks, dim=1)
+        if timings is not None:
+            _sync(device)
+            timings["decode_s"] = time.perf_counter() - t1
         if return_logits:
-            logits.append(step_logits)
-        pos = pos + 1
-    out = torch.stack(toks, dim=1)
-    if timings is not None:
-        _sync(device)
-        timings["decode_s"] = time.perf_counter() - t1
-    if return_logits:
-        return out, torch.stack(logits, dim=1)
-    return out
+            return out, torch.stack(logits, dim=1)
+        return out

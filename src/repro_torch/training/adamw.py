@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis import spans
 from repro_torch.models.transformer import layer_of
 
 
@@ -93,27 +94,29 @@ def adamw_update(params: dict, grads: dict, state: AdamWState,
     """One AdamW step over ``params`` (name -> tensor) with ``grads`` of the
     same names. Returns (params, state, {"grad_norm", "lr"}), the first two
     updated in place, the metrics 0-d f32 tensors."""
-    step = state.step + 1
-    gnorm = global_norm(grads)
-    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                         max=1.0) if cfg.grad_clip > 0
-             else torch.ones((), dtype=torch.float32, device=gnorm.device))
-    lr = lr_schedule(cfg, step)
-    stepf = step.float()
-    b1c = 1.0 - torch.pow(cfg.b1, stepf)
-    b2c = 1.0 - torch.pow(cfg.b2, stepf)
-    for name, p in params.items():
-        m, v = state.mu[name], state.nu[name]
-        g = grads[name].float() * scale
-        m.mul_(cfg.b1).add_(g, alpha=1.0 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g, g, value=1.0 - cfg.b2)
-        del g
-        # in place where it can be: each pass over the moments is ~3 ms
-        # at 1.2 B parameters on an H100
-        delta = torch.div(m, b1c).div_(torch.div(v, b2c).sqrt_().add_(cfg.eps))
-        if cfg.weight_decay > 0 and decays(name, p):
-            delta.add_(p, alpha=cfg.weight_decay)
-        # one rounding to p's dtype of p - lr * delta, computed in f32
-        p.sub_(delta.mul_(lr))
-    return params, AdamWState(state.mu, state.nu, step), {
-        "grad_norm": gnorm, "lr": lr}
+    with spans.span("optimizer"):
+        step = state.step + 1
+        gnorm = global_norm(grads)
+        scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                             max=1.0) if cfg.grad_clip > 0
+                 else torch.ones((), dtype=torch.float32, device=gnorm.device))
+        lr = lr_schedule(cfg, step)
+        stepf = step.float()
+        b1c = 1.0 - torch.pow(cfg.b1, stepf)
+        b2c = 1.0 - torch.pow(cfg.b2, stepf)
+        for name, p in params.items():
+            m, v = state.mu[name], state.nu[name]
+            g = grads[name].float() * scale
+            m.mul_(cfg.b1).add_(g, alpha=1.0 - cfg.b1)
+            v.mul_(cfg.b2).addcmul_(g, g, value=1.0 - cfg.b2)
+            del g
+            # in place where it can be: each pass over the moments is ~3 ms
+            # at 1.2 B parameters on an H100
+            delta = torch.div(m, b1c).div_(
+                torch.div(v, b2c).sqrt_().add_(cfg.eps))
+            if cfg.weight_decay > 0 and decays(name, p):
+                delta.add_(p, alpha=cfg.weight_decay)
+            # one rounding to p's dtype of p - lr * delta, computed in f32
+            p.sub_(delta.mul_(lr))
+        return params, AdamWState(state.mu, state.nu, step), {
+            "grad_norm": gnorm, "lr": lr}

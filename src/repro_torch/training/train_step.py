@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis import spans
 from repro_torch.core import probe as probe_lib
 from repro_torch.draws import GeneratorDraws
 from repro_torch.models import transformer
@@ -78,22 +79,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, probe_cfg=None):
 
     def step(state: TrainState, batch: dict, draws=None
              ) -> tuple[TrainState, dict]:
-        model = state.params
-        params = dict(model.named_parameters())
-        loss, ce, aux, hidden = lm_loss(model, batch, cfg,
-                                        return_hidden=probe_cfg is not None)
-        grads = {name: placed_like(g, params[name]) for name, g in zip(
-            params, torch.autograd.grad(loss, list(params.values())))}
-        _, opt, m = adamw_update(params, grads, state.opt, opt_cfg)
-        del grads
-        metrics = {"loss": loss.detach(), "ce": ce.detach(),
-                   "moe_aux": aux.detach(), **m}
-        probe = state.probe
-        if probe is not None and probe_cfg is not None:
-            # tap: the final hidden states, mean-pooled per sequence
-            vecs = probe_lib.pool_hidden(hidden.detach().float())
-            probe, paux = probe_lib.update(probe, vecs, draws, probe_cfg)
-            metrics["probe_cascade"] = paux.cascade_size
-        return TrainState(model, opt, state.step + 1, probe), metrics
+        with spans.span("train_step"):
+            model = state.params
+            params = dict(model.named_parameters())
+            loss, ce, aux, hidden = lm_loss(
+                model, batch, cfg, return_hidden=probe_cfg is not None)
+            grads = {name: placed_like(g, params[name]) for name, g in zip(
+                params, torch.autograd.grad(loss, list(params.values())))}
+            _, opt, m = adamw_update(params, grads, state.opt, opt_cfg)
+            del grads
+            metrics = {"loss": loss.detach(), "ce": ce.detach(),
+                       "moe_aux": aux.detach(), **m}
+            probe = state.probe
+            if probe is not None and probe_cfg is not None:
+                with spans.span("probe"):
+                    # tap: the final hidden states, mean-pooled per sequence
+                    vecs = probe_lib.pool_hidden(hidden.detach().float())
+                    probe, paux = probe_lib.update(probe, vecs, draws,
+                                                   probe_cfg)
+                metrics["probe_cascade"] = paux.cascade_size
+            return TrainState(model, opt, state.step + 1, probe), metrics
 
     return step

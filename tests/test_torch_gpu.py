@@ -1481,3 +1481,76 @@ def test_moe_decode_step_on_the_card_equals_the_cpu(cuda, arch):
     assert swa_ops.launches == before + cfg.num_layers
     tol = 2e-4 * (1 + float(want.abs().max()))
     assert float((got.cpu() - want).abs().max()) <= tol
+
+
+def test_span_reading_of_a_traced_moe_train_step(cuda):
+    """A smoke MoE train step (ragged, remat, the 8x8 probe) profiled as the
+    benchmark profiles, under ``set_sync_debug_mode("warn")``: the spans'
+    self times add up to the device time, every layer's forward and
+    backward holds some, the syncs in spans are the warnings' count, and
+    no kernel launched while a ``moe.backward`` was open is left in
+    ``train_step``."""
+    import dataclasses
+    import sys
+    import warnings
+    from pathlib import Path
+
+    from repro_torch.core import probe
+    from repro_torch.data import tokens
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.training import AdamWConfig, train_step
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from gpubench import spans as span_reading
+    from gpubench import trace
+    cfg = dataclasses.replace(configs.get_smoke("granite-moe-1b-a400m"),
+                              moe_impl="ragged", remat=True)
+    pcfg = probe.ProbeConfig(side=8, dim=cfg.d_model, i_max=1000)
+    step = train_step.make_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10), pcfg)
+    state = train_step.init_train_state(cfg, pcfg, seed=0, device=cuda)
+    batches = list(tokens.batches(torch.Generator().manual_seed(1),
+                                  cfg.vocab_size, 4, 64, 2, device=cuda))
+    state, _ = step(state, batches[0], GeneratorDraws.for_step(0, 0, cuda))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(state, batches[1], GeneratorDraws.for_step(0, 1, cuda))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    warned = sum("synchronizing CUDA operation" in str(w.message)
+                 for w in caught)
+    events = prof.profiler.kineto_results.events()
+    summary = trace.summarise(events, 1.0)
+    read = span_reading.read(events)
+    device = sum(sec for sec, _ in summary.by_name.values())
+    assert sum(read.span_s.values()) == pytest.approx(device, rel=1e-9)
+    for name in ("train_step", "attention", "attention.backward", "moe",
+                 "moe.backward", "lm_head", "lm_head.backward",
+                 "cross_entropy", "cross_entropy.backward", "optimizer",
+                 "probe"):
+        assert read.span_s.get(name, 0.0) > 0, name
+    assert sum(read.span_syncs.values()) == warned >= 1
+    found = sorted((e.start_ns(), e.start_ns() + e.duration_ns(),
+                    e.name().removeprefix(span_reading.PREFIX))
+                   for e in events
+                   if e.device_type() == torch.autograd.DeviceType.CPU
+                   and e.name().startswith(span_reading.PREFIX))
+    t0 = min(e.start_ns() for e in events)
+    t1 = max(e.start_ns() + e.duration_ns() for e in events)
+    starts, ends, names = span_reading._pieces(found, t0, t1)
+    backward = [(a, b) for a, b, n in found if n == "moe.backward"]
+    launched = [e.start_ns() for e in events
+                if e.name() in trace.LAUNCHES
+                and any(a <= e.start_ns() < b for a, b in backward)]
+    assert launched
+    for t in launched:
+        k = max(i for i, s in enumerate(starts) if s <= t)
+        assert names[k] in ("moe.backward", "attention", "moe"), names[k]
