@@ -165,8 +165,17 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     the faithful config (the loss falling), 10 of ``ragged`` (each loss
     within 1 % of the faithful run's while their learning rates agree),
     5 of ``get_optimized``; one ``bmu`` and one ``drive_cascade`` a step;
-    ms a step, tokens/s, peak memory, model FLOPs on the active
-    parameters beside the bf16 peak; the kernel rows at the new shapes;
+    on the naive attention path two flash forward launches a layer a step
+    (the forward and its recompute) and one backward, none on the
+    chunked path; ms a step, tokens/s, peak memory, model FLOPs on the
+    active parameters beside the bf16 peak; the kernel rows at the new
+    shapes; (f) the flash-attention kernels (``flash_rows``) at the
+    benchmark cells' shapes, granite's training (B 32 x S 1,024, GQA
+    16/8, hd 64: forward, and forward with backward) and deepseek's
+    prefill (B 1, 16 heads, hd 128, at 1,500 and 3,968 tokens): each
+    against its plain version, then timed in turns with it and with
+    ``scaled_dot_product_attention`` (the yardstick, which the port never
+    calls) beside the bound;
 11N. the recurrent families (``recurrent_phase``), last: (a)
     mamba2-1.3b and recurrentgemma-2b at smoke width (f32) on the card
     against the CPU: forward logits, prefill and 16 greedy decode steps
@@ -819,6 +828,7 @@ def _launch_counts():
     ``bmu`` launch (counted in ``bmu`` too)."""
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.cascade import ops as cas_ops
+    from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.serving import maps
@@ -826,7 +836,9 @@ def _launch_counts():
               "cascade_wave": cas_ops.launches,
               "drive_cascade": cas_ops.drive_launches,
               "fused_step": fused_ops.launches,
-              "swa_decode": swa_ops.launches}
+              "swa_decode": swa_ops.launches,
+              "flash_fwd": flash_ops.launches_fwd,
+              "flash_bwd": flash_ops.launches_bwd}
     for key, n in sorted(maps.GLOBAL_COMPILE_CACHE.dispatches.items()):
         counts[f"bmu@{key[0]}"] = counts.get(f"bmu@{key[0]}", 0) + n
     return counts
@@ -835,11 +847,13 @@ def _launch_counts():
 def _reset_launch_counts():
     from repro_torch.kernels.bmu import ops as bmu_ops
     from repro_torch.kernels.cascade import ops as cas_ops
+    from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.fused import ops as fused_ops
     from repro_torch.kernels.swa import ops as swa_ops
     from repro_torch.serving import maps
     bmu_ops.launches = cas_ops.launches = fused_ops.launches = 0
     cas_ops.drive_launches = swa_ops.launches = 0
+    flash_ops.launches_fwd = flash_ops.launches_bwd = 0
     maps.GLOBAL_COMPILE_CACHE.dispatches.clear()
 
 
@@ -4198,6 +4212,13 @@ def moe_train(device):
             raise AssertionError(f"{what}: launched {counts} in {steps} "
                                  f"steps; bmu and drive_cascade must run "
                                  f"once a step")
+        layers = cfg.num_layers if cfg.attention_impl == "naive" else 0
+        if (counts["flash_fwd"], counts["flash_bwd"]) != (
+                2 * layers * steps, layers * steps):
+            raise AssertionError(f"{what}: launched {counts} in {steps} "
+                                 f"steps; the naive path runs the flash "
+                                 f"forward twice a layer (remat) and its "
+                                 f"backward once, the chunked path never")
         step_ms = float(np.median(times[2:]))
         print(f"{what}, bf16, B {TRAIN_B} x S {TRAIN_S}, {steps} steps, "
               f"probe {TRAIN_PROBE_SIDE}x{TRAIN_PROBE_SIDE}x{cfg.d_model}: "
@@ -4217,6 +4238,164 @@ def moe_train(device):
                       "losses": losses}
     torch.cuda.empty_cache()
     return out
+
+
+#: phase M (f): the flash-attention kernels at the benchmark cells' shapes
+#: (label, B, S, H, Hkv, hd, with the backward): granite-moe-1b-a400m's
+#: training rows (B 32 x S 1,024, GQA 16/8, hd 64) and deepseek-moe-16b's
+#: prefill (B 1, MHA 16, hd 128) at the ladder's median and longest rungs
+FLASH_CASES = [("granite train", 32, 1024, 16, 8, 64, True),
+               ("deepseek prefill median", 1, 1500, 16, 16, 128, False),
+               ("deepseek prefill longest", 1, 3968, 16, 16, 128, False)]
+#: the kernels against their plain version, in ``flash_ref.err_units`` (a
+#: bf16 ulp of the value or of its row's RMS): both sum the same f32
+#: products in other orders (dQ's f32 atomics in no fixed order) and round
+#: once, so a value may land on the other side of a bf16 rounding boundary
+#: (1 unit); a P rounded to its other bf16 neighbour moves a value by ~2^-9
+#: of one term of thousands. A dropped key tile moves a late row by ~10.
+FLASH_UNITS = 2.0
+#: lse against the plain version's, absolute: some f32 ulps of values
+#: below 16 (exp2 and log2 approximations, other sum orders)
+FLASH_LSE_TOL = 1e-5
+
+
+def flash_flops(b, s, h, hd):
+    """(forward, backward) FLOPs of one causal call of the flash kernels,
+    their products over the S (S + 1) / 2 (query, key) pairs a head: 4 hd a
+    pair forward (QK^T, PV), 10 hd backward (QK^T again, dV, dP, dK, dQ;
+    the products of dS's low part not counted)."""
+    pairs = b * h * s * (s + 1) / 2
+    return 4 * hd * pairs, 10 * hd * pairs
+
+
+def flash_check(label, q, k, v, d_out=None):
+    """The forward kernel (and with ``d_out`` the backward, fed the plain
+    forward's out and lse) against the plain version (``kernels/flash/
+    ref.py``) on the same inputs: out, dq, dk and dv within FLASH_UNITS,
+    lse within FLASH_LSE_TOL. Returns {name: (error in units or, for lse,
+    absolute; largest absolute error)}; raises past a bound."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+    out, lse = flash_ops._forward(q, k, v)
+    want, want_lse = flash_ref.flash_forward_ref(q, k, v)
+    pairs = [("out", out, want)]
+    if d_out is not None:
+        grads = flash_ops._backward(q, k, v, want, want_lse, d_out)
+        plain = flash_ref.flash_backward_ref(q, k, v, want, want_lse, d_out)
+        pairs += list(zip(("dq", "dk", "dv"), grads, plain))
+    torch.cuda.synchronize()
+    lse_err = float((lse - want_lse).abs().max())
+    errs = {"lse": (lse_err, lse_err)}
+    for name, got, ref in pairs:
+        errs[name] = (flash_ref.err_units(got, ref),
+                      float((got.float() - ref.float()).abs().max()))
+    print(f"flash {label}: against the plain version "
+          + ", ".join(f"{name} {units:.3f} units ({err:.3g})"
+                      for name, (units, err) in errs.items() if name != "lse")
+          + f", lse {lse_err:.3g}")
+    bad = {name: e for name, (e, _) in errs.items()
+           if e > (FLASH_LSE_TOL if name == "lse" else FLASH_UNITS)}
+    if bad:
+        raise AssertionError(f"flash {label}: {bad} past the bounds "
+                             f"({FLASH_UNITS} units, lse {FLASH_LSE_TOL})")
+    return errs
+
+
+def flash_rows(device, train_counts, serve_counts):
+    """Phase M (f): each case's forward (and at granite's shape the forward
+    with the backward) held to the plain version by ``flash_check``, then
+    timed queued ahead in turns with the plain version and with
+    ``scaled_dot_product_attention`` (causal, GQA; the library yardstick,
+    which the port never calls). Bound: max(bytes / 3.35 TB/s, causal
+    FLOPs / 989 TFLOP/s), the FLOPs ``flash_flops``, the bytes q, k, v and
+    out (and dO, dq, dk, dv) once each. ``train_counts`` and
+    ``serve_counts``: the launches of granite's faithful training run and
+    of deepseek's ragged serve run. Returns the kernel table's rows."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+    _, bw = peaks_for(torch.cuda.get_device_name(0))
+    peak = BF16_PEAKS["PCIe" if "PCIe" in torch.cuda.get_device_name(0)
+                      else "SXM"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for label, b, s, h, hkv, hd, backward in FLASH_CASES:
+        gen = torch.Generator(device=device).manual_seed(SEED + s)
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   .to(torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, hkv, hd),
+                                 (b, s, hkv, hd)))
+        d_out = torch.randn((b, s, h, hd), generator=gen,
+                            device=device).to(torch.bfloat16)
+        shape = f"B={b}, S={s}, H={h}, Hkv={hkv}, hd={hd}"
+        rows_a_block = flash_ops.plan(b, h, s, hd, sm_count(device))
+        print(f"flash {label} ({shape}): {rows_a_block} query rows a "
+              f"forward block")
+        errs = flash_check(label, q, k, v, d_out if backward else None)
+        worst = max(err for name, (_, err) in errs.items() if name != "lse")
+        units = max(u for name, (u, _) in errs.items() if name != "lse")
+        torch.cuda.empty_cache()
+        fwd_flops, bwd_flops = flash_flops(b, s, h, hd)
+        qkv_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * hkv * hd)
+        directions = [("forward", fwd_flops, qkv_bytes + 4 * b * h * s)]
+        if backward:
+            directions.append(("forward and backward", fwd_flops + bwd_flops,
+                               2 * qkv_bytes + 2 * (b * s * h * hd)
+                               + 8 * b * h * s))
+        for what, flops, nbytes in directions:
+            if what == "forward":
+                fns = {
+                    "plain": lambda: flash_ref.flash_forward_ref(q, k, v),
+                    "kernel": lambda: flash_ops._forward(q, k, v),
+                    "library": lambda: sdpa(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=True,
+                        enable_gqa=True)}
+            else:
+                def plain_both():
+                    o, l = flash_ref.flash_forward_ref(q, k, v)
+                    return flash_ref.flash_backward_ref(q, k, v, o, l, d_out)
+
+                def kernel_both():
+                    o, l = flash_ops._forward(q, k, v)
+                    return flash_ops._backward(q, k, v, o, l, d_out)
+
+                leaves = [x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v)]
+                do_t = d_out.transpose(1, 2)
+
+                def library_both():
+                    o = sdpa(*leaves, is_causal=True, enable_gqa=True)
+                    return torch.autograd.grad(o, leaves, do_t)
+
+                fns = {"plain": plain_both, "kernel": kernel_both,
+                       "library": library_both}
+            t = time_both(fns, 3 if s > 2048 or backward else 10,
+                          f"flash {what} {label}")
+            bound = max(nbytes / bw, flops / peak) * 1e3
+            print(f"flash {what} {label} ({shape}): kernel "
+                  f"{t['kernel']:.5f} ms ({flops / t['kernel'] / 1e9:.1f} "
+                  f"TFLOP/s, {100 * bound / t['kernel']:.1f} % of the "
+                  f"bound), plain {t['plain']:.5f} ms, sdpa "
+                  f"{t['library']:.5f} ms, bound {bound:.5f} ms "
+                  f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
+            launches = (serve_counts["flash_fwd"] if not backward
+                        else train_counts["flash_fwd"] if what == "forward"
+                        else train_counts["flash_bwd"])
+            rows.append({
+                "name": f"flash {what} ({label}: {shape})",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/flash/flash.cu",
+                "replaces": None, "launches": launches,
+                "max_abs_err": worst, "max_err_units": units,
+                "ms": t["kernel"],
+                "plain_ms": t["plain"], "bound_ms": bound,
+                "bound_by": ("bytes" if nbytes / bw > flops / peak
+                             else "operations"),
+                "library_ms": t["library"]})
+        del q, k, v, d_out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def moe_phase(device):
@@ -4240,6 +4419,8 @@ def moe_phase(device):
     for arch in MOE_ARCHS[1:]:
         serve_runs[arch], row = moe_serve(device, arch)
         rows.append(row)
+    rows += flash_rows(device, trained["faithful"]["counts"],
+                       serve_runs[MOE_ARCHS[1]]["ragged"]["launches"])
     for arch, runs in serve_runs.items():
         for impl, run in runs.items():
             print(f"{arch} ({impl}): prefill {run['prefill_ms']:.3f} ms, "
@@ -5121,15 +5302,19 @@ def dryrun_phase(device):
     line printed. (b) llama3.2-1b without the probe at phase L's B 4 x S
     1,024 train shape: the dry run's 1 x 1 tallies (in a subprocess, its
     fake group apart from this process) against one real step on the card:
-    FLOPs (FlopCounterMode) within DRYRUN_FLOPS_TOL, argument bytes (params,
-    moments, the two steps, the batch) exactly, the real peak above the
-    arguments within DRYRUN_PEAK_BAND of the predicted temp bytes. (c) its
+    FLOPs within DRYRUN_FLOPS_TOL of the prediction with the modelled gap
+    (``flash_gap``: the dry run traces the DTensor program, whose attention
+    is the naive path; the card's step runs the flash kernels), argument
+    bytes (params, moments, the two steps, the batch) exactly, the real
+    peak above the arguments within DRYRUN_PEAK_BAND of the predicted temp
+    bytes. (c) its
     B 4 x 192 decode: argument bytes (params, cache, batch) exactly."""
     import tempfile
 
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch import configs
+    from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.models import transformer
     from repro_torch.training import AdamWConfig, train_step
     t_phase = time.perf_counter()
@@ -5197,15 +5382,24 @@ def dryrun_phase(device):
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     before = torch.cuda.memory_allocated(device)
+    calls = (flash_ops.launches_fwd, flash_ops.launches_bwd)
     with FlopCounterMode(display=False) as fc:
         _, metrics = step(state, batch)
     loss = float(metrics["loss"])
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device) - before
     t = tallies["train"]
-    flops, pred = fc.get_total_flops(), t["flops_per_device"]
+    naive, flash = flash_gap(cfg, TRAIN_B, TRAIN_S,
+                             flash_ops.launches_fwd - calls[0],
+                             flash_ops.launches_bwd - calls[1])
+    flops = fc.get_total_flops() + flash
+    pred = t["flops_per_device"] - naive + flash
     print(f"dry run 1x1 {TRAIN_ARCH} B {TRAIN_B} x S {TRAIN_S} train step: "
-          f"FLOPs {pred:.6e} predicted, {flops:.6e} on the card; arguments "
+          f"FLOPs {t['flops_per_device']:.6e} predicted for the DTensor "
+          f"program, less its naive attention {naive:.6e}, plus the flash "
+          f"kernels' {flash:.6e} ({flash_ops.launches_fwd - calls[0]} "
+          f"forward, {flash_ops.launches_bwd - calls[1]} backward calls): "
+          f"{pred:.6e}; {flops:.6e} on the card; arguments "
           f"{t['memory']['argument_size_in_bytes']} predicted, {args} on the "
           f"card; temp {t['memory']['temp_size_in_bytes'] / 1e9:.3f} GB "
           f"predicted, peak above the arguments {peak / 1e9:.3f} GB on the "
@@ -5248,6 +5442,20 @@ def dryrun_phase(device):
     del model, cache
     gc_collect()
     print(f"dry run phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def flash_gap(cfg, b, s, fwd_calls, bwd_calls):
+    """The attention FLOPs a train step's flash calls stand for: (naive,
+    flash). The dry run traces the DTensor program, whose attention is the
+    naive path (the flash route refuses DTensors): FlopCounterMode counts
+    its (B, H, S, S) products, 4 B H S^2 hd a forward (QK^T, PV) and 8 a
+    backward. On one card the plain tensors take the flash kernels, whose
+    ctypes launches FlopCounterMode cannot see; their causal products
+    (``flash_flops``) come from the calls the launch counters saw."""
+    full = b * cfg.num_heads * s * s * cfg.hd
+    fwd, bwd = flash_flops(b, s, cfg.num_heads, cfg.hd)
+    return ((4 * fwd_calls + 8 * bwd_calls) * full,
+            fwd_calls * fwd + bwd_calls * bwd)
 
 
 def gc_collect():

@@ -52,6 +52,12 @@ SIGNATURES = {
     # recv_out, gmu_out, q2_out, scratch, plan (int32[8]), stream
     "repro_fused_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # q, k, v, b, s, h, hkv, hd, rows (query rows a block), out, lse, stream
+    "repro_flash_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # q, k, v, out, d_out, lse, b, s, h, hkv, hd, delta, dq_acc (f32
+    # scratch), dq, dk, dv, stream
+    "repro_flash_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _P, _P],
     # q, k, v, pos, b, hkv, w, rep, hd, bf16, splits, slots, part_ml,
     # part_acc (f32 scratch), tickets (int32, zero; all three NULL with one
     # split), out, stream

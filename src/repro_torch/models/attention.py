@@ -3,7 +3,8 @@ full sequence (prefill, and training, which differentiates it), the
 encoder's bidirectional self-attention and the decoder's cross-attention
 (the audio family), and single-token decode over a KV cache or over the
 cross-attention's cache of the encoder's K/V, both on the ``kernels.swa``
-kernel.
+kernel. On the card, causal self-attention in bf16 at hd 64 or 128 takes
+the ``kernels.flash`` kernels (``flash_route``).
 
 A copy of ``repro.models.attention``. Projections are stored flattened,
 (d_model, heads * head_dim); activations are reshaped to (B, S, H, hd).
@@ -22,6 +23,7 @@ from torch import nn
 
 from repro_torch.analysis import spans
 from repro_torch.device import no_tf32
+from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.swa import ops as swa_ops
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import (ModelConfig, dense, init_dense,
@@ -82,13 +84,42 @@ def _causal_mask(s_q: int, s_k: int, window: int, device=None):
 #: the (batch, head) dims of attention's (B, S, H, hd) operands
 _BH = (0, 2)
 
+#: calls of ``attend`` on plain CUDA tensors (calls that did not take the
+#: flash kernel: cross-attention, the audio encoder, windows, ...)
+plain_cuda_calls = 0
+
 
 def attend(q, k, v, mask):
     """q: (B,Sq,H,hd), k/v: (B,Sk,H,hd); mask (1, 1, Sq, Sk). Logits and
     softmax in f32; the probabilities are cast to q's dtype before the PV
     product, as in the JAX package. Each (batch row, head) is independent:
     on DTensors it runs on the local shards (``per_shard``)."""
+    global plain_cuda_calls
+    from torch.distributed.tensor import DTensor
+    if q.device.type == "cuda" and not isinstance(q, DTensor):
+        plain_cuda_calls += 1
     return per_shard(_attend, (q, k, v, mask), (_BH, _BH, _BH, None), _BH)
+
+
+def flash_route(device_type: str, dtype: torch.dtype, causal: bool,
+                window: int, hd: int, impl: str, dtensor: bool,
+                padded: bool) -> bool:
+    """Whether a self-attention call takes the flash kernel
+    (``kernels.flash``): plain (not DTensor) CUDA tensors in bf16, causal
+    with no window, hd 64 or 128, on the ``naive`` path (the one that would
+    call ``attend``) with no padded heads. Every other call keeps its path:
+    the CPU (held to JAX), DTensor shards, the ``chunked`` path, windows,
+    other head dims, the audio encoder's bidirectional attention."""
+    return (device_type == "cuda" and dtype == torch.bfloat16 and causal
+            and window == 0 and hd in flash_ops.HEAD_DIMS
+            and impl == "naive" and not dtensor and not padded)
+
+
+def _takes_flash(q, cfg: ModelConfig, causal: bool) -> bool:
+    from torch.distributed.tensor import DTensor
+    return flash_route(q.device.type, q.dtype, causal, cfg.window, cfg.hd,
+                       cfg.attention_impl, isinstance(q, DTensor),
+                       cfg.pad_heads_to > cfg.num_heads)
 
 
 def _attend(q, k, v, mask):
@@ -175,9 +206,10 @@ def self_attention(p: Attention, x, positions, cfg: ModelConfig, *,
     """Full-sequence self-attention (prefill and training): causal,
     sliding-window when ``cfg.window > 0``; with ``causal=False`` (the
     audio encoder) bidirectional, a zero mask and never the chunked path.
-    x: (B, S, D); positions: (B, S); positions3: (3, B, S) or None (the
-    VLM's M-RoPE positions). Returns (out (B, S, D), (k, v) before the GQA
-    repeat)."""
+    The calls ``flash_route`` admits run the flash kernel on q, k and v
+    before the GQA repeat. x: (B, S, D); positions: (B, S); positions3:
+    (3, B, S) or None (the VLM's M-RoPE positions). Returns (out (B, S, D),
+    (k, v) before the GQA repeat)."""
     with spans.span("attention"):
         b, s, _ = x.shape
         q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
@@ -185,6 +217,12 @@ def self_attention(p: Attention, x, positions, cfg: ModelConfig, *,
         v = _split_heads(dense(x, p.wv), cfg.num_kv_heads, cfg.hd)
         q, k = _positional(q, k, positions, positions3, cfg)
         k_pre, v_pre = k, v
+        if _takes_flash(q, cfg, causal):
+            out = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous())
+            out = out.reshape(b, s, cfg.q_dim)
+            out = spans.mark_backward("attention", x, dense(out, p.wo))
+            return out, (k_pre, v_pre)
         k = _repeat_kv(k, cfg.num_heads // cfg.num_kv_heads)
         v = _repeat_kv(v, cfg.num_heads // cfg.num_kv_heads)
         wo = p.wo

@@ -8,6 +8,8 @@ machine that has only PyTorch:
 
 ``chip_smoke.py`` is the full check on the card; these are the quick ones.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -21,11 +23,13 @@ from repro_torch.kernels.bmu import ops as bmu_ops
 from repro_torch.kernels.bmu import ref as bmu_ref
 from repro_torch.kernels.cascade import ops as cas_ops
 from repro_torch.kernels.cascade import ref as cas_ref
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash import ref as flash_ref
 from repro_torch.kernels.fused import ops as fused_ops
 from repro_torch.kernels.fused import ref as fused_ref
 from repro_torch.kernels.swa import ops as swa_ops
 from repro_torch.kernels.swa import ref as swa_ref
-from repro_torch.models import transformer
+from repro_torch.models import attention, transformer
 from repro_torch.serving import serve_step
 from repro_torch.sharding import spawn_ranks
 import torch_ranks  # the ranks' bodies, JAX-free
@@ -603,6 +607,208 @@ def test_swa_kernel_refuses_what_it_is_not_built_for(cuda):
         with pytest.raises(ValueError):
             swa_ops.swa_decode(q, kv, kv, pos)
     assert swa_ops.launches == before
+
+
+#: the cells' attention shapes (B, S, H, Hkv, hd): granite-moe-1b-a400m's
+#: training rows (4 of the cell's 32; GQA rep 2), deepseek-moe-16b's
+#: prefill at the ladder's shortest, median and longest rung (MHA), a
+#: ragged S at MQA rep 4, and two more configurations that reach the
+#: kernel: qwen2-vl-72b's GQA rep 8 at hd 128 and whisper-medium's
+#: decoder, MHA at hd 64
+FLASH_SHAPES = [(4, 1024, 16, 8, 64), (1, 576, 16, 16, 128),
+                (1, 1500, 16, 16, 128), (1, 3968, 16, 16, 128),
+                (2, 77, 4, 1, 64), (1, 512, 64, 8, 128),
+                (2, 448, 16, 16, 64)]
+
+
+def _flash_inputs(cuda, b, s, h, hkv, hd, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+            for shape in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd))]
+
+
+def _naive_attention(q, k, v):
+    """``self_attention``'s path before the kernel: the GQA repeat, the
+    causal mask, ``_attend``."""
+    rep = q.shape[2] // k.shape[2]
+    s = q.shape[1]
+    mask = attention._causal_mask(s, s, 0, device=q.device)[None, None]
+    return attention._attend(q, attention._repeat_kv(k, rep),
+                             attention._repeat_kv(v, rep), mask)
+
+
+def _within(got, want, units, slack=0.0):
+    err = flash_ref.err_units(got, want, slack)
+    assert err <= units, (err, units)
+
+
+#: the kernels against their plain version, in ``flash_ref.err_units`` (a
+#: bf16 ulp of the value or of its row's RMS): both sum the same f32
+#: products in other orders (dQ's f32 atomics in no fixed order) and round
+#: once, so a value may land on the other side of a bf16 rounding boundary
+#: (1 unit); a P rounded to its other bf16 neighbour moves a value by ~2^-9
+#: of one term of hundreds
+PLAIN_UNITS = 2.0
+#: against ``_attend`` (autograd through it for the gradients): up to three
+#: roundings a value fall elsewhere (P rounded to bf16 after the
+#: normalisation, not before; autograd's bf16 dP; its bf16 dK and dV of
+#: each query head before the GQA sum), each within a unit of the value
+ATTEND_UNITS = 6.0
+
+
+def _dq_slack(q, k, v, out, d_out):
+    """The modelled part of dq's distance from autograd through
+    ``_attend``, a bound of each element: the kernel's D = rowsum(dO o O)
+    takes the bf16 O, off the exact rowsum by eps_i <= 2^-8 sum |dO o O|_i;
+    autograd rounds dP to bf16 (|delta| <= 2^-8 |dP|), inside its D too.
+    dq_i = sum_j P_ij (dP_ij - D_i) k_j / sqrt(hd) then moves by at most
+    (eps_i |P k|_i + 2^-8 (sum_j P_ij |dP_ij| |k_j| + sum_j P_ij |dP_ij|
+    |P k|_i)) / sqrt(hd). Where dq is small beside these (a row whose P
+    sits on one key), they dominate it."""
+    rep = q.shape[2] // k.shape[2]
+    hd, s = q.shape[3], q.shape[1]
+    kf, vf = (x.float().repeat_interleave(rep, 2) for x in (k, v))
+    x = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
+    past = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
+    p = torch.softmax(x.masked_fill(past, -math.inf), dim=-1)
+    pk = torch.einsum("bhqk,bkhd->bqhd", p, kf).abs()
+    p_dp = p * torch.einsum("bqhd,bkhd->bhqk", d_out.float(), vf).abs()
+    eps = 2.0 ** -8 * (d_out.float() * out.float()).abs().sum(-1,
+                                                              keepdim=True)
+    return (eps * pk + 2.0 ** -8 * (
+        torch.einsum("bhqk,bkhd->bqhd", p_dp, kf.abs())
+        + p_dp.sum(-1).permute(0, 2, 1)[..., None] * pk)) / math.sqrt(hd)
+
+
+#: the backward at the training shapes only: its plain versions hold f32
+#: (B, H, S, S) tensors
+FLASH_CASES = [("forward", *shape) for shape in FLASH_SHAPES] + [
+    ("backward", *shape) for shape in FLASH_SHAPES if shape[1] <= 1024]
+
+
+@pytest.mark.parametrize("direction,b,s,h,hkv,hd", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, direction, b, s, h, hkv, hd):
+    """One direction of the kernel against its plain version on the card,
+    same inputs, and against the path it replaces (``_attend``, autograd
+    through it for the backward), each value in units of a bf16 ulp of it
+    or of its row (``flash_ref.err_units``).
+    - Against the plain version: the output and the gradients within
+      PLAIN_UNITS; lse within 1e-5 (some f32 ulps of values below 16).
+    - Against ``_attend``: within ATTEND_UNITS, dq after ``_dq_slack``."""
+    q, k, v = _flash_inputs(cuda, b, s, h, hkv, hd, seed=s + hd)
+    want, want_lse = flash_ref.flash_forward_ref(q, k, v)
+    before = (flash_ops.launches_fwd, flash_ops.launches_bwd)
+    if direction == "forward":
+        out, lse = flash_ops._forward(q, k, v)
+        torch.cuda.synchronize()
+        assert (flash_ops.launches_fwd, flash_ops.launches_bwd) == (
+            before[0] + 1, before[1])
+        _within(out, want, PLAIN_UNITS)
+        assert float((lse - want_lse).abs().max()) <= 1e-5
+        _within(out, _naive_attention(q, k, v), ATTEND_UNITS)
+        return
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    d_out = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    grads = flash_ops._backward(q, k, v, want, want_lse, d_out)
+    torch.cuda.synchronize()
+    assert (flash_ops.launches_fwd, flash_ops.launches_bwd) == (
+        before[0], before[1] + 1)
+    plain = flash_ref.flash_backward_ref(q, k, v, want, want_lse, d_out)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(_naive_attention(*leaves), leaves, d_out)
+    slack = _dq_slack(q, k, v, want, d_out)
+    for g, r, a, x, sl in zip(grads, plain, auto, (q, k, v), (slack, 0, 0)):
+        assert g.shape == x.shape and g.dtype == torch.bfloat16
+        _within(g, r, PLAIN_UNITS)
+        _within(g, a, ATTEND_UNITS, sl)
+
+
+def test_flash_autograd_at_granite_s_shape(cuda):
+    """``flash_attention`` under autograd at granite's shape: its dq, dk
+    and dv against autograd through ``_attend`` within ATTEND_UNITS (dq
+    after ``_dq_slack``), one launch each way."""
+    q, k, v = _flash_inputs(cuda, 4, 1024, 16, 8, 64, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    d_out = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    before = (flash_ops.launches_fwd, flash_ops.launches_bwd)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_ops.flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, d_out)
+    assert (flash_ops.launches_fwd, flash_ops.launches_bwd) == (
+        before[0] + 1, before[1] + 1)
+    slack = _dq_slack(q, k, v, out.detach(), d_out)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(_naive_attention(*leaves), leaves, d_out)
+    for g, w, sl in zip(got, want, (slack, 0, 0)):
+        _within(g, w, ATTEND_UNITS, sl)
+
+
+def test_flash_kernel_refuses_what_it_is_not_built_for(cuda):
+    """f32 and other head dims raise on the card and launch nothing."""
+    before = (flash_ops.launches_fwd, flash_ops.launches_bwd)
+    q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 64, seed=0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_ops.flash_attention(q.float(), k.float(), v.float())
+    for hd in (32, 256):
+        x = torch.zeros((1, 64, 2, hd), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_ops.flash_attention(x, x, x)
+    assert (flash_ops.launches_fwd, flash_ops.launches_bwd) == before
+
+
+def test_granite_train_step_takes_the_flash_kernel(cuda):
+    """One train step of granite-moe-1b-a400m at full width and depth (B 2
+    x S 256, bf16, ragged, remat, the 8x8 probe): each layer launches the
+    forward twice (the forward and its recompute under the block's
+    checkpoint) and the backward once, and no call of ``attend`` runs on
+    the card."""
+    import dataclasses
+
+    from repro_torch.core import probe
+    from repro_torch.data import tokens
+    from repro_torch.draws import GeneratorDraws
+    from repro_torch.training import AdamWConfig, train_step
+    cfg = dataclasses.replace(configs.get("granite-moe-1b-a400m"),
+                              moe_impl="ragged", remat=True)
+    pcfg = probe.ProbeConfig(side=8, dim=cfg.d_model, i_max=1000)
+    step = train_step.make_train_step(
+        cfg, AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10), pcfg)
+    state = train_step.init_train_state(cfg, pcfg, seed=0, device=cuda)
+    batch = next(iter(tokens.batches(torch.Generator().manual_seed(1),
+                                     cfg.vocab_size, 2, 256, 1,
+                                     device=cuda)))
+    before = (flash_ops.launches_fwd, flash_ops.launches_bwd,
+              attention.plain_cuda_calls)
+    state, metrics = step(state, batch, GeneratorDraws.for_step(0, 0, cuda))
+    torch.cuda.synchronize()
+    assert (flash_ops.launches_fwd - before[0],
+            flash_ops.launches_bwd - before[1],
+            attention.plain_cuda_calls - before[2]) == (
+                2 * cfg.num_layers, cfg.num_layers, 0)
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
+def test_deepseek_forward_takes_the_flash_kernel(cuda):
+    """A forward of deepseek-moe-16b at full width cut to its first two
+    layers (the dense one and a MoE one; bf16) over a 576-token prompt, the
+    ladder's shortest: one forward launch a layer, no backward, no call of
+    ``attend`` on the card, finite logits."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.get("deepseek-moe-16b"), num_layers=2,
+                              moe_impl="ragged")
+    model = transformer.init_params(cfg, seed=0, device=cuda)
+    tokens_ = torch.randint(0, cfg.vocab_size, (1, 576),
+                            generator=torch.Generator().manual_seed(2)
+                            ).to(cuda)
+    before = (flash_ops.launches_fwd, flash_ops.launches_bwd,
+              attention.plain_cuda_calls)
+    with torch.no_grad():
+        logits = transformer.forward(model, {"tokens": tokens_}, cfg)
+    torch.cuda.synchronize()
+    assert (flash_ops.launches_fwd - before[0],
+            flash_ops.launches_bwd - before[1],
+            attention.plain_cuda_calls - before[2]) == (cfg.num_layers, 0, 0)
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
