@@ -175,7 +175,10 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     prefill (B 1, 16 heads, hd 128, at 1,500 and 3,968 tokens): each
     against its plain version, then timed in turns with it and with
     ``scaled_dot_product_attention`` (the yardstick, which the port never
-    calls) beside the bound;
+    calls) beside the bound; (g) DeepSeek-V2-Lite whole prefilling 17,408
+    tokens (its 192/128 forward's launches counted, one a layer, layer
+    0's call held to the plain version, the latent cache's bytes), then
+    the forward (``mla_flash_rows``) at 17,408 and 60,416 tokens as in (f);
 11N. the recurrent families (``recurrent_phase``), last: (a)
     mamba2-1.3b and recurrentgemma-2b at smoke width (f32) on the card
     against the CPU: forward logits, prefill and 16 greedy decode steps
@@ -260,6 +263,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -4398,6 +4402,154 @@ def flash_rows(device, train_counts, serve_counts):
     return rows
 
 
+#: phase M (g): latent attention's 192/128 forward at the MLA cell's
+#: shortest and longest rungs (B 1, 16 heads, YaRN's softmax scale); the
+#: plain version and SDPA are timed at the shortest alone (at 60,416 keys
+#: the plain version's tile loop takes seconds a call)
+MLA_FLASH_LENGTHS = (17408, 60416)
+MLA_FLASH_SCALE = 192 ** -0.5 * (1 + 0.0707 * math.log(40)) ** 2
+
+
+def mla_prefill_launches(device, s=MLA_FLASH_LENGTHS[0]):
+    """Phase M (g), first: DeepSeek-V2-Lite whole (27 layers at its
+    published widths, bf16 random weights, the ragged MoE) prefills one
+    ``s``-token prompt through ``transformer.prefill``. ``launches_mla`` is
+    zeroed just before and read after: one launch a layer, and no plain
+    attention on the card. The latent cache holds ``ckv`` and ``kpe``
+    alone, 576 bf16 values a token a layer. The first layer's call of
+    ``flash_forward_mla``, the wrapper the model calls, is held on the q,
+    k, v and scale the prefill gave it to ``ref.flash_forward_ref``
+    (FLASH_UNITS). Returns the launches counted."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.models import attention, transformer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get("deepseek-v2-lite"),
+                              moe_impl="ragged")
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    toks = torch.randint(0, cfg.vocab_size, (1, s),
+                         generator=torch.Generator().manual_seed(SEED + s))
+    toks = toks.to(device)
+    calls = []
+    wrapper = flash_ops.flash_forward_mla
+
+    def spy(q, k, v, scale):
+        out = wrapper(q, k, v, scale)
+        calls.append((q, k, v, scale, out) if not calls else None)
+        return out
+
+    flash_ops.flash_forward_mla = spy
+    try:
+        flash_ops.launches_mla = 0
+        plain, latent = attention.plain_cuda_calls, attention.latent_bytes
+        with torch.no_grad():
+            logits, cache = transformer.prefill(model, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        launches = flash_ops.launches_mla
+        plain = attention.plain_cuda_calls - plain
+        latent = attention.latent_bytes - latent
+    finally:
+        flash_ops.flash_forward_mla = wrapper
+    peak = torch.cuda.max_memory_allocated()
+    layers = {k: set(e) for k, e in cache.items()}
+    finite = bool(torch.isfinite(logits).all())
+    q, k, v, scale, out = calls[0]
+    want, _ = flash_ref.flash_forward_ref(q, k, v, scale=scale)
+    units = flash_ref.err_units(out, want)
+    shapes = [tuple(t.shape) for t in (q, k, v, out)]
+    print(f"deepseek-v2-lite prefill ({cfg.num_layers} layers, S={s}): "
+          f"{launches} launches of the 192/128 forward, {len(calls)} calls "
+          f"of flash_forward_mla, {plain} plain attention calls on the "
+          f"card, latent cache {latent} bytes {layers}, peak "
+          f"{peak / 1e9:.2f} GB; layer 0's call q, k, v, out {shapes} at "
+          f"scale {scale:.6f}: {units:.3f} units from the plain version")
+    want_latent = cfg.num_layers * s * (cfg.kv_lora_rank
+                                        + cfg.qk_rope_head_dim) * 2
+    if (launches != cfg.num_layers or len(calls) != cfg.num_layers
+            or plain or latent != want_latent or not finite
+            or set().union(*layers.values()) != {"ckv", "kpe"}
+            or units > FLASH_UNITS):
+        raise AssertionError(f"deepseek-v2-lite prefill: launches "
+                             f"{launches}, calls {len(calls)}, plain {plain}, "
+                             f"latent {latent} of {want_latent}, finite "
+                             f"{finite}, caches {layers}, {units} units")
+    del model, cache, logits, calls, q, k, v, out, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mla_flash_rows(device):
+    """Phase M (g): a DeepSeek-V2-Lite prefill (``mla_prefill_launches``)
+    counts the 192/128 forward's launches a request; then at each rung the
+    model's wrapper ``flash_forward_mla`` is held to its plain version in
+    ``flash_ref.err_units`` (within FLASH_UNITS), the kernel's lse too
+    (FLASH_LSE_TOL), and the wrapper timed queued ahead, in turns with the
+    plain version and SDPA (causal, the same scale) at the shortest rung.
+    Bound: its causal FLOPs (``ops.mla_flops``) at the bf16 peak; the
+    bytes (q, k, v, out) lie far below. Returns the kernel table's rows."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+    launches = mla_prefill_launches(device)
+    peak = BF16_PEAKS["PCIe" if "PCIe" in torch.cuda.get_device_name(0)
+                      else "SXM"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for s in MLA_FLASH_LENGTHS:
+        gen = torch.Generator(device=device).manual_seed(SEED + s)
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   .to(torch.bfloat16)
+                   for shape in ((1, s, 16, 192), (1, s, 16, 192),
+                                 (1, s, 16, 128)))
+        shape = f"B=1, S={s}, H=16, d_qk=192, d_v=128"
+        out = flash_ops.flash_forward_mla(q, k, v, MLA_FLASH_SCALE)
+        _, lse = flash_ops._forward_mla(q, k, v, MLA_FLASH_SCALE)
+        want, want_lse = flash_ref.flash_forward_ref(q, k, v,
+                                                     scale=MLA_FLASH_SCALE)
+        torch.cuda.synchronize()
+        units = flash_ref.err_units(out, want)
+        worst = float((out.float() - want.float()).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        print(f"mla flash ({shape}): against the plain version out "
+              f"{units:.3f} units ({worst:.3g}), lse {lse_err:.3g}")
+        if units > FLASH_UNITS or lse_err > FLASH_LSE_TOL:
+            raise AssertionError(f"mla flash ({shape}): out {units} units, "
+                                 f"lse {lse_err} past the bounds")
+        del want, want_lse, out, lse
+        torch.cuda.empty_cache()
+        fns = {"kernel": lambda: flash_ops.flash_forward_mla(
+            q, k, v, MLA_FLASH_SCALE)}
+        if s == MLA_FLASH_LENGTHS[0]:
+            fns["plain"] = lambda: flash_ref.flash_forward_ref(
+                q, k, v, scale=MLA_FLASH_SCALE)
+            fns["library"] = lambda: sdpa(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=MLA_FLASH_SCALE)
+        t = time_both(fns, 3, f"mla flash forward S={s}")
+        flops = flash_ops.mla_flops(1, s, 16, 192, 128)
+        bound = flops / peak * 1e3
+        print(f"mla flash forward ({shape}): kernel {t['kernel']:.5f} ms "
+              f"({flops / t['kernel'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * bound / t['kernel']:.1f} % of the bound), bound "
+              f"{bound:.5f} ms ({flops / 1e12:.3f} TFLOP)")
+        rows.append({
+            "name": f"flash forward (deepseek-v2-lite prefill: {shape})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash/flash.cu",
+            "replaces": None, "launches": launches,
+            "max_abs_err": worst, "max_err_units": units,
+            "ms": t["kernel"], "plain_ms": t.get("plain"),
+            "bound_ms": bound, "bound_by": "operations",
+            "library_ms": t.get("library")})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def moe_phase(device):
     """Phase M: the MoE family (``moe_card_vs_cpu``, ``moe_layer_checks``,
     the probe's kernels at D = 1,024, ``moe_serve`` of both configs,
@@ -4421,6 +4573,7 @@ def moe_phase(device):
         rows.append(row)
     rows += flash_rows(device, trained["faithful"]["counts"],
                        serve_runs[MOE_ARCHS[1]]["ragged"]["launches"])
+    rows += mla_flash_rows(device)
     for arch, runs in serve_runs.items():
         for impl, run in runs.items():
             print(f"{arch} ({impl}): prefill {run['prefill_ms']:.3f} ms, "

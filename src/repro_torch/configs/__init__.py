@@ -1,6 +1,7 @@
 """Architecture registry of the port.
 
-A copy of ``repro.configs``: every architecture is a module here exposing
+A copy of ``repro.configs`` (plus ``PORT_ONLY``, architectures the JAX
+package lacks): every architecture is a module here exposing
 ``config()`` (the published geometry, source cited in its docstring) and
 ``smoke_config()`` (a reduced variant of the same family for CPU tests).
 
@@ -40,6 +41,12 @@ ALIASES = {
     "mamba2-1.3b": "mamba2_1_3b",
 }
 
+#: architectures the port runs that the JAX package has no counterpart of,
+#: canonical id -> module name: ``get`` resolves them as it does
+#: ``ALIASES``, but they stay out of ``ARCHS`` and ``ALIASES``, which the
+#: parity tests, the sharding rules and the dry run hold to JAX's
+PORT_ONLY = {"deepseek-v2-lite": "deepseek_v2_lite"}
+
 SHAPES = {
     "train_4k":    dict(seq=4096,    batch=256, kind="train"),
     "prefill_32k": dict(seq=32768,   batch=32,  kind="prefill"),
@@ -67,8 +74,8 @@ OPTIMIZED = {
 
 
 def _module(name: str):
-    return importlib.import_module(
-        f"repro_torch.configs.{ALIASES.get(name, name)}")
+    module = ALIASES.get(name) or PORT_ONLY.get(name, name)
+    return importlib.import_module(f"repro_torch.configs.{module}")
 
 
 def get(name: str):

@@ -54,6 +54,9 @@ SIGNATURES = {
                          _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # q, k, v, b, s, h, hkv, hd, rows (query rows a block), out, lse, stream
     "repro_flash_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # q, k, v, b, s, h, hkv, hd_qk, hd_v, scale, rows, out, lse, stream
+    "repro_flash_fwd_mla": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+                            _P, _P],
     # q, k, v, out, d_out, lse, b, s, h, hkv, hd, delta, dq_acc (f32
     # scratch), dq, dk, dv, stream
     "repro_flash_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,

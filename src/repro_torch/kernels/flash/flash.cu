@@ -38,6 +38,14 @@
 // goes out as bf16 through shared memory in 16-byte stores, and the f32
 // log-sum-exp (natural log, (B, H, S)) for the backward.
 //
+// Latent attention's forward (`flash_fwd_mla_kernel`, forward only): the
+// same body (`fwd_body`) with q and k at 192 and v and the output at 128
+// (DeepSeek-V2's heads after the latent is expanded: 128 + 64 rotated
+// dims, and 128 value dims), and the softmax scale given by the caller
+// (YaRN scales it), so the K ring's rows are wider than the V ring's. Its
+// products are 2 B H (192 + 128) S (S + 1) / 2 FLOPs, tensor-core bound
+// like the rest.
+//
 // Backward (`flash_bwd_kernel`, FlashAttention-2 with dQ by atomics): a
 // block of 4 warps owns 64 keys of one (batch row, kv head), 16 a warp,
 // and walks the query tiles from the diagonal down, for each of the kv
@@ -151,27 +159,32 @@ __device__ __forceinline__ void store32(bf16* p, uint32_t x) {
 
 // ------------------------------------------------------------- forward
 
-template <int HD>
+template <int HDQ, int HDV>
 __host__ __device__ constexpr int fwd_smem_bytes(int rows) {
-  return (rows + 4 * BC) * (HD + 8) * 2;   // Q, and two K and two V tiles
+  // Q, two K tiles (rows of HDQ) and two V tiles (rows of HDV)
+  return ((rows + 2 * BC) * (HDQ + 8) + 2 * BC * (HDV + 8)) * 2;
 }
 
-// grid (B * H, query tiles), blockDim 32 * rows / 16; see the file's note
-template <int HD>
-__global__ void __launch_bounds__(256, HD > 64 ? 1 : 2)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, int s_len, int h_q, int rep,
-                 int rows) {
-  constexpr int LD = HD + 8;               // padded shared row, elements
-  constexpr int PIECES = HD / 8;           // 16-byte pieces of a row
-  constexpr int KT = HD / 16;              // k steps of Q K^T
-  constexpr int NT = HD / 8;               // 8-wide column tiles of O
+// The forward of `rows` query rows of one (batch row, head): q and k at
+// HDQ, v and out at HDV, the logits scaled by scale2 (log2 e times the
+// softmax scale); see the file's note. Both kernels below are this body.
+template <int HDQ, int HDV>
+__device__ __forceinline__ void fwd_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out,
+    float* __restrict__ lse, int s_len, int h_q, int rep, int rows,
+    const float scale2) {
+  constexpr int LD = HDQ + 8;              // padded shared row of Q and K
+  constexpr int LDV = HDV + 8;             // of V
+  constexpr int PIECES = HDQ / 8;          // 16-byte pieces of a Q or K row
+  constexpr int VPIECES = HDV / 8;         // of a V or O row
+  constexpr int KT = HDQ / 16;             // k steps of Q K^T
+  constexpr int NT = HDV / 8;              // 8-wide column tiles of O
   constexpr int ST = BC / 8;               // 8-key tiles of S
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);            // [rows][LD]
   bf16* sk = sq + rows * LD;                           // [2][BC][LD]
-  bf16* sv = sk + 2 * BC * LD;                         // [2][BC][LD]
+  bf16* sv = sk + 2 * BC * LD;                         // [2][BC][LDV]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -183,13 +196,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * rows;
   const int r0 = q0 + 16 * warp;           // this warp's first row
   const int n_kt = (min(s_len, q0 + rows) + BC - 1) / BC;
-  const float scale2 = LOG2E * rsqrtf(static_cast<float>(HD));
 
-  const size_t q_pos = static_cast<size_t>(h_q) * HD;    // a position's stride
-  const size_t kv_pos = static_cast<size_t>(h_kv) * HD;
-  const bf16* qb = q + static_cast<size_t>(b) * s_len * q_pos + h * HD;
-  const bf16* kb = k + static_cast<size_t>(b) * s_len * kv_pos + (h / rep) * HD;
-  const bf16* vb = v + static_cast<size_t>(b) * s_len * kv_pos + (h / rep) * HD;
+  const size_t q_pos = static_cast<size_t>(h_q) * HDQ;   // a position's stride
+  const size_t kv_pos = static_cast<size_t>(h_kv) * HDQ;
+  const size_t v_pos = static_cast<size_t>(h_kv) * HDV;
+  const size_t o_pos = static_cast<size_t>(h_q) * HDV;
+  const bf16* qb = q + static_cast<size_t>(b) * s_len * q_pos + h * HDQ;
+  const bf16* kb = k + static_cast<size_t>(b) * s_len * kv_pos + (h / rep) * HDQ;
+  const bf16* vb = v + static_cast<size_t>(b) * s_len * v_pos + (h / rep) * HDV;
 
   for (int e = threadIdx.x; e < rows * PIECES; e += blockDim.x) {
     const int r = e / PIECES, part = (e % PIECES) * 8;
@@ -200,14 +214,23 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // key tile kt into ring stage kt & 1, zeros past the last key
   auto prefetch = [&](int kt) {
     bf16* ks = sk + (kt & 1) * BC * LD;
-    bf16* vs = sv + (kt & 1) * BC * LD;
+    bf16* vs = sv + (kt & 1) * BC * LDV;
     for (int e = threadIdx.x; e < BC * PIECES; e += blockDim.x) {
       const int r = e / PIECES, part = (e % PIECES) * 8;
       const int j = kt * BC + r;
       const bool ok = j < s_len;
       const size_t off = ok ? j * kv_pos + part : 0;
       cp_async16(ks + r * LD + part, kb + off, ok ? 16 : 0);
-      cp_async16(vs + r * LD + part, vb + off, ok ? 16 : 0);
+      if (HDV == HDQ) cp_async16(vs + r * LD + part, vb + off, ok ? 16 : 0);
+    }
+    if (HDV != HDQ) {
+      for (int e = threadIdx.x; e < BC * VPIECES; e += blockDim.x) {
+        const int r = e / VPIECES, part = (e % VPIECES) * 8;
+        const int j = kt * BC + r;
+        const bool ok = j < s_len;
+        cp_async16(vs + r * LDV + part, vb + (ok ? j * v_pos + part : 0),
+                   ok ? 16 : 0);
+      }
     }
   };
   prefetch(0);
@@ -234,7 +257,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // the tile holds a key at or before one of this warp's rows
     if (r0 < s_len && kbase <= r0 + 15) {
       const bf16* ks = sk + (kt & 1) * BC * LD;
-      const bf16* vs = sv + (kt & 1) * BC * LD;
+      const bf16* vs = sv + (kt & 1) * BC * LDV;
       float sc[ST][4];
 #pragma unroll
       for (int j = 0; j < ST; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
@@ -303,7 +326,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int n2 = 0; n2 < NT / 2; ++n2) {
             uint32_t vf[4];
-            ldsm_t(vf, vs + 16 * t * LD + 16 * n2 + off_a(lane, LD));
+            ldsm_t(vf, vs + 16 * t * LDV + 16 * n2 + off_a(lane, LDV));
             mma(o[2 * n2], a, vf[0], vf[1]);
             mma(o[2 * n2 + 1], a, vf[2], vf[3]);
           }
@@ -329,11 +352,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             pack_bf16(o[nt][2] / d8, o[nt][3] / d8));
   }
   __syncwarp();
-  bf16* ob = out + static_cast<size_t>(b) * s_len * q_pos + h * HD;
-  for (int e = lane; e < 16 * PIECES; e += 32) {
-    const int r = e / PIECES, part = (e % PIECES) * 8;
+  bf16* ob = out + static_cast<size_t>(b) * s_len * o_pos + h * HDV;
+  for (int e = lane; e < 16 * VPIECES; e += 32) {
+    const int r = e / VPIECES, part = (e % VPIECES) * 8;
     if (r0 + r < s_len) {
-      *reinterpret_cast<uint4*>(ob + (r0 + r) * q_pos + part) =
+      *reinterpret_cast<uint4*>(ob + (r0 + r) * o_pos + part) =
           *reinterpret_cast<const uint4*>(so + r * LD + part);
     }
   }
@@ -342,6 +365,30 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (r0 + gr < s_len) lb[r0 + gr] = (m + log2f(l)) * LN2;
     if (r0 + gr + 8 < s_len) lb[r0 + gr + 8] = (m8 + log2f(l8)) * LN2;
   }
+}
+
+// grid (B * H, query tiles), blockDim 32 * rows / 16: q, k, v and out at
+// hd HD, the softmax scale 1 / sqrt(HD)
+template <int HD>
+__global__ void __launch_bounds__(256, HD > 64 ? 1 : 2)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 float* __restrict__ lse, int s_len, int h_q, int rep,
+                 int rows) {
+  fwd_body<HD, HD>(q, k, v, out, lse, s_len, h_q, rep, rows,
+                   LOG2E * rsqrtf(static_cast<float>(HD)));
+}
+
+// the same grid: q and k at HDQ, v and out at HDV (latent attention's 192
+// and 128), the logits scaled by scale2, log2 e times the given softmax
+// scale
+template <int HDQ, int HDV>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_mla_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int s_len, int h_q, int rep,
+                     int rows, float scale2) {
+  fwd_body<HDQ, HDV>(q, k, v, out, lse, s_len, h_q, rep, rows, scale2);
 }
 
 // ------------------------------------------------------------ backward
@@ -682,7 +729,7 @@ template <int HD>
 int launch_fwd(const void* q, const void* k, const void* v, int b, int s,
                int h, int rep, int rows, void* out, void* lse,
                cudaStream_t st) {
-  const int bytes = fwd_smem_bytes<HD>(rows);
+  const int bytes = fwd_smem_bytes<HD, HD>(rows);
   const cudaError_t err = opt_in(flash_fwd_kernel<HD>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_fwd_kernel<HD><<<dim3(b * h, (s + rows - 1) / rows), 2 * rows, bytes,
@@ -690,6 +737,21 @@ int launch_fwd(const void* q, const void* k, const void* v, int b, int s,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), s, h, rep, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HDQ, int HDV>
+int launch_fwd_mla(const void* q, const void* k, const void* v, int b, int s,
+                   int h, int rep, int rows, float scale2, void* out,
+                   void* lse, cudaStream_t st) {
+  const int bytes = fwd_smem_bytes<HDQ, HDV>(rows);
+  const cudaError_t err = opt_in(flash_fwd_mla_kernel<HDQ, HDV>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_mla_kernel<HDQ, HDV><<<dim3(b * h, (s + rows - 1) / rows),
+                                   2 * rows, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), s, h, rep, rows, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -725,11 +787,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool shapes_ok(int b, int s, int h, int hkv, int hd) {
+bool dims_ok(int b, int s, int h, int hkv) {
   return b >= 1 && s >= 1 && hkv >= 1 && h >= hkv && h % hkv == 0 &&
-         (hd == 64 || hd == 128) &&
          static_cast<long long>(b) * h <= 2147483647LL &&
          (s + 31) / 32 <= 65535;
+}
+
+bool shapes_ok(int b, int s, int h, int hkv, int hd) {
+  return dims_ok(b, s, h, hkv) && (hd == 64 || hd == 128);
 }
 
 }  // namespace
@@ -747,6 +812,24 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   }
   if (hd == 64) return launch_fwd<64>(q, k, v, b, s, h, h / hkv, rows, out, lse, st);
   return launch_fwd<128>(q, k, v, b, s, h, h / hkv, rows, out, lse, st);
+}
+
+// q (b, s, h, hd_qk) and k (b, s, hkv, hd_qk), v (b, s, hkv, hd_v), all
+// bf16 and contiguous; (hd_qk, hd_v) = (192, 128) alone; rows (64 or 128)
+// query rows a block; scale the softmax scale; out (b, s, h, hd_v) bf16,
+// lse (b, h, s) f32, the natural log-sum-exp of each row's scaled logits
+extern "C" int repro_flash_fwd_mla(const void* q, const void* k,
+                                   const void* v, int b, int s, int h,
+                                   int hkv, int hd_qk, int hd_v, float scale,
+                                   int rows, void* out, void* lse,
+                                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!dims_ok(b, s, h, hkv) || hd_qk != 192 || hd_v != 128 ||
+      (rows != 64 && rows != 128) || !(scale > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_fwd_mla<192, 128>(q, k, v, b, s, h, h / hkv, rows,
+                                  LOG2E * scale, out, lse, st);
 }
 
 // the forward's q, k, v, out and lse, and d_out like out (bf16,

@@ -1,7 +1,9 @@
 """Wrapper of the causal flash-attention kernels: the plain version
 (``ref.py``) for CPU tensors, the CUDA kernels (``flash.cu``) for CUDA
 tensors, with no fallback; a ``torch.autograd.Function`` binds the forward
-and the backward."""
+and the backward. Latent attention's heads (q and k at 192, v at 128, a
+given scale) take a forward of their own, with no backward
+(``flash_forward_mla``)."""
 from __future__ import annotations
 
 import torch
@@ -13,6 +15,9 @@ from repro_torch.kernels.flash import ref
 #: head dims the kernels are built for (granite-moe-1b-a400m and
 #: llama3.2-1b: 64; deepseek-moe-16b: 128)
 HEAD_DIMS = (64, 128)
+#: (q and k, v) head dims of the forward-only kernel that takes its softmax
+#: scale (``flash_forward_mla``; DeepSeek-V2-Lite's latent attention)
+MLA_DIMS = ((192, 128),)
 #: a forward block takes 128 query rows when the grid still holds this many
 #: blocks a SM, else 64
 BLOCKS_PER_SM = 2
@@ -22,6 +27,10 @@ BLOCKS_PER_SM = 2
 #: dQ buffer, the main kernel, dQ's cast); CPU calls do not count
 launches_fwd = 0
 launches_bwd = 0
+#: calls of the latent-attention forward on the card, and their causal
+#: FLOPs (``mla_flops``)
+launches_mla = 0
+flops_mla = 0
 
 
 def plan(b: int, h: int, s: int, hd: int, sms: int) -> int:
@@ -34,9 +43,9 @@ def plan(b: int, h: int, s: int, hd: int, sms: int) -> int:
     if min(b, h, s, sms) < 1:
         raise ValueError(f"flash plan needs b, h, s, sms >= 1, got "
                          f"{b}, {h}, {s}, {sms}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash attention takes head dims {HEAD_DIMS}, "
-                         f"got {hd}")
+    if hd not in HEAD_DIMS + tuple(d for d, _ in MLA_DIMS):
+        raise ValueError(f"flash attention takes head dims {HEAD_DIMS} "
+                         f"and {MLA_DIMS}, got {hd}")
     return 128 if b * h * -(-s // 128) >= BLOCKS_PER_SM * sms else 64
 
 
@@ -137,6 +146,68 @@ class FlashAttention(torch.autograd.Function):
         if ctx.card:
             return _backward(q, k, v, out, lse, d_out)
         return ref.flash_backward_ref(q, k, v, out, lse, d_out)
+
+
+def mla_flops(b: int, s: int, h: int, hd_qk: int, hd_v: int) -> int:
+    """The causal products of one call: QK^T at ``hd_qk`` and PV at
+    ``hd_v`` over the S (S + 1) / 2 (query, key) pairs of each of B x H
+    heads, 2 FLOPs a multiply-add."""
+    return 2 * b * h * (hd_qk + hd_v) * (s * (s + 1) // 2)
+
+
+def _forward_mla(q, k, v, scale: float):
+    """(out, lse) of the latent-attention forward kernel; see
+    ``flash_forward_mla``."""
+    global launches_mla, flops_mla
+    (b, s, h, hd_qk), hkv, hd_v = q.shape, k.shape[2], v.shape[3]
+    lib = _build.load()
+    out = q.new_empty((b, s, h, hd_v))
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    rows = plan(b, h, s, hd_qk, sm_count(q.device))
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_fwd_mla(q.data_ptr(), k.data_ptr(),
+                                      v.data_ptr(), b, s, h, hkv, hd_qk, hd_v,
+                                      scale, rows, out.data_ptr(),
+                                      lse.data_ptr(), _build.stream_of(q))
+    _build.check(lib, err, "latent-attention flash forward kernel launch")
+    launches_mla += 1
+    flops_mla += mla_flops(b, s, h, hd_qk, hd_v)
+    return out, lse
+
+
+def flash_forward_mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """Causal attention of q (B, S, H, 192) over k (B, S, Hkv, 192) and v
+    (B, S, Hkv, 128), the logits scaled by ``scale``: latent attention's
+    heads after its latent is expanded. Forward only: it raises where
+    autograd would need its gradient. Returns (B, S, H, 128) in q's dtype.
+
+    On CUDA the three must be bf16, contiguous and on one card: the kernel
+    (its query rows a block from ``plan``) runs with no host sync, and
+    ``launches_mla`` and ``flops_mla`` count its calls and their causal
+    FLOPs. CPU tensors of any float dtype take the plain version, the same
+    algorithm."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_forward_mla needs q (B, S, H, d_qk), k "
+                         f"(B, S, Hkv, d_qk) and v (B, S, Hkv, d_v), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    (b, s, h, hd_qk), (bk, sk, hkv, hdk) = q.shape, k.shape
+    if (bk, sk, hdk) != (b, s, hd_qk) or s < 1 or hkv < 1 or h % hkv:
+        raise ValueError(f"flash_forward_mla: shapes disagree: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if (hd_qk, v.shape[3]) not in MLA_DIMS:
+        raise ValueError(f"flash_forward_mla takes (q/k, v) head dims "
+                         f"{MLA_DIMS}, got ({hd_qk}, {v.shape[3]})")
+    if not (q.dtype == k.dtype == v.dtype) or not q.dtype.is_floating_point:
+        raise ValueError(f"flash_forward_mla takes q, k, v of one float "
+                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_forward_mla has no backward: call it on "
+                         "tensors that need no gradient")
+    if _on_card(q, k, v):
+        return _forward_mla(q, k, v, scale)[0]
+    return ref.flash_forward_ref(q, k, v, scale=scale)[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

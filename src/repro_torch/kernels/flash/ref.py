@@ -28,21 +28,23 @@ def _expand(x: torch.Tensor, rep: int) -> torch.Tensor:
 
 
 def flash_forward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      key_tile: int = KEY_TILE):
-    """The forward kernel's online softmax over key tiles of ``key_tile``:
-    logits (q . k) log2(e) / sqrt(hd) in f32, keys past a row at -inf; per
-    tile m = max(m, tile max), l and acc scaled by 2^(m_old - m), p =
-    2^(logit - m) added to l in f32 and rounded to q's dtype for the PV
-    product. Returns (out = acc / max(l, 1e-30) in q's dtype, lse (B, H, S)
-    f32 = (m + log2 l) ln 2, the natural log-sum-exp of the scaled
-    logits)."""
+                      key_tile: int = KEY_TILE, scale: float | None = None):
+    """The forward kernels' online softmax over key tiles of ``key_tile``:
+    logits (q . k) log2(e) scale in f32 (``scale`` 1 / sqrt(hd) unless
+    given; v may be narrower than q and k, as in latent attention's
+    kernel), keys past a row at -inf; per tile m = max(m, tile max), l and
+    acc scaled by 2^(m_old - m), p = 2^(logit - m) added to l in f32 and
+    rounded to q's dtype for the PV product. Returns (out = acc / max(l,
+    1e-30) in q's dtype, (B, S, H, v's hd), lse (B, H, S) f32 = (m + log2
+    l) ln 2, the natural log-sum-exp of the scaled logits)."""
     b, s, h, hd = q.shape
     rep = h // k.shape[2]
     qf, kf, vf = q.float(), _expand(k, rep), _expand(v, rep)
-    scale2 = LOG2E / math.sqrt(hd)
+    scale2 = LOG2E / math.sqrt(hd) if scale is None else LOG2E * scale
     m = torch.full((b, s, h), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, s, h), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, s, h, hd), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, s, h, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     row = torch.arange(s, device=q.device)[:, None]
     for lo in range(0, s, key_tile):
         hi = min(lo + key_tile, s)

@@ -4,7 +4,11 @@ encoder's bidirectional self-attention and the decoder's cross-attention
 (the audio family), and single-token decode over a KV cache or over the
 cross-attention's cache of the encoder's K/V, both on the ``kernels.swa``
 kernel. On the card, causal self-attention in bf16 at hd 64 or 128 takes
-the ``kernels.flash`` kernels (``flash_route``).
+the ``kernels.flash`` kernels (``flash_route``). Multi-head latent
+attention (``MLAConfig``, port-only: ``LatentAttention``) expands its
+latent to per-head K/V for a full sequence (``mla_self_attention``, the
+flash kernels' 192/128 forward on the card) and decodes over a cache of
+the latent alone in the absorbed form (``mla_decode``).
 
 A copy of ``repro.models.attention``. Projections are stored flattened,
 (d_model, heads * head_dim); activations are reshaped to (B, S, H, hd).
@@ -28,7 +32,7 @@ from repro_torch.kernels.swa import ops as swa_ops
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import (ModelConfig, dense, init_dense,
                                        per_shard, replicate_partial,
-                                       shard_block, whole_groups)
+                                       rms_norm, shard_block, whole_groups)
 
 NEG_INF = -1e30
 
@@ -58,6 +62,43 @@ class Attention(nn.Module):
         self.wo.copy_(init_dense(
             generator, cfg.q_dim, d, dt,
             scale=1.0 / math.sqrt(cfg.q_dim * 2 * cfg.num_layers)))
+
+
+class LatentAttention(nn.Module):
+    """The projections of one multi-head latent attention sublayer
+    (``MLAConfig``), (d_in, d_out) each: ``wq`` (d, H (nope + rope)),
+    ``wkva`` (d, rank + rope), ``wkvb`` (rank, H (nope + v)), ``wo`` (H v,
+    d), and the latent's RMS norm scale ``kv_norm`` (rank,), f32 like the
+    blocks' norms."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        for name, shape in _latent_shapes(cfg).items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=cfg.param_dtype, device=device),
+                requires_grad=False))
+        self.kv_norm = nn.Parameter(torch.zeros(cfg.kv_lora_rank,
+                                                device=device),
+                                    requires_grad=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator,
+                         cfg: ModelConfig) -> None:
+        for name, (d_in, d_out) in _latent_shapes(cfg).items():
+            scale = (1.0 / math.sqrt(d_in * 2 * cfg.num_layers)
+                     if name == "wo" else None)
+            getattr(self, name).copy_(init_dense(
+                generator, d_in, d_out, cfg.param_dtype, scale=scale))
+        self.kv_norm.zero_()
+
+
+def _latent_shapes(cfg) -> dict:
+    h = cfg.num_heads
+    return {"wq": (cfg.d_model, h * cfg.qk_head_dim),
+            "wkva": (cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+            "wkvb": (cfg.kv_lora_rank,
+                     h * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+            "wo": (h * cfg.v_head_dim, cfg.d_model)}
 
 
 def _split_heads(x, n_heads, hd):
@@ -103,15 +144,21 @@ def attend(q, k, v, mask):
 
 def flash_route(device_type: str, dtype: torch.dtype, causal: bool,
                 window: int, hd: int, impl: str, dtensor: bool,
-                padded: bool) -> bool:
+                padded: bool, hd_v: int | None = None,
+                grad: bool = False) -> bool:
     """Whether a self-attention call takes the flash kernel
     (``kernels.flash``): plain (not DTensor) CUDA tensors in bf16, causal
     with no window, hd 64 or 128, on the ``naive`` path (the one that would
-    call ``attend``) with no padded heads. Every other call keeps its path:
-    the CPU (held to JAX), DTensor shards, the ``chunked`` path, windows,
-    other head dims, the audio encoder's bidirectional attention."""
+    call ``attend``) with no padded heads. Latent attention's heads (q and
+    k at ``hd``, v at ``hd_v``: 192 and 128) take its forward-only kernel,
+    so only where no gradient is needed (``grad`` False). Every other call
+    keeps its path: the CPU (held to JAX), DTensor shards, the ``chunked``
+    path, windows, other head dims, the audio encoder's bidirectional
+    attention, latent attention in training."""
+    dims = (hd in flash_ops.HEAD_DIMS if hd_v in (None, hd)
+            else (hd, hd_v) in flash_ops.MLA_DIMS and not grad)
     return (device_type == "cuda" and dtype == torch.bfloat16 and causal
-            and window == 0 and hd in flash_ops.HEAD_DIMS
+            and window == 0 and dims
             and impl == "naive" and not dtensor and not padded)
 
 
@@ -122,8 +169,10 @@ def _takes_flash(q, cfg: ModelConfig, causal: bool) -> bool:
                        cfg.pad_heads_to > cfg.num_heads)
 
 
-def _attend(q, k, v, mask):
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def _attend(q, k, v, mask, scale: float | None = None):
+    """``attend`` on plain tensors; v may be narrower than q and k, and
+    ``scale`` (1 / sqrt(hd) unless given) scales the logits."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     with no_tf32():
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
         logits = logits + mask
@@ -209,8 +258,11 @@ def self_attention(p: Attention, x, positions, cfg: ModelConfig, *,
     The calls ``flash_route`` admits run the flash kernel on q, k and v
     before the GQA repeat. x: (B, S, D); positions: (B, S); positions3:
     (3, B, S) or None (the VLM's M-RoPE positions). Returns (out (B, S, D),
-    (k, v) before the GQA repeat)."""
+    (k, v) before the GQA repeat); for latent attention (an ``MLAConfig``)
+    ``mla_self_attention``'s (out, (c_kv, k_pe))."""
     with spans.span("attention"):
+        if cfg.attention_kind == "mla":
+            return mla_self_attention(p, x, positions, cfg)
         b, s, _ = x.shape
         q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
         k = _split_heads(dense(x, p.wk), cfg.num_kv_heads, cfg.hd)
@@ -439,3 +491,158 @@ def decode_cross_attention(p: Attention, x, cross_k, cross_v, pos_full,
     q = _split_heads(dense(x, p.wq), cfg.num_heads, cfg.hd)
     out = _swa(q[:, 0].contiguous(), cross_k, cross_v, pos_full)
     return dense(out.reshape(b, 1, cfg.q_dim), p.wo)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (``MLAConfig``)
+
+#: bytes written into latent caches (``ckv`` and ``kpe``): a prefill's rows
+#: and each decode step's, on any device
+latent_bytes = 0
+
+
+@functools.lru_cache(maxsize=8)
+def _mla_rotation(cfg, device) -> tuple:
+    """(YaRN's (rope / 2,) inverse frequencies on ``device``, the factor of
+    cos and sin) of an ``MLAConfig``."""
+    f = cfg.yarn_factor
+    freqs = rope_lib.yarn_freqs(cfg.qk_rope_head_dim, cfg.rope_theta, f,
+                                cfg.yarn_original_max_positions,
+                                cfg.yarn_beta_fast, cfg.yarn_beta_slow,
+                                device)
+    return freqs, (rope_lib.yarn_mscale(f, cfg.yarn_mscale)
+                   / rope_lib.yarn_mscale(f, cfg.yarn_mscale_all_dim))
+
+
+def mla_scale(cfg) -> float:
+    """The softmax scale: (nope + rope)^-1/2 times mscale(factor,
+    ``yarn_mscale_all_dim``)^2 (DeepSeek-V2-Lite: 192^-1/2 x 1.58963)."""
+    m = rope_lib.yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    return cfg.qk_head_dim ** -0.5 * m * m
+
+
+def _rope_mla(x, positions, cfg):
+    """x (B, S, H, rope) rotated at positions (B, S) by YaRN's
+    frequencies (``rope.apply_rope_pairs``)."""
+    freqs, mscale = _mla_rotation(cfg, x.device)
+    return rope_lib.apply_rope_pairs(x, positions, freqs, mscale)
+
+
+def _check_mla(cfg) -> None:
+    if cfg.window:
+        raise ValueError(f"{cfg.name}: latent attention takes no window "
+                         f"(window {cfg.window})")
+
+
+def _queries(p: LatentAttention, x, positions, cfg):
+    """(q_nope (B, S, H, nope), q_pe rotated (B, S, H, rope))."""
+    b, s, _ = x.shape
+    q = dense(x, p.wq).view(b, s, cfg.num_heads, cfg.qk_head_dim)
+    q_nope, q_pe = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], -1)
+    return q_nope, _rope_mla(q_pe, positions, cfg)
+
+
+def latent_rows(p: LatentAttention, x, positions, cfg):
+    """What the latent cache holds of x (B, S, D): (c_kv (B, S, rank),
+    RMS-normed; k_pe (B, S, rope), rotated), in x's dtype."""
+    kva = dense(x, p.wkva)
+    ckv = rms_norm(kva[..., :cfg.kv_lora_rank], p.kv_norm, cfg.norm_eps)
+    kpe = _rope_mla(kva[..., None, cfg.kv_lora_rank:], positions, cfg)
+    return ckv, kpe[:, :, 0]
+
+
+def mla_latent(p: LatentAttention, x, positions, cfg):
+    """The latent half of a layer over a full sequence, in the span
+    ``mla_latent``: ``latent_rows``, then [k_nope | v] = c_kv W_kvb and K =
+    [k_nope | k_pe] with k_pe the same in every head. Returns (k (B, S, H,
+    nope + rope), v (B, S, H, v), contiguous; c_kv; k_pe). Called through
+    the module attribute, so a harness may wrap it."""
+    with spans.span("mla_latent"):
+        b, s, _ = x.shape
+        h, nope = cfg.num_heads, cfg.qk_nope_head_dim
+        ckv, kpe = latent_rows(p, x, positions, cfg)
+        kv = dense(ckv, p.wkvb).view(b, s, h, nope + cfg.v_head_dim)
+        k_nope, v = kv.split([nope, cfg.v_head_dim], -1)
+        k = torch.cat([k_nope, kpe[:, :, None].expand(
+            b, s, h, cfg.qk_rope_head_dim)], -1)
+        return k, v.contiguous(), ckv, kpe
+
+
+def mla_self_attention(p: LatentAttention, x, positions, cfg):
+    """Full-sequence causal latent attention (prefill, and training): the
+    queries, the latent expanded to per-head K and V (``mla_latent``),
+    softmax at ``mla_scale``, then W_o. On the card, calls that need no
+    gradient take the latent-attention flash forward (``flash_route``);
+    the rest take ``_attend``'s f32 (B, H, S, S) path. x: (B, S, D);
+    positions: (B, S). Returns (out (B, S, D), (c_kv (B, S, rank), k_pe
+    (B, S, rope))), what the latent cache holds."""
+    _check_mla(cfg)
+    b, s, _ = x.shape
+    q_nope, q_pe = _queries(p, x, positions, cfg)
+    q = torch.cat([q_nope, q_pe], -1)
+    k, v, ckv, kpe = mla_latent(p, x, positions, cfg)
+    from torch.distributed.tensor import DTensor
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    scale = mla_scale(cfg)
+    if flash_route(q.device.type, q.dtype, True, cfg.window,
+                   cfg.qk_head_dim, cfg.attention_impl,
+                   isinstance(q, DTensor), False, hd_v=cfg.v_head_dim,
+                   grad=grad):
+        out = flash_ops.flash_forward_mla(q, k, v, scale)
+    else:
+        mask = _causal_mask(s, s, 0, device=x.device)[None, None]
+        out = _attend(q, k, v, mask, scale)
+    out = dense(out.reshape(b, s, cfg.num_heads * cfg.v_head_dim), p.wo)
+    return spans.mark_backward("attention", x, out), (ckv, kpe)
+
+
+def fill_latent(cache: dict, ckv, kpe) -> None:
+    """A prefill's c_kv (B, S, rank) and k_pe (B, S, rope) into a layer's
+    zeroed latent cache ``{ckv, kpe}`` (B, W, ...), in place, slot =
+    position (``fill_cache``; a cache shorter than the prompt keeps the
+    last W positions)."""
+    global latent_bytes
+    for key, rows in (("ckv", ckv), ("kpe", kpe)):
+        fill_cache(cache[key], rows)
+        n = min(rows.shape[1], cache[key].shape[1])
+        latent_bytes += (rows.shape[0] * n * rows.shape[2]
+                         * cache[key].element_size())
+
+
+def mla_decode(p: LatentAttention, x, cache_ckv, cache_kpe, pos, cfg):
+    """Single-token latent attention over a layer's latent cache, in the
+    absorbed form: no per-head K or V is formed. x: (B, 1, D); cache_ckv
+    (B, S_cache, rank) and cache_kpe (B, S_cache, rope) in x's dtype; pos:
+    (B,) int32. The new row (``latent_rows``) is written in place at slot
+    min(pos, S_cache - 1); then per head, with W_kvb = [W_UK | W_UV],
+    logits = ((q_nope W_UK^T) . c_kv_t + q_pe . k_pe_t) x ``mla_scale`` over
+    the slots t <= pos, softmax in f32, out = (P c_kv) W_UV, then W_o; the
+    products in f32. Returns (B, 1, D)."""
+    global latent_bytes
+    _check_mla(cfg)
+    b = x.shape[0]
+    h, nope, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_pe = _queries(p, x, pos[:, None], cfg)
+    ckv, kpe = latent_rows(p, x, pos[:, None], cfg)
+    s_cache = cache_ckv.shape[1]
+    slot = torch.clamp(pos, max=s_cache - 1).long()
+    write_rows(cache_ckv, slot, ckv[:, 0])
+    write_rows(cache_kpe, slot, kpe[:, 0])
+    latent_bytes += b * (cache_ckv.shape[2] + cache_kpe.shape[2]) \
+        * cache_ckv.element_size()
+    w = p.wkvb.view(cfg.kv_lora_rank, h, nope + dv).float()
+    c = cache_ckv.float()
+    with no_tf32():
+        q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0].float(),
+                             w[..., :nope])
+        logits = (torch.einsum("bhc,btc->bht", q_lat, c)
+                  + torch.einsum("bhr,btr->bht", q_pe[:, 0].float(),
+                                 cache_kpe.float())) * mla_scale(cfg)
+        valid = (torch.arange(s_cache, device=x.device)[None]
+                 <= pos[:, None].long())[:, None]
+        probs = torch.softmax(torch.where(valid, logits, NEG_INF), dim=-1)
+        out = torch.einsum("bhc,chd->bhd",
+                           torch.einsum("bht,btc->bhc", probs, c),
+                           w[..., nope:])
+    return dense(out.to(x.dtype).reshape(b, 1, h * dv), p.wo)

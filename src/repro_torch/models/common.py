@@ -117,6 +117,51 @@ class ModelConfig:
     def rnn_width(self) -> int:
         return self.lru_width or self.d_model
 
+    @property
+    def attention_kind(self) -> str:
+        """``gqa``: every attention layer's q, k and v of one head width
+        (``hd``), Hkv heads of K/V; ``mla`` (``MLAConfig``): multi-head
+        latent attention."""
+        return "gqa"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A config whose attention is multi-head latent attention (DeepSeek-V2,
+    arXiv:2405.04434 §2.1), with no query compression, and whose RoPE is
+    YaRN's (arXiv:2309.00071) on the rotated part of each head. A subclass,
+    so that every other config keeps ``ModelConfig``'s fields alone.
+
+    Per token: q = x W_q, H heads of ``qk_nope_head_dim`` + ``qk_rope_head_dim``;
+    [c_kv | k_pe] = x W_kva, c_kv of ``kv_lora_rank`` and one k_pe head of
+    ``qk_rope_head_dim`` that every query head shares; c_kv RMS-normed;
+    [k_nope | v] = c_kv W_kvb, H heads of ``qk_nope_head_dim`` +
+    ``v_head_dim``. RoPE rotates q_pe and k_pe only."""
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN: the rotation's frequencies ramped between interpolation by
+    # ``yarn_factor`` and extrapolation over the correction range of
+    # ``yarn_beta_fast`` / ``yarn_beta_slow`` rotations in the original
+    # ``yarn_original_max_positions``; cos and sin scaled by mscale(factor,
+    # ``yarn_mscale``) / mscale(factor, ``yarn_mscale_all_dim``), the
+    # softmax scale by mscale(factor, ``yarn_mscale_all_dim``)^2
+    yarn_factor: float = 1.0
+    yarn_original_max_positions: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    @property
+    def attention_kind(self) -> str:
+        return "mla"
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
 
 # ---------------------------------------------------------------------------
 # Primitive ops

@@ -1,5 +1,7 @@
 """Rotary position embeddings: standard RoPE and Qwen2-VL's M-RoPE, a copy
-of ``repro.models.rope``.
+of ``repro.models.rope``; and, for latent attention's rotated sub-head
+(port-only), YaRN's frequencies (arXiv:2309.00071) applied to pairs (2i,
+2i + 1) as DeepSeek-V2 rotates them.
 
 M-RoPE (multimodal rotary, arXiv:2409.12191): the head_dim/2 frequency slots
 are cut into (temporal, height, width) sections; slot j rotates by
@@ -9,6 +11,8 @@ duplicated table). Text tokens carry equal (t, h, w) coordinates, so M-RoPE
 over text is standard RoPE.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -53,6 +57,54 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         parts.append(positions3[axis][..., None].float() * freqs[lo:lo + n])
         lo += n
     return _rotate(x, torch.cat(parts, dim=-1))                  # (B, S, half)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor: 0.1 mscale ln(factor) + 1, or 1 where the
+    context is not stretched (factor <= 1)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _correction_dim(rotations: float, dim: int, theta: float,
+                    orig: int) -> float:
+    """The frequency dim whose wavelength fits ``rotations`` times in
+    ``orig`` positions."""
+    return dim * math.log(orig / (rotations * 2 * math.pi)) / (
+        2 * math.log(theta))
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, orig: int,
+               beta_fast: float, beta_slow: float,
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """(dim/2,) YaRN inverse frequencies, f32: below the correction range
+    (floor of ``beta_fast``'s dim, ceil of ``beta_slow``'s, clipped to [0,
+    dim - 1]) the plain frequencies, above it those divided by ``factor``,
+    and a linear ramp between."""
+    plain = rope_freqs(dim, theta, device)
+    low = max(math.floor(_correction_dim(beta_fast, dim, theta, orig)), 0)
+    high = min(math.ceil(_correction_dim(beta_slow, dim, theta, orig)),
+               dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0.0, 1.0)
+    return plain / factor * ramp + plain * (1.0 - ramp)
+
+
+def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor,
+                     freqs: torch.Tensor, mscale: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, d), positions: (B, S), freqs (d/2,): each pair (2i, 2i
+    + 1) rotated by position x freqs[i] and scaled by ``mscale``, in f32,
+    returned in the halves layout (evens then odds), as DeepSeek-V2's
+    published code permutes a head before its rotation. The layout is
+    internal: q and k take the same one, so their products are those of
+    the pairs rotated in place."""
+    halves = torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
+    angles = positions[..., None].float() * freqs
+    if mscale == 1.0:
+        return _rotate(halves, angles)
+    return (_rotate(halves.float(), angles) * mscale).to(x.dtype)
 
 
 def text_positions3(positions: torch.Tensor) -> torch.Tensor:

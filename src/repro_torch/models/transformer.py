@@ -7,7 +7,9 @@ and single-token decode over a cache.
   (``batch["vision_embeds"]``, (B, npatch, D)) over the prompt's first
   npatch token embeddings;
 - moe: L x (GQA attention + MoE FFN), after ``first_dense_layers`` leading
-  layers of a SwiGLU FFN of ``first_dense_d_ff`` (deepseek-moe);
+  layers of a SwiGLU FFN of ``first_dense_d_ff`` (deepseek-moe); with an
+  ``MLAConfig`` the attention is multi-head latent attention with YaRN
+  (DeepSeek-V2-Lite, a port-only config);
 - ssm: L x Mamba2/SSD block (``models.ssm``; no MLP sublayer);
 - hybrid: the (rglru, rglru, attn) pattern (``models.rglru`` and local
   attention), each block with an MLP, then the pattern's tail;
@@ -38,7 +40,8 @@ explicitly, so one set of weights can be served under several configs
     logits, cache = decode_step(model, tokens, pos, cache, cfg)
 
 The cache holds one entry a stack or tail, as in JAX: ``{"k", "v"}`` (L,
-B, S, Hkv, hd) for attention, ``{"conv", "h"}`` for RG-LRU and ``{"conv",
+B, S, Hkv, hd) for attention (``{"ckv", "kpe"}``, the latent, for latent
+attention: ``MLAConfig``), ``{"conv", "h"}`` for RG-LRU and ``{"conv",
 "state"}`` for SSD layers (``h`` and ``state`` in f32), with no layer
 axis on a tail; the decoder's stack adds ``{"cross_k", "cross_v"}`` (L, B,
 Se, Hkv, hd), the encoder's K/V that prefill computes once (the encoder's
@@ -125,6 +128,8 @@ class Block(nn.Module):
             return
         if kind == "rglru":
             self.rec = rglru_lib.RGLRU(cfg, device)
+        elif cfg.attention_kind == "mla":
+            self.attn = attention.LatentAttention(cfg, device)
         else:
             self.attn = attention.Attention(cfg, device)
         if cross:
@@ -504,12 +509,19 @@ def chunked_ce_loss(model: Transformer, hidden, labels, cfg: ModelConfig):
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  device) -> dict:
     """One layer's zeroed cache: attention's ``{k, v}`` (B, S, Hkv, hd) in
-    ``cfg.dtype``; RG-LRU's ``{conv, h}`` and SSD's ``{conv, state}``, the
-    conv history in ``cfg.dtype`` and the state in f32."""
+    ``cfg.dtype``, latent attention's ``{ckv, kpe}`` (B, S, rank) and (B,
+    S, rope), no per-head K or V; RG-LRU's ``{conv, h}`` and SSD's
+    ``{conv, state}``, the conv history in ``cfg.dtype`` and the state in
+    f32."""
     if kind == "rglru":
         return rglru_lib.init_rglru_cache(cfg, batch, cfg.dtype, device)
     if kind == "ssm":
         return ssm_lib.init_ssm_cache(cfg, batch, cfg.dtype, device)
+    if cfg.attention_kind == "mla":
+        return {key: torch.zeros((batch, cache_len, width), dtype=cfg.dtype,
+                                 device=device)
+                for key, width in (("ckv", cfg.kv_lora_rank),
+                                   ("kpe", cfg.qk_rope_head_dim))}
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
@@ -582,6 +594,9 @@ def _decode_block(p: Block, x, pos, cache: dict, cfg: ModelConfig,
         y, new = rglru_lib.rglru_decode_step(p.rec, h, cache, cfg)
         _write(cache, new)
         x = x + y
+    elif cfg.attention_kind == "mla":
+        x = x + attention.mla_decode(p.attn, h, cache["ckv"], cache["kpe"],
+                                     pos, cfg)
     else:
         att, _, _ = attention.decode_attention(p.attn, h, cache["k"],
                                                cache["v"], pos, cfg,
@@ -657,11 +672,14 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig,
                 _write(c, new)
                 x = x + y
             else:
-                att, (k, v) = attention.self_attention(
+                att, rows = attention.self_attention(
                     blk.attn, h, positions, cfg, positions3=positions3)
                 x = x + att
-                attention.fill_cache(c["k"], k)
-                attention.fill_cache(c["v"], v)
+                if cfg.attention_kind == "mla":
+                    attention.fill_latent(c, *rows)
+                else:
+                    attention.fill_cache(c["k"], rows[0])
+                    attention.fill_cache(c["v"], rows[1])
                 if blk.has_cross:
                     hc = rms_norm(x, blk.ln_cross, cfg.norm_eps)
                     kv = attention.cross_kv(blk.cross, enc_out, cfg)

@@ -811,6 +811,132 @@ def test_deepseek_forward_takes_the_flash_kernel(cuda):
     assert bool(torch.isfinite(logits).all())
 
 
+#: DeepSeek-V2-Lite's latent attention after the latent is expanded: B 1,
+#: 16 heads, q and k at 192, v at 128, YaRN's softmax scale, at the MLA
+#: cell's shortest and longest rungs
+MLA_SCALE = 192 ** -0.5 * (1 + 0.0707 * math.log(40)) ** 2
+MLA_LENGTHS = [17408, 60416]
+#: decode's absorbed form against prefill's expanded one, as a share of
+#: the output's RMS: prefill rounds k_nope, v and P to bf16 and the output
+#: once (2^-8 relative each), decode rounds only its output
+MLA_DECODE_TOL = 0.05
+
+
+def _mla_inputs(cuda, s, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+            for shape in ((1, s, 16, 192), (1, s, 16, 192), (1, s, 16, 128))]
+
+
+@pytest.mark.parametrize("s", MLA_LENGTHS)
+def test_mla_flash_kernel_matches_plain(cuda, s):
+    """The 192/128 forward against its plain version on the same inputs:
+    the output within PLAIN_UNITS of a bf16 ulp of each value or its row,
+    lse within 1e-5; one launch and its causal FLOPs counted."""
+    q, k, v = _mla_inputs(cuda, s, seed=s)
+    before = (flash_ops.launches_mla, flash_ops.flops_mla,
+              flash_ops.launches_fwd)
+    out, lse = flash_ops._forward_mla(q, k, v, MLA_SCALE)
+    torch.cuda.synchronize()
+    assert (flash_ops.launches_mla - before[0],
+            flash_ops.flops_mla - before[1],
+            flash_ops.launches_fwd - before[2]) == (
+                1, 2 * 16 * 320 * (s * (s + 1) // 2), 0)
+    want, want_lse = flash_ref.flash_forward_ref(q, k, v, scale=MLA_SCALE)
+    assert out.shape == (1, s, 16, 128)
+    _within(out, want, PLAIN_UNITS)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+def _masked_tile_ref(q, k, v, scale, tile):
+    """The plain forward with keys ``tile * 64 ..`` (one 64-key tile)
+    left out of every row past it, in f32."""
+    s = q.shape[1]
+    keep = torch.ones(s, dtype=torch.bool, device=q.device)
+    keep[tile * 64:(tile + 1) * 64] = False
+    out = torch.empty(q.shape[:3] + (v.shape[-1],), device=q.device)
+    kf, vf = k.float(), v.float()
+    for lo in range(0, s, 1024):
+        hi = min(lo + 1024, s)
+        x = torch.einsum("bqhd,bkhd->bhqk", q[:, lo:hi].float(),
+                         kf[:, :hi]) * scale
+        ok = (torch.arange(hi, device=q.device)[None]
+              <= torch.arange(lo, hi, device=q.device)[:, None]) & keep[:hi]
+        ok[:, 0] = True                      # row 0 keeps a key
+        p = torch.softmax(x.masked_fill(~ok, -math.inf), -1)
+        out[:, lo:hi] = torch.einsum("bhqk,bkhd->bqhd", p, vf[:, :hi])
+    return out
+
+
+def test_mla_flash_check_catches_planted_faults(cuda):
+    """The check of the 192/128 forward (PLAIN_UNITS against the plain
+    version) flags each fault its kernel could make, by far: the rotated
+    part of QK^T dropped (q's last 64 dims zeroed), one key tile missing
+    from the rows past it, and the softmax scale without YaRN's m^2
+    (192^-1/2)."""
+    s = 17408
+    q, k, v = _mla_inputs(cuda, s, seed=5)
+    want, _ = flash_ref.flash_forward_ref(q, k, v, scale=MLA_SCALE)
+    no_pe = q.clone()
+    no_pe[..., 128:] = 0
+    faults = {
+        "pe term dropped": flash_ops._forward_mla(no_pe, k, v, MLA_SCALE)[0],
+        "key tile missing": _masked_tile_ref(q, k, v, MLA_SCALE, tile=100),
+        "m^2 left out": flash_ops._forward_mla(q, k, v, 192 ** -0.5)[0]}
+    for name, got in faults.items():
+        err = flash_ref.err_units(got, want)
+        assert err > 10 * PLAIN_UNITS, (name, err)
+
+
+def test_mla_prefill_and_decode_on_the_card(cuda):
+    """DeepSeek-V2-Lite at full width, cut to its first two layers (the
+    dense one and an MoE one; bf16, ragged): a 4,096-token prefill takes
+    the 192/128 kernel once a layer and no plain attention on the card,
+    and writes 576 bf16 values a token a layer into the latent cache,
+    nothing per head. Then layer 0's attention alone: 8 decode steps
+    through its latent cache (the absorbed form, f32 products over the
+    bf16 latent) against the last row of the expanded form's prefill of
+    the sequence so far (bf16 K and V, the kernel), within MLA_DECODE_TOL
+    of the output's RMS."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.get("deepseek-v2-lite"), num_layers=2,
+                              moe_impl="ragged")
+    model = transformer.init_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 4096),
+                         generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = (flash_ops.launches_mla, attention.plain_cuda_calls,
+              attention.latent_bytes)
+    with torch.no_grad():
+        _, cache = transformer.prefill(model, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    assert (flash_ops.launches_mla - before[0],
+            attention.plain_cuda_calls - before[1],
+            attention.latent_bytes - before[2]) == (2, 0, 2 * 4096 * 576 * 2)
+    assert {k: set(e) for k, e in cache.items()} == {
+        "dense_blocks": {"ckv", "kpe"}, "blocks": {"ckv", "kpe"}}
+    p = model.blocks[0].attn
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((1, 4104, cfg.d_model), generator=gen,
+                    device=cuda).bfloat16()
+    pos = torch.arange(4104, device=cuda)[None]
+    layer = transformer._layer_cache(cfg, "moe", 1, 4104, cuda)
+    errs = []
+    with torch.no_grad():
+        _, rows = attention.mla_self_attention(p, x[:, :4096],
+                                               pos[:, :4096], cfg)
+        attention.fill_latent(layer, *rows)
+        for t in range(4096, 4104):
+            got = attention.mla_decode(p, x[:, t:t + 1], layer["ckv"],
+                                       layer["kpe"], pos[:, t].int(), cfg)
+            want, _ = attention.mla_self_attention(p, x[:, :t + 1],
+                                                   pos[:, :t + 1], cfg)
+            want = want[:, -1:].float()
+            errs.append(float((got.float() - want).abs().max()
+                              / want.square().mean().sqrt()))
+    print("mla decode against prefill, max error over the RMS:", errs)
+    assert max(errs) < MLA_DECODE_TOL, errs
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
 def test_recurrent_decode_on_the_card_equals_the_cpu(cuda, arch):
     """Prefill and 6 decode steps of each recurrent smoke config (f32) on
